@@ -13,11 +13,18 @@ CUDA device, or as their plain PyTorch versions on the CPU:
 - ``pipeline/binary.py``: K3, per-snarl table, filter and chi-squared
   statistic (csrc/binary_tables.cu);
 - ``stats/fisher.py``: K4, the Fisher exact scan (csrc/fisher.cu);
-- ``stats/special.py``: K5, the chi-squared tail (torch.special).
+- ``stats/special.py``: K5, the chi-squared tail (torch.special);
+- ``pipeline/quantitative.py``: K1+K7+K8, per-snarl OLS designs straight
+  from the packed words (csrc/quant_design.cu);
+- ``stats/linreg.py``: K9, masked OLS with the LDL^T rank probe and the
+  Jacobi pseudo-inverse (csrc/ols.cu), and K10, the Student-t tail and
+  the NA masking (csrc/student_t.cu).
 
-This slice ports ``stoat vcf -b``: a binary trait, no covariates, one
-device.  ``python -m stoat_tpu_torch vcf -s SNARLS -v VCF -b PHENO -o OUT
---device cuda`` writes the same ``binary_table_vcf.tsv`` as
+The slices ported so far are ``stoat vcf -b`` (a binary trait, no
+covariates) and ``stoat vcf -q`` (a quantitative trait, with or without
+covariates), on one device: ``python -m stoat_tpu_torch vcf -s SNARLS -v
+VCF -b PHENO | -q PHENO [-c COVAR -C NAMES] -o OUT --device cuda`` writes
+the same ``binary_table_vcf.tsv`` or ``quantitative_table_vcf.tsv`` as
 ``python -m stoat_tpu vcf``.  ROADMAP.md lists what is still to port.
 """
 

@@ -1,13 +1,15 @@
-"""Command line of the PyTorch/CUDA port: ``stoat vcf`` with a binary trait.
+"""Command line of the PyTorch/CUDA port: ``stoat vcf``, binary or
+quantitative trait.
 
-Follows stoat_tpu/cli.py main_vcf (:57-300) for the one mode the port
-runs so far: a binary phenotype (chi-squared + Fisher) with no
-covariates, on one device.  The snarl paths come from ``-s`` or from the
-decomposition of ``-p``/``-d`` (stoat_tpu.graph, reused).  ``--device``
-picks the device (default cuda); a CUDA device that is not there is an
-error, never a quiet run on the CPU.  Every other mode, subcommand and
-flag of stoat_tpu exits non-zero and names ROADMAP.md, where its port is
-queued.
+Follows stoat_tpu/cli.py main_vcf (:57-300) for the modes the port runs
+so far, on one device: a binary phenotype (``-b``, chi-squared + Fisher)
+with no covariates, and a quantitative phenotype (``-q``, OLS) with or
+without covariates (``-c FILE -C NAME[,NAME...]``).  The snarl paths
+come from ``-s`` or from the decomposition of ``-p``/``-d``
+(stoat_tpu.graph, reused).  ``--device`` picks the device (default
+cuda); a CUDA device that is not there is an error, never a quiet run on
+the CPU.  Every other mode, subcommand and flag of stoat_tpu exits
+non-zero and names ROADMAP.md, where its port is queued.
 """
 
 from __future__ import annotations
@@ -44,6 +46,9 @@ def main_vcf(argv: List[str]) -> int:
     ap.add_argument("-v", "--vcf", metavar="FILE")
     ap.add_argument("-s", "--snarl", metavar="FILE")
     ap.add_argument("-b", "--binary", metavar="FILE")
+    ap.add_argument("-q", "--quantitative", metavar="FILE")
+    ap.add_argument("-c", "--covariate", metavar="FILE")
+    ap.add_argument("-C", "--covar-name", metavar="NAME")
     ap.add_argument("--resume", action="store_true",
                     help="resume an interrupted run: chromosomes already "
                          "checkpointed in <output>.progress are skipped")
@@ -70,21 +75,32 @@ def main_vcf(argv: List[str]) -> int:
                          "must be > 1")
     if not (0 <= args.maf <= 1):
         raise SystemExit("Error: [stoat vcf] MAF must be in [0,1]")
-    for path in (args.graph, args.dist, args.vcf, args.snarl, args.binary):
+    if args.binary and args.quantitative:
+        return _not_ported("-b with -q (the dual-phenotype run)")
+    if args.binary and args.covariate:
+        return _not_ported("-b with -c (logistic regression)")
+    for path in (args.graph, args.dist, args.vcf, args.snarl, args.binary,
+                 args.quantitative, args.covariate):
         if path:
             _check_file(path)
 
+    # stoat_tpu/cli.py:136-140
+    covar_names = args.covar_name.split(",") if args.covar_name else []
+    if args.covariate and not covar_names:
+        logger.error("[stoat vcf] If --covariate path is provided you must "
+                     "add the column name(s), using --covar-name")
+        return 1
     decompose = bool(args.graph) and bool(args.dist)
-    if not args.binary:
+    if not (args.binary or args.quantitative):
         if decompose and not args.vcf and not args.snarl:
             return _not_ported("snarl decomposition alone (case 3)")
-        return _not_ported("a run without -b (binary phenotype)")
+        return _not_ported("a run without -b or -q")
     if not ((args.snarl or decompose) and args.vcf):
         logger.error(
             "[stoat vcf] Invalid argument combination provided.\n"
-            "stoat_tpu_torch runs: snarl_path + vcf_path + binary "
-            "phenotype, or graph_path + dist_path + vcf_path + binary "
-            "phenotype")
+            "stoat_tpu_torch runs: snarl_path + vcf_path + phenotype, or "
+            "graph_path + dist_path + vcf_path + phenotype (phenotype: "
+            "-b, or -q with optional -c/-C)")
         return 1
 
     from stoat_tpu_torch.device import resolve_device
@@ -96,14 +112,25 @@ def main_vcf(argv: List[str]) -> int:
     os.makedirs(args.output, exist_ok=True)
     t_start = time.time()
 
-    from stoat_tpu.io import parse_binary_pheno, parse_snarl_path
+    from stoat_tpu.io import (parse_binary_pheno, parse_covariates,
+                              parse_quantitative_pheno, parse_snarl_path)
     from stoat_tpu.io.vcf import VcfReader
 
     header_reader = VcfReader(args.vcf)
     list_samples = header_reader.samples
     header_reader.close()
-    binary_phenotype, list_samples = parse_binary_pheno(args.binary,
-                                                        list_samples)
+    covariate = None
+    if args.covariate:
+        covariate = parse_covariates(args.covariate, covar_names,
+                                     list_samples)
+    if args.binary:
+        mode, table = "binary", "binary_table_vcf.tsv"
+        phenotype, list_samples = parse_binary_pheno(args.binary,
+                                                     list_samples)
+    else:
+        mode, table = "quantitative", "quantitative_table_vcf.tsv"
+        phenotype = parse_quantitative_pheno(args.quantitative,
+                                             list_samples)
     if args.snarl:
         snarls_chr = parse_snarl_path(args.snarl)
     else:
@@ -120,9 +147,8 @@ def main_vcf(argv: List[str]) -> int:
     logger.info("Starting GWAS analysis on %s...", device)
     from stoat_tpu_torch.pipeline.runner import run_vcf_analysis
     run_vcf_analysis(
-        args.vcf, snarls_chr,
-        os.path.join(args.output, "binary_table_vcf.tsv"),
-        binary_phenotype, device,
+        args.vcf, snarls_chr, os.path.join(args.output, table), phenotype,
+        device, mode=mode, covariate=covariate,
         maf_threshold=args.maf,
         min_individuals=args.min_individuals,
         min_haplotypes=args.min_haplotypes,
@@ -139,7 +165,8 @@ def print_help() -> None:
     sys.stderr.write(
         "usage: python -m stoat_tpu_torch <command> [options]\n\n"
         "commands:\n"
-        "  vcf        VCF-based GWAS, binary phenotype (-b) only\n"
+        "  vcf        VCF-based GWAS: binary (-b) or quantitative (-q,\n"
+        "             with optional covariates -c/-C) phenotype\n"
         "  version    print version\n\n"
         "The other stoat_tpu commands and modes are not ported yet; see "
         "ROADMAP.md.\n")

@@ -8,7 +8,7 @@ the uint32 words, because PyTorch on the CPU has no uint32 shifts or
 staged in pinned host memory and copied without blocking.
 
 The CPU tests feed the same numpy arrays to both packages through
-:func:`to_device_chunk`.
+:func:`to_device_chunk` and :func:`to_quant_inputs`.
 """
 
 from __future__ import annotations
@@ -25,19 +25,20 @@ from stoat_tpu_torch.pipeline.packed import (pack_hap_mask_words,
                                              tail_mask_words)
 
 __all__ = ["DeviceChunk", "upload", "upload_words", "chunk_words",
-           "pheno_masks", "to_device_chunk"]
+           "pheno_masks", "to_device_chunk", "to_quant_inputs"]
 
 
 @dataclass
 class DeviceChunk:
-    """One chunk's inputs to the binary pipeline, on one device."""
+    """One chunk's inputs to the device pipelines, on one device."""
 
     words: torch.Tensor           # int32 [E+1, W], last row all ones
     path_idx: torch.Tensor        # int32 [P, K], padding = row E
     path_valid: torch.Tensor      # bool [P]
     snarl_path_idx: torch.Tensor  # int32 [S, Pmax], -1 padding
-    tail: torch.Tensor            # int32 [W], first H bits set
-    g1_words: torch.Tensor        # int32 [W], case haplotypes
+    # binary mode only
+    tail: Optional[torch.Tensor] = None      # int32 [W], first H bits set
+    g1_words: Optional[torch.Tensor] = None  # int32 [W], case haplotypes
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -78,7 +79,7 @@ def pheno_masks(binary_phenotype: np.ndarray, n_haplotypes: int,
             upload(tail.view(np.int32), device))
 
 
-def to_device_chunk(packed, binary_phenotype: np.ndarray,
+def to_device_chunk(packed, binary_phenotype: Optional[np.ndarray],
                     device: torch.device,
                     words: Optional[torch.Tensor] = None,
                     pheno: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
@@ -87,17 +88,18 @@ def to_device_chunk(packed, binary_phenotype: np.ndarray,
 
     ``words`` and ``pheno`` (from :func:`upload_words` and
     :func:`pheno_masks`) may be passed in when the caller shares them
-    across chunks; otherwise they are built and uploaded here.  The path
-    index comes from the native resolver when it made one, else from the
-    COO lists (``pack_path_edge_idx``, padding = the identity row)."""
+    across chunks; otherwise they are built and uploaded here.  Without
+    a binary phenotype (``None``, the quantitative pipeline) the chunk
+    carries no masks.  The path index comes from the native resolver when
+    it made one, else from the COO lists (``pack_path_edge_idx``, padding
+    = the identity row)."""
     device = torch.device(device)
     if words is None:
         words = upload_words(chunk_words(packed), device)
-    n_words = int(words.shape[1])
-    if pheno is None:
-        pheno = pheno_masks(binary_phenotype, packed.n_haplotypes, n_words,
-                            device)
-    g1_words, tail = pheno
+    if pheno is None and binary_phenotype is not None:
+        pheno = pheno_masks(binary_phenotype, packed.n_haplotypes,
+                            int(words.shape[1]), device)
+    g1_words, tail = pheno if pheno is not None else (None, None)
     path_idx = packed.path_idx
     if path_idx is None:
         path_idx = pack_path_edge_idx(packed.coo_path, packed.coo_row,
@@ -111,3 +113,15 @@ def to_device_chunk(packed, binary_phenotype: np.ndarray,
         tail=tail,
         g1_words=g1_words,
     )
+
+
+def to_quant_inputs(phenotype: np.ndarray, covar: Optional[np.ndarray],
+                    n_samples: int, device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(phenotype float64 [N], covariates float64 [N, C]) on ``device``,
+    from the parsed quantitative phenotype and covariate table; the
+    covariates are [N, 0] when there are none."""
+    if covar is None:
+        covar = np.zeros((n_samples, 0), np.float64)
+    return (upload(np.asarray(phenotype, np.float64), device),
+            upload(np.asarray(covar, np.float64), device))

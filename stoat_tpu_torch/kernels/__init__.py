@@ -2,8 +2,11 @@
 
 Each kernel has a wrapper beside its plain PyTorch version:
 ``pipeline/packed.py membership_counts`` (csrc/membership_counts.cu),
-``pipeline/binary.py binary_tables`` (csrc/binary_tables.cu) and
-``stats/fisher.py fisher_exact_2x2`` (csrc/fisher.cu).  A wrapper given
+``pipeline/binary.py binary_tables`` (csrc/binary_tables.cu),
+``stats/fisher.py fisher_exact_2x2`` (csrc/fisher.cu),
+``pipeline/quantitative.py quant_design`` (csrc/quant_design.cu),
+``stats/linreg.py linear_regression_stats`` (csrc/ols.cu) and
+``stats/linreg.py student_t_pvalues`` (csrc/student_t.cu).  A wrapper given
 CUDA tensors launches its kernel through :func:`launch` or raises; given
 CPU tensors it runs the plain version.  :data:`LAUNCHES` counts the
 launches of each kernel, so that a run can show which kernels it went
@@ -25,7 +28,8 @@ I64 = ctypes.c_int64
 F64 = ctypes.c_double
 
 LAUNCHES: Dict[str, int] = {"membership_counts": 0, "binary_tables": 0,
-                            "fisher": 0}
+                            "fisher": 0, "quant_design": 0, "ols": 0,
+                            "student_t": 0}
 
 
 def reset_launch_counts() -> None:

@@ -21,12 +21,13 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 __all__ = ["NVCC_FLAGS", "BUILD_DIR", "BuildInfo", "BUILD_LOG", "find_nvcc",
-           "load"]
+           "load", "build_all"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stoat_tpu_torch"
@@ -70,6 +71,9 @@ def find_nvcc() -> str:
 
 
 def _build(name: str) -> Path:
+    info = BUILD_LOG.get(name)
+    if info is not None:                    # built by this process
+        return Path(info.path)
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -91,6 +95,15 @@ def _build(name: str) -> Path:
     BUILD_LOG[name] = BuildInfo(name, str(out), seconds,
                                 (res.stdout + res.stderr).strip())
     return out
+
+
+def build_all(names: Sequence[str]) -> None:
+    """Build the named libraries together: one nvcc process per source,
+    all started at once (each nvcc runs single-threaded).  Raises the
+    first failure once every build has ended."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        for future in [pool.submit(_build, name) for name in names]:
+            future.result()
 
 
 def load(name: str) -> ctypes.CDLL:

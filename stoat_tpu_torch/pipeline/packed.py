@@ -1,11 +1,14 @@
-"""Bit-packed membership path: host packing helpers and K1+K2.
+"""Bit-packed membership path: host packing helpers, K1+K2, and the plain
+K1 and K7 that the quantitative design starts from.
 
 The edge x haplotype matrix travels as uint32 words, 32 haplotypes per
 word in little bit order (bit j of word w is haplotype 32*w + j), with a
 trailing all-ones row: the AND identity that pads each path's edge list.
 A path's membership is the AND of its edge rows; its binary carrier
 counts are population counts of that membership against the packed case
-mask.  This is stoat_tpu/pipeline/packed.py, whose layout it keeps.
+mask.  This is stoat_tpu/pipeline/packed.py, whose layout it keeps.  On
+the card the quantitative path never materialises the membership: K1 and
+K7 are fused into csrc/quant_design.cu (pipeline/quantitative.py).
 
 The numpy host helpers are copies of stoat_tpu/pipeline/packed.py:60-148.
 The port calls them instead of the ``PackedChromosome`` and
@@ -34,6 +37,8 @@ __all__ = [
     "unpack_words_to_dense",
     "membership_counts",
     "membership_counts_plain",
+    "membership_words_plain",
+    "unpack_membership_plain",
 ]
 
 _WORD = 32
@@ -122,19 +127,40 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def membership_words_plain(words: torch.Tensor,
+                           path_idx: torch.Tensor) -> torch.Tensor:
+    """Packed membership int32 [P, W]: the AND of each path's edge rows
+    (K1, stoat_tpu/pipeline/packed.py membership_words).
+
+    A K-step AND accumulation of [P, W] row gathers; bits past H and
+    invalid paths are left for the caller to mask."""
+    mem = words.index_select(0, path_idx[:, 0])
+    for k in range(1, path_idx.shape[1]):
+        mem &= words.index_select(0, path_idx[:, k])
+    return mem
+
+
+def unpack_membership_plain(mem_words: torch.Tensor, path_valid: torch.Tensor,
+                            n_haplotypes: int) -> torch.Tensor:
+    """bool [P, H] membership from packed words (K7,
+    stoat_tpu/pipeline/packed.py unpack_membership): bit j of word w is
+    haplotype 32*w + j; bits past H are dropped and invalid paths are
+    all False."""
+    P, W = mem_words.shape
+    shifts = torch.arange(_WORD, dtype=torch.int32, device=mem_words.device)
+    # the arithmetic shift of the int32 view leaves bit 0 as it is
+    bits = (mem_words[:, :, None] >> shifts) & 1
+    full = bits.reshape(P, W * _WORD)[:, :n_haplotypes] != 0
+    return full & path_valid[:, None]
+
+
 def membership_counts_plain(words: torch.Tensor, path_idx: torch.Tensor,
                             path_valid: torch.Tensor, tail: torch.Tensor,
                             g1_words: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`membership_counts`.
-
-    A K-step AND accumulation of [P, W] row gathers, as
-    stoat_tpu/pipeline/packed.py membership_words, then the popcounts of
-    packed_binary_counts."""
-    P, K = path_idx.shape
-    mem = tail.expand(P, -1).clone()
-    for k in range(K):
-        mem &= words.index_select(0, path_idx[:, k])
+    """Plain PyTorch version of :func:`membership_counts`: the membership
+    words, then the popcounts of stoat_tpu's packed_binary_counts."""
+    mem = membership_words_plain(words, path_idx) & tail
     mem = torch.where(path_valid[:, None], mem, torch.zeros_like(mem))
     g1 = _popcount32(mem & g1_words[None, :]).sum(dim=-1)
     g_all = _popcount32(mem).sum(dim=-1)

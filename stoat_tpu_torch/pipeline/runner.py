@@ -1,11 +1,13 @@
-"""VCF-mode orchestration, binary trait on one device: stream -> pack ->
-device batch -> TSV.
+"""VCF-mode orchestration on one device: stream -> pack -> device batch ->
+TSV, for a binary trait (``-b``) or a quantitative one (``-q``, with
+optional covariates).
 
-The port of the binary single-device path of stoat_tpu/pipeline/
-runner.py run_vcf_analysis (:412-814).  The VCF is read one chromosome at
-a time by the native C++ core on a prefetch thread; each chromosome's
-packed words are uploaded once, after the parse, from pinned memory; its
-snarls go through the binary pipeline in chunks; and a writer thread
+The port of the single-device binary and quantitative paths of
+stoat_tpu/pipeline/runner.py run_vcf_analysis (:412-814).  The VCF is
+read one chromosome at a time by the native C++ core on a prefetch
+thread; each chromosome's packed words are uploaded once, after the
+parse, from pinned memory; its snarls go through the binary or the
+quantitative pipeline in chunks; and a writer thread
 waits for each chunk's host copies, formats the rows and writes them in
 snarl-file order.  ``--resume`` checkpoints every completed chromosome in
 a ``<output>.progress`` sidecar.
@@ -35,12 +37,18 @@ from stoat_tpu.io.snarl_file import SnarlData
 from stoat_tpu.io.vcf import VcfReader
 from stoat_tpu.matrix import EdgeHaplotypeMatrix
 from stoat_tpu.tables import pack_chromosome_chunks, tokenize_chromosome
-from stoat_tpu_torch.convert import chunk_words, pheno_masks, upload_words
+from stoat_tpu_torch.convert import (chunk_words, pheno_masks,
+                                     to_quant_inputs, upload_words)
 from stoat_tpu_torch.pipeline.binary import binary_analyze_chromosome
+from stoat_tpu_torch.pipeline.quantitative import \
+    quantitative_analyze_chromosome
 
 logger = logging.getLogger("stoat")
 
-__all__ = ["run_vcf_analysis", "iter_chromosome_matrices", "INGEST_COUNTS"]
+__all__ = ["run_vcf_analysis", "iter_chromosome_matrices", "INGEST_COUNTS",
+           "MODES"]
+
+MODES = ("binary", "quantitative")
 
 # chromosomes read by each VCF reader since the process started (the
 # native core, or the pure-Python fallback)
@@ -255,12 +263,13 @@ def _log_degenerate(chrom: str, matrix, n_snarls: int) -> None:
 
 
 def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
-                         tokenizer, binary_phenotype, device, pheno,
-                         min_individuals, min_haplotypes, maf_threshold,
-                         snarl_chunk_size):
+                         tokenizer, mode, phenotype, covariate, device,
+                         pheno, min_individuals, min_haplotypes,
+                         maf_threshold, snarl_chunk_size):
     """Queue one chromosome's chunks on the device and their writes on
-    the writer thread, then its checkpoint; returns the phenotype masks
-    (uploaded on the first chunk of the run)."""
+    the writer thread, then its checkpoint; returns the run's phenotype
+    tensors (uploaded on the first chunk of the run: the packed masks in
+    binary mode, the phenotype and covariates in quantitative mode)."""
     t0 = time.time()
     logger.info("Analysing chr : %s", chrom)
     _log_degenerate(chrom, matrix, len(snarls))
@@ -272,16 +281,25 @@ def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
         if words is None:
             # one upload per chromosome: every chunk shares its words
             words = upload_words(chunk_words(packed), device)
-        if pheno is None:
-            pheno = pheno_masks(binary_phenotype, packed.n_haplotypes,
-                                int(words.shape[1]), device)
-        res = binary_analyze_chromosome(
-            packed, binary_phenotype, min_individuals, min_haplotypes,
-            maf_threshold, device, words=words, pheno=pheno)
+        if mode == "binary":
+            if pheno is None:
+                pheno = pheno_masks(phenotype, packed.n_haplotypes,
+                                    int(words.shape[1]), device)
+            res = binary_analyze_chromosome(
+                packed, phenotype, min_individuals, min_haplotypes,
+                maf_threshold, device, words=words, pheno=pheno)
+            write = W.write_binary_rows_batch
+        else:
+            if pheno is None:
+                pheno = to_quant_inputs(phenotype, covariate,
+                                        packed.n_haplotypes // 2, device)
+            res = quantitative_analyze_chromosome(
+                packed, *pheno, min_individuals, min_haplotypes,
+                maf_threshold, device, words=words)
+            write = W.write_quant_rows_batch
         # the writer thread waits for the chunk's host copies, then
         # formats and writes its rows (returns the filtered count)
-        writer.submit(partial(W.write_binary_rows_batch, outf, chrom,
-                              packed.snarls, res))
+        writer.submit(partial(write, outf, chrom, packed.snarls, res))
 
     def _chr_done(n=len(snarls)):
         f = writer.count() - chr_state.get("start", 0)
@@ -305,8 +323,10 @@ def run_vcf_analysis(
     vcf_path: str,
     snarls_chr: Dict[str, List[SnarlData]],
     output_tsv: str,
-    binary_phenotype: np.ndarray,
+    phenotype: np.ndarray,
     device: torch.device,
+    mode: str = "binary",
+    covariate: Optional[np.ndarray] = None,
     maf_threshold: float = 0.05,
     min_individuals: int = 3,
     min_haplotypes: int = 5,
@@ -314,13 +334,22 @@ def run_vcf_analysis(
     snarl_chunk_size: int = 8192,
     resume: bool = False,
 ) -> int:
-    """Run the binary-trait GWAS over a VCF on ``device``; returns the
-    number of snarls filtered.  Writes ``output_tsv`` byte-identical to
-    stoat_tpu's run_vcf_analysis in binary mode."""
+    """Run the GWAS over a VCF on ``device``; returns the number of snarls
+    filtered.  ``mode`` "binary" takes a bool phenotype (chi-squared and
+    Fisher), "quantitative" a float64 phenotype and optional [N, C]
+    covariates (OLS).  Writes ``output_tsv`` byte-identical to
+    stoat_tpu's run_vcf_analysis in the same mode."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     header_reader = VcfReader(vcf_path)
     samples = sample_names or header_reader.samples
     header_reader.close()
     n_hap = 2 * len(samples)
+    if mode == "quantitative" and samples:
+        # the [chunk, samples, 1 + Pmax + C] float64 design stays near
+        # 2 GB (stoat_tpu/pipeline/runner.py:598-605)
+        snarl_chunk_size = min(snarl_chunk_size,
+                               max(int(2e9 // (len(samples) * 96)), 256))
 
     # --resume: a chromosome counts as complete once its progress entry
     # exists; the output truncates back to the last complete offset so a
@@ -339,7 +368,10 @@ def run_vcf_analysis(
         except OSError:
             pass
         outf = open(output_tsv, "w", newline="")
-        W.write_binary_header(outf)
+        if mode == "binary":
+            W.write_binary_header(outf)
+        else:
+            W.write_quantitative_header(outf)
 
     total_analyzed = 0
     with outf:
@@ -347,7 +379,7 @@ def run_vcf_analysis(
             vcf_path, n_hap, snarls_chr))
         tokenizer = _QuadTokenizer(snarls_chr)
         writer = _PipelinedWriter()
-        pheno = None          # per-run packed phenotype masks on device
+        pheno = None          # per-run phenotype tensors on device
         try:
             for chrom, matrix in matrices:
                 if chrom not in snarls_chr:
@@ -361,7 +393,7 @@ def run_vcf_analysis(
                 snarls = snarls_chr[chrom]
                 pheno = _dispatch_chromosome(
                     outf, output_tsv, chrom, matrix, snarls, writer,
-                    tokenizer, binary_phenotype, device, pheno,
+                    tokenizer, mode, phenotype, covariate, device, pheno,
                     min_individuals, min_haplotypes, maf_threshold,
                     snarl_chunk_size)
                 total_analyzed += len(snarls)

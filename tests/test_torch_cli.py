@@ -1,5 +1,5 @@
-"""End-to-end parity: ``python -m stoat_tpu_torch vcf -b ... --device cpu``
-writes the same bytes as ``python -m stoat_tpu vcf -b ...``.
+"""End-to-end parity: ``python -m stoat_tpu_torch vcf -b|-q ... --device
+cpu`` writes the same bytes as ``python -m stoat_tpu vcf -b|-q ...``.
 
 Both CLIs run in process, through each package's ``cli.main``, on
 fixtures made by ``tests/fixtures.make_fixture`` from a seed.
@@ -18,6 +18,7 @@ from stoat_tpu_torch import cli as torch_cli
 from stoat_tpu_torch.pipeline import runner as torch_runner
 
 TSV = "binary_table_vcf.tsv"
+QTSV = "quantitative_table_vcf.tsv"
 
 
 def _args(paths, out, *extra):
@@ -25,23 +26,40 @@ def _args(paths, out, *extra):
             paths["binary"], "-o", out, *extra]
 
 
+def _mode_args(mode, paths, out, *extra):
+    """(argv, table name) of a run in ``mode``: "b" (binary), "q"
+    (quantitative) or "qc" (quantitative with the AGE and SEX
+    covariates)."""
+    if mode == "b":
+        return _args(paths, out, *extra), TSV
+    covar = (["-c", paths["covariate"], "-C", "AGE,SEX"]
+             if mode == "qc" else [])
+    return (["vcf", "-s", paths["snarl"], "-v", paths["vcf"], "-q",
+             paths["quantitative"], *covar, "-o", out, *extra], QTSV)
+
+
 def _read(path):
     with open(path, "rb") as fh:
         return fh.read()
 
 
-@pytest.mark.parametrize("n_samples,n_chroms", [(40, 1), (200, 2)])
+@pytest.mark.parametrize("n_samples,n_chroms,mode", [
+    pytest.param(n, c, mode, id=f"{n}-{c}" + ("" if mode == "b" else
+                                                f"-{mode}"))
+    for mode in ("b", "q", "qc") for n, c in ((40, 1), (200, 2))])
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_cli_byte_identical(tmp_path, seed, n_samples, n_chroms):
+def test_cli_byte_identical(tmp_path, seed, n_samples, n_chroms, mode):
     paths = make_fixture(str(tmp_path / "data"), n_samples=n_samples,
                          n_snarls=40, seed=seed, n_chroms=n_chroms)
     jax_out = str(tmp_path / "jax")
     torch_out = str(tmp_path / "torch")
-    assert jax_cli.main(_args(paths, jax_out)) == 0
-    assert torch_cli.main(_args(paths, torch_out, "--device", "cpu")) == 0
-    want = _read(os.path.join(jax_out, TSV))
+    argv, table = _mode_args(mode, paths, jax_out)
+    assert jax_cli.main(argv) == 0
+    argv, _ = _mode_args(mode, paths, torch_out, "--device", "cpu")
+    assert torch_cli.main(argv) == 0
+    want = _read(os.path.join(jax_out, table))
     assert want.count(b"\n") > 10          # rows, not just the header
-    assert _read(os.path.join(torch_out, TSV)) == want
+    assert _read(os.path.join(torch_out, table)) == want
 
 
 def _chip_smoke():
@@ -94,10 +112,20 @@ def test_cli_resume_after_interrupt(tmp_path, monkeypatch):
     """A run cut after its first chromosome, resumed with --resume, ends
     byte-identical to stoat_tpu, without analysing that chromosome
     again."""
+    _resume_after_interrupt(tmp_path, monkeypatch, "b")
+
+
+def test_cli_quantitative_resume_after_interrupt(tmp_path, monkeypatch):
+    """--resume of a ``vcf -q -c -C AGE,SEX`` run."""
+    _resume_after_interrupt(tmp_path, monkeypatch, "qc")
+
+
+def _resume_after_interrupt(tmp_path, monkeypatch, mode):
     paths = make_fixture(str(tmp_path / "data"), n_samples=40, n_snarls=36,
                          seed=2, n_chroms=3)
     jax_out = str(tmp_path / "jax")
-    assert jax_cli.main(_args(paths, jax_out)) == 0
+    argv, table = _mode_args(mode, paths, jax_out)
+    assert jax_cli.main(argv) == 0
 
     real = torch_runner._dispatch_chromosome
     seen = []
@@ -112,18 +140,19 @@ def test_cli_resume_after_interrupt(tmp_path, monkeypatch):
     monkeypatch.setattr(torch_runner, "_dispatch_chromosome",
                         crash_after_first)
     with pytest.raises(RuntimeError, match="simulated crash"):
-        torch_cli.main(_args(paths, torch_out, "--device", "cpu"))
-    tsv = os.path.join(torch_out, TSV)
+        torch_cli.main(_mode_args(mode, paths, torch_out, "--device",
+                                  "cpu")[0])
+    tsv = os.path.join(torch_out, table)
     progress = torch_runner._read_progress(tsv)
     assert list(progress) == seen[:1]
 
     seen.clear()
     monkeypatch.setattr(torch_runner, "_dispatch_chromosome",
                         _spy(real, seen))
-    assert torch_cli.main(_args(paths, torch_out, "--device", "cpu",
-                                "--resume")) == 0
+    assert torch_cli.main(_mode_args(mode, paths, torch_out, "--device",
+                                     "cpu", "--resume")[0]) == 0
     assert seen == ["ref1", "ref2"]
-    assert _read(tsv) == _read(os.path.join(jax_out, TSV))
+    assert _read(tsv) == _read(os.path.join(jax_out, table))
 
 
 def _spy(real, seen):
@@ -134,12 +163,26 @@ def _spy(real, seen):
 
 
 @pytest.mark.parametrize("argv", [
-    ["vcf", "-q", "x"], ["vcf", "-c", "x", "-C", "AGE"], ["vcf", "--lmm"],
-    ["vcf", "--permutations", "10"], ["vcf", "-T", "0.01"],
-    ["vcf", "--no-such-flag"], ["graph"], ["BHcorrect"]])
+    ["vcf", "-b", "x", "-q", "y"], ["vcf", "-b", "x", "-c", "y", "-C", "AGE"],
+    ["vcf", "--lmm"], ["vcf", "--permutations", "10"], ["vcf", "-T", "0.01"],
+    ["vcf", "--no-such-flag"], ["graph"], ["BHcorrect"],
+    ["vcf", "-e", "x", "-G", "y"], ["vcf", "-q", "x", "-k", "y", "--lmm"]])
 def test_unported_modes_exit_nonzero_naming_roadmap(argv, capsys):
+    """Dual -b -q, -b -c (logistic), eQTL, LMM, permutations and -T are
+    refused before anything runs, never run on another path."""
     assert torch_cli.main(argv) != 0
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_covariate_needs_its_column_names(tmp_path):
+    """-c without -C is an error, as in stoat_tpu/cli.py:136-140."""
+    paths = make_fixture(str(tmp_path / "data"), n_samples=20, n_snarls=8,
+                         seed=1)
+    argv, _ = _mode_args("q", paths, str(tmp_path / "out"), "-c",
+                         paths["covariate"], "--device", "cpu")
+    assert torch_cli.main(argv) == 1
+    assert jax_cli.main(argv[:-2]) == 1
+    assert not (tmp_path / "out").exists()
 
 
 def test_cli_decomposition_case2_byte_identical(tmp_path):

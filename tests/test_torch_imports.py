@@ -31,24 +31,35 @@ def _run(script: str, tmp_path) -> subprocess.CompletedProcess:
 
 
 def test_port_runs_without_jax_or_triton(tmp_path):
-    """Importing the port, its CLI and its runner, and a whole CPU run,
-    leave jax and triton out of sys.modules."""
+    """Importing the port, its CLI, its runner and every kernel module, and
+    whole CPU runs of ``vcf -b`` and ``vcf -q -c``, leave jax and triton
+    out of sys.modules and need no CUDA toolkit (nothing is built)."""
     res = _run(f"""
         import os, sys
         import stoat_tpu_torch
         import stoat_tpu_torch.cli
         import stoat_tpu_torch.pipeline.runner
+        import stoat_tpu_torch.pipeline.quantitative
+        import stoat_tpu_torch.stats.linalg
+        import stoat_tpu_torch.stats.linreg
+        import stoat_tpu_torch.stats.special
+        from stoat_tpu_torch.kernels import build
         from fixtures import make_fixture
         p = make_fixture({str(tmp_path / 'data')!r}, n_samples=20,
                          n_snarls=12, seed=4)
         out = {str(tmp_path / 'out')!r}
-        rc = stoat_tpu_torch.cli.main(
-            ["vcf", "-s", p["snarl"], "-v", p["vcf"], "-b", p["binary"],
-             "-o", out, "--device", "cpu"])
-        assert rc == 0, rc
-        with open(os.path.join(out, "binary_table_vcf.tsv")) as fh:
-            assert fh.readline().startswith("#CHR")
-            assert fh.readline()
+        for pheno, table in ((["-b", p["binary"]], "binary"),
+                             (["-q", p["quantitative"], "-c",
+                               p["covariate"], "-C", "AGE,SEX"],
+                              "quantitative")):
+            rc = stoat_tpu_torch.cli.main(
+                ["vcf", "-s", p["snarl"], "-v", p["vcf"], *pheno,
+                 "-o", out, "--device", "cpu"])
+            assert rc == 0, rc
+            with open(os.path.join(out, table + "_table_vcf.tsv")) as fh:
+                assert fh.readline().startswith("#CHR")
+                assert fh.readline()
+        assert not build.BUILD_LOG, build.BUILD_LOG
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "triton"))
         assert not bad, bad
@@ -136,5 +147,6 @@ def test_launch_counts_reset():
     kernels.LAUNCHES["fisher"] += 3
     kernels.reset_launch_counts()
     assert set(kernels.LAUNCHES) == {"membership_counts", "binary_tables",
-                                     "fisher"}
+                                     "fisher", "quant_design", "ols",
+                                     "student_t"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
