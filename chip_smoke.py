@@ -6,25 +6,30 @@ g++:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA kernels (one nvcc per source, all at once)
-and the native VCF core from the sources in the checkout, then runs five
-phases, each printing one line and each fatal on failure:
+It builds the port's eight CUDA kernels (one nvcc per source, all at
+once) and the native VCF and graph cores from the sources in the
+checkout, then runs five phases, each printing lines and each fatal on
+failure:
 
   1. card: nvidia-smi name and power limit, torch and CUDA versions, the
      kernels' nvcc build with ptxas register and spill counts;
-  2. native core: built into build/stoat_tpu_torch/native and loaded;
+  2. native cores: built into build/stoat_tpu_torch/native and loaded;
   3. kernels against their plain PyTorch versions, on the card, at the
-     main path's shapes (the first chunk of ``vcf -b`` and of ``vcf -q
-     -c``) and on edge cases (tolerances printed);
-  4. main paths: the port's CLI, ``vcf -b``, ``vcf -q`` and ``vcf -q -c
-     -C AGE,SEX`` with ``--device cuda``, on a generated cohort of 2,504
-     samples (the 1000 Genomes phase-3 size) and 65,536 snarls on 2
-     chromosomes; each path's kernels must have launched on every chunk;
-     then the same runs with ``--device cpu`` (the binary TSVs byte for
-     byte, the quantitative ones as phase 4 states), and numpy references
-     built from the VCF text;
+     main paths' shapes (the first chunk of ``vcf -b``, of ``vcf -q -c``
+     and of ``vcf -b -c``, and the main graph's partition counts) and on
+     edge cases (tolerances printed);
+  4. main paths: the port's CLI with ``--device cuda``: ``vcf -b``, ``vcf
+     -q``, ``vcf -q -c -C AGE,SEX`` and ``vcf -b -c -C AGE,SEX`` on a
+     generated cohort of 2,504 samples (the 1000 Genomes phase-3 size)
+     and 65,536 snarls on 2 chromosomes, each path's kernels launched on
+     every chunk; ``graph`` on a generated graph of 100,000 snarls walked
+     by 90 haplotype paths (the HPRC release-1 count), through the native
+     path; then the same runs with ``--device cpu`` (the binary and graph
+     outputs byte for byte, the regression TSVs as phase 4 states), numpy
+     and scipy references built from the inputs' text, and graph mode's
+     Python twin against its native path;
   5. each kernel's time and its plain version's, on the card, at the main
-     path's shapes (CUDA events, after a warm-up, and profiler device
+     paths' shapes (CUDA events, after a warm-up, and profiler device
      time).
 
 The last two lines of standard output are a JSON object of the kernels and
@@ -48,6 +53,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -55,6 +61,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # runner's per-chromosome pipelining runs
 N_SAMPLES = 2504
 N_CHROMS = 2
+# graph mode: 45 samples x 2 haplotype paths (the 90 haplotypes of the
+# HPRC release-1 graph) over 100,000 snarls of one chromosome
+GRAPH_SAMPLES = 45
+GRAPH_SNARLS = 100000
+# the Python twin (STOAT_GRAPH_PYTHON=1) walks a smaller graph
+TWIN_SNARLS = 2000
 
 # tests/test_stats_oracle.py:105, the reference's pinned strings
 FISHER_CASES = [
@@ -86,9 +98,15 @@ KERNELS = {
     "ols": ("stoat_tpu_torch/csrc/ols.cu", "stoat_tpu/stats/linreg.py:141"),
     "student_t": ("stoat_tpu_torch/csrc/student_t.cu",
                   "stoat_tpu/stats/linreg.py:206"),
+    "graph_stats": ("stoat_tpu_torch/csrc/graph_stats.cu",
+                    "stoat_tpu/graph/association.py:496"),
+    "logreg": ("stoat_tpu_torch/csrc/logreg.cu",
+               "stoat_tpu/stats/logreg.py:44"),
 }
 BINARY_KERNELS = ("membership_counts", "binary_tables", "fisher")
 QUANT_KERNELS = ("quant_design", "ols", "student_t")
+BC_KERNELS = ("quant_design", "logreg")
+GRAPH_KERNELS = ("graph_stats",)
 COVAR_NAMES = ["AGE", "SEX"]
 THRESHOLDS = (3, 5, 0.05)
 # the Student-t grid of tests/test_torch_linreg.py
@@ -112,6 +130,17 @@ T_REL = 1e-12
 T_CPU_REL = 1e-10
 TSV_REL = 1e-9
 REF_REL = 1e-8
+# logistic regression, kernel vs plain on the card: rows summed in another
+# order; p = 2 (1 - ndtr) moves in absolute steps of 2^-52 near 0, so a p
+# below P_FLOOR is held to the bound times P_FLOOR instead (every logistic
+# comparison: here, phase 4's TSVs and the reference)
+LOGREG_REL = 1e-10
+P_FLOOR = 1e-5
+# graph mode: P_FISHER / P_CHI2 of the sampled rows against
+# tests/reference_impl.py (scipy); a 4-digit string may flip at a rounding
+# boundary, never by more than one unit
+GRAPH_REF_ROWS = 2000
+GRAPH_REF_REL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -174,6 +203,13 @@ def to_np(t):
     return t.detach().cpu().numpy()
 
 
+def memory_note(peak, held):
+    """A run's peak device memory, and how much of it earlier phases'
+    tensors (kept for phase 5) already held when the run started."""
+    return (f"{peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above "
+            f"the {held / 2**20:.1f} MiB held before the run)")
+
+
 # ---------------------------------------------------------------- reference
 
 def reference_rows(paths, min_individuals=3, min_haplotypes=5, maf=0.05):
@@ -226,21 +262,25 @@ def reference_rows(paths, min_individuals=3, min_haplotypes=5, maf=0.05):
     return rows, filtered
 
 
-def quant_reference(paths, pheno, covar, n_sample=512, seed=0,
+def quant_reference(paths, pheno, covar, case, n_sample=512, seed=0,
                     thresholds=THRESHOLDS):
-    """What ``vcf -q`` must compute for a ``make_fixture`` cohort, from the
-    VCF text, the phenotype and the covariates alone, in numpy.
+    """What ``vcf -q`` and ``vcf -b -c`` must compute for a
+    ``make_fixture`` cohort, from the VCF text, the phenotypes and the
+    covariates alone, in numpy.
 
     Returns ``(table, stats)``: ``table`` maps (chrom, snarl) to
-    (filtered, allele_paths) for every snarl, in file order; ``stats``
-    maps (chrom, snarl) of up to ``n_sample`` random unfiltered snarls to
-    ((p, beta, se, r2) without covariates, the same with them), from
-    tests/reference_impl.py (NaN for a degenerate snarl, whose merged
-    columns all drop).  A haplotype carries path i exactly when its
-    allele is i (reference_rows)."""
+    (filtered, allele_paths) for every snarl, in file order (the two
+    modes filter alike); ``stats`` maps (chrom, snarl) of up to
+    ``n_sample`` random unfiltered snarls to ((p, beta, se, r2) of OLS
+    without covariates, the same with them, (p, beta, se) of the logistic
+    model of the bool phenotype ``case``), from tests/reference_impl.py
+    (NaN for a degenerate snarl, whose merged columns all drop, and for a
+    logistic fit that never converges).  A haplotype carries path i
+    exactly when its allele is i (reference_rows)."""
     import numpy as np
     from reference_impl import (combine_identical_columns,
-                                filtration_quantitative, ols_reference)
+                                filtration_quantitative, irls_reference,
+                                ols_reference)
     N = pheno.shape[0]
     sample_of = np.arange(2 * N) // 2
     records = []
@@ -275,11 +315,112 @@ def quant_reference(paths, pheno, covar, n_sample=512, seed=0,
             continue
         merged = combine_identical_columns(df)[:, :-1]
         if merged.shape[1] == 0:
-            stats[key] = ((np.nan,) * 4, (np.nan,) * 4)
+            stats[key] = ((np.nan,) * 4, (np.nan,) * 4, (np.nan,) * 3)
             continue
+        logit = irls_reference(merged, case[used].astype(float))
         stats[key] = (ols_reference(merged, pheno[used], None),
-                      ols_reference(merged, pheno[used], covar[used]))
+                      ols_reference(merged, pheno[used], covar[used]),
+                      (np.nan,) * 3 if logit is None else logit)
     return table, stats
+
+
+def write_graph(out_dir, n_snarls, n_samples=GRAPH_SAMPLES, seed=0):
+    """A GFA for ``graph`` mode and its binary phenotype, from a seed.
+
+    One chromosome: a backbone of anchor nodes with one snarl between
+    each pair, walked by ``2 * n_samples`` haplotype paths named
+    ``S####1#chr1`` and ``S####2#chr1`` (PanSN) and a reference path
+    ``ref`` through the first branch of every snarl.  Snarl k is a
+    biallelic bubble, triallelic when k % 5 == 0 (a 2xN test), with a
+    deletion edge straight across when k % 7 == 3 (an irregular snarl;
+    tests/test_graph_native_parity.py:35-37) and with a nested bubble in
+    its second branch when k % 11 == 4 (depth 2).  Allele frequencies
+    are random; one snarl in ten shifts them in cases, and one in fifty
+    splits cases from controls exactly (``-T exact`` reports those).
+    Returns {"gfa",
+    "pheno", "n_snarls", "n_samples"}."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    H = 2 * n_samples
+    case = np.zeros(n_samples, bool)
+    case[rng.permutation(n_samples)[:n_samples // 2]] = True
+    case_hap = np.repeat(case, 2)
+    lines, tokens, offs = [], [], [0]
+    nid = 1
+
+    def node(seq):
+        nonlocal nid
+        lines.append(f"S\t{nid}\t{seq}\n")
+        nid += 1
+        return nid - 1
+
+    def link(u, v):
+        lines.append(f"L\t{u}\t+\t{v}\t+\t0M\n")
+
+    choice = np.zeros((H, n_snarls), np.int64)
+    anchor = node("ACGT")
+    ref_steps = []
+    for k in range(n_snarls):
+        m1, m2 = node("C"), node("GG")
+        alleles = [[m1]]
+        if k % 11 == 4:                       # m2 -> (n1 | n2) -> m3
+            n1, n2, m3 = node("A"), node("CC"), node("G")
+            for u, v in ((m2, n1), (m2, n2), (n1, m3), (n2, m3)):
+                link(u, v)
+            alleles += [[m2, n1, m3], [m2, n2, m3]]
+            ends = [m1, m3]
+        else:
+            alleles.append([m2])
+            ends = [m1, m2]
+        if k % 5 == 0:
+            m4 = node("TTT")
+            alleles.append([m4])
+            ends.append(m4)
+        if k % 7 == 3:
+            alleles.append([])                # the deletion edge
+        nxt = node("ACGT")
+        for branch in alleles:
+            if branch:
+                link(anchor, branch[0])
+        for e in ends:
+            link(e, nxt)
+        if k % 7 == 3:
+            link(anchor, nxt)
+        for branch in alleles:
+            tokens.append("".join(f"{n}+," for n in [anchor, *branch])
+                          .encode())
+        offs.append(len(tokens))
+        ref_steps.append(f"{anchor}+,{m1}+,".encode())
+        freq = rng.dirichlet(np.ones(len(alleles)))
+        cum = np.cumsum(freq)
+        u = rng.random(H)
+        if k % 10 == 7:                       # associated: cases shift
+            u = np.where(case_hap, u ** 3, u)
+        choice[:, k] = np.minimum(np.searchsorted(cum, u), len(alleles) - 1)
+        if k % 50 == 17:                      # an exact partition
+            choice[:, k] = np.where(case_hap, 0, 1)
+        anchor = nxt
+    table = np.empty(len(tokens), object)
+    table[:] = tokens
+    base = np.asarray(offs[:-1], np.int64)
+    gfa = os.path.join(out_dir, "graph.gfa")
+    with open(gfa, "wb") as fh:
+        fh.write(b"H\tVN:Z:1.0\n")
+        fh.write("".join(lines).encode())
+        tail = f"{anchor}+\t*\n".encode()
+        fh.write(b"P\tref\t" + b"".join(ref_steps) + tail)
+        for h in range(H):
+            name = f"S{h // 2:03d}#{h % 2 + 1}#chr1"
+            fh.write(f"P\t{name}\t".encode()
+                     + b"".join(table[base + choice[h]]) + tail)
+    pheno = os.path.join(out_dir, "pheno.tsv")
+    with open(pheno, "w") as fh:
+        fh.write("FID\tIID\tPHENO\n")
+        for s in range(n_samples):
+            fh.write(f"S{s:03d}\tS{s:03d}\t{2 if case[s] else 1}\n")
+    return {"gfa": gfa, "pheno": pheno, "n_snarls": n_snarls,
+            "n_samples": n_samples}
 
 
 # ---------------------------------------------------------------- kernels
@@ -464,10 +605,11 @@ def rel_err(a, b):
         if np.any(scale > 0) else 0.0
 
 
-def stat_err(name, a, b, se=None):
-    """Max error of OLS statistic ``name`` of ``a`` against ``b`` in the
-    scale its printed string carries (see the bounds above); inf unless
-    NaN and infinities agree."""
+def stat_err(name, a, b, se=None, p_floor=0.0):
+    """Max error of statistic ``name`` of ``a`` against ``b`` in the scale
+    its printed string carries (see the bounds above; a p below
+    ``p_floor`` is held in units of ``p_floor``); inf unless NaN and
+    infinities agree."""
     import numpy as np
     a = np.asarray(a, np.float64).ravel()
     b = np.asarray(b, np.float64).ravel()
@@ -481,6 +623,8 @@ def stat_err(name, a, b, se=None):
     scale = np.abs(b[fin])
     if name == "t1":
         scale = np.maximum(scale, 1.0)
+    elif name == "p":
+        scale = np.maximum(scale, p_floor)
     elif name in ("beta1", "beta") and se is not None:
         scale = np.maximum(scale, np.abs(np.asarray(se, np.float64)
                                          .ravel()[fin]))
@@ -775,6 +919,250 @@ def quant_edge_cases(device, err):
             f"vs scipy stdtr {scipy_rel:.3g})")
 
 
+# ---------------------------------------------------------------- graph, logit
+
+def compare_graph_stats(G0, G1, mask, err, expected_fisher=None):
+    """K6 kernel vs plain: bitwise on the card (the tails are the same
+    torch ops on bitwise statistics); against the CPU's plain version
+    Fisher bitwise and the chi-squared p-values (torch.special.gammaincc on
+    the card and on the CPU) to a relative 1e-12 with equal strings."""
+    from stoat_tpu.writer import format_p
+    from stoat_tpu_torch.graph.association import (graph_stats,
+                                                   graph_stats_plain)
+    got = [to_np(t) for t in graph_stats(G0, G1, mask)]
+    plain = [to_np(t) for t in graph_stats_plain(G0, G1, mask)]
+    cpu = [t.numpy() for t in graph_stats_plain(G0.cpu(), G1.cpu(),
+                                                mask.cpu())]
+    for name, g, p, c in zip(("chi2 2x2", "fisher", "chi2 2xN"), got, plain,
+                             cpu):
+        check(same_bits(g, p), f"graph_stats: {name} kernel != plain "
+              f"bitwise (card)")
+        if name == "fisher":
+            check(same_bits(g, c), "graph_stats: fisher kernel != plain "
+                  "bitwise (CPU)")
+        else:
+            check(rel_err(g, c) <= 1e-12 and [format_p(v) for v in g]
+                  == [format_p(v) for v in c], f"graph_stats: {name} "
+                  f"differs from the CPU's plain version")
+        err["graph_stats"] = max(err["graph_stats"], max_abs_err(g, p))
+    if expected_fisher is not None:
+        strings = [format_p(v) for v in got[1]]
+        check(strings == expected_fisher, f"graph_stats: fisher strings "
+              f"{strings} != {expected_fisher}")
+    return got
+
+
+def graph_edge_cases(device, err):
+    """K6 on the pinned Fisher tables and the overflowing scans as 2-column
+    rows, then random rows with k = 2, 3 and 8, zero margins and zero
+    columns; returns a short description."""
+    import numpy as np
+    import torch
+
+    def rows(tables, k=2):
+        t = np.asarray(tables, np.int32)
+        G0 = np.zeros((len(t), k), np.int32)
+        G1 = np.zeros((len(t), k), np.int32)
+        G0[:, :2], G1[:, :2] = t[:, :2], t[:, 2:]
+        mask = np.ones((len(t), k), bool)
+        return [torch.from_numpy(a).to(device) for a in (G0, G1, mask)]
+    compare_graph_stats(*rows([t for t, _ in FISHER_CASES]), err,
+                        expected_fisher=[s for _, s in FISHER_CASES])
+    compare_graph_stats(*rows(OVERFLOW_TABLES), err,
+                        expected_fisher=["0"] * len(OVERFLOW_TABLES))
+    rng = np.random.default_rng(8)
+    for Pm in (2, 3, 8):
+        B = 4096
+        k = rng.integers(2, Pm + 1, B)
+        mask = np.arange(Pm)[None, :] < k[:, None]
+        G0 = np.where(mask, rng.integers(0, 60, (B, Pm)), 0).astype(np.int32)
+        G1 = np.where(mask, rng.integers(0, 60, (B, Pm)), 0).astype(np.int32)
+        G0[:64] = 0                                  # a zero row margin
+        G0[64:128, Pm - 1] = 0                       # a zero column
+        G1[64:128, Pm - 1] = 0
+        compare_graph_stats(*(torch.from_numpy(a).to(device)
+                              for a in (G0, G1, mask)), err)
+    return (f"{len(FISHER_CASES)} pinned + {len(OVERFLOW_TABLES)} overflow "
+            f"Fisher rows, 3 x 4096 random rows with k = 2..2/3/8, zero "
+            f"margins and zero columns")
+
+
+def graph_counts(graph, device):
+    """The main graph's K6 inputs, from the native prepare as ``graph``
+    runs it: (G0, G1, mask) on ``device``, and k."""
+    import numpy as np
+    from stoat_tpu.io.phenotype import parse_binary_pheno
+    from stoat_tpu.native import graph_assoc_native
+    from stoat_tpu_torch.convert import to_graph_counts
+    pheno, samples = parse_binary_pheno(graph["pheno"], [])
+    got = graph_assoc_native(graph["gfa"], {"ref"}, samples,
+                             pheno.astype(np.uint8), "chi2", 0)
+    check(got is not None, "native graph prepare unavailable")
+    _, kinds, offs, g0, g1, _ = got
+    return to_graph_counts(kinds, offs, g0, g1, device)
+
+
+def pack_designs(designs, ys, P, N):
+    """Logistic designs [n_b, ncols_b] and responses [n_b], padded to
+    (X [B, N, P], y [B, N], used [B, N], ncols [B]) numpy arrays."""
+    import numpy as np
+    B = len(designs)
+    X = np.zeros((B, N, P))
+    y = np.zeros((B, N))
+    mask = np.zeros((B, N), bool)
+    ncols = np.zeros(B, np.int32)
+    for b, (Xb, yb) in enumerate(zip(designs, ys)):
+        n, k = Xb.shape
+        X[b, :n, :k] = Xb
+        y[b, :n] = yb
+        mask[b, :n] = True
+        ncols[b] = k
+    return X, y, mask, ncols
+
+
+def logreg_edge_designs():
+    """[(name, X, y)] of the logistic edge cases, from seeds:
+
+      separated    a dosage equal to y (tests/test_stats_oracle.py:288);
+                   the 1e-4 penalty bounds beta: converges in 13 steps
+      oscillating  dosages of order 1e4, separated by the first one: the
+                   steps never settle, 100 iterations, NA
+      failing      a dosage of 1e160 overflows X^T W X: the first step is
+                   not finite, NA (stats_test.cpp:107)
+      singular     duplicate dosage columns and an all-zero one: only the
+                   ridge keeps H invertible
+      all_nan_p    X = [1, d, k d], integer d up to 1e6, each d once with
+                   y = 0 and once with y = 1: the gradient is exactly 0 at
+                   beta = 0 (converged after one step) and X^T W X exact in
+                   any order, but so large that the ridge is lost and
+                   LDL^T leaves a negative pivot: se is NaN for every
+                   variant column, Holm gives each +inf, and the selection
+                   falls on column 0 (p = +inf, the intercept's beta, se)
+      holm_m3      three variant columns, one associated (Holm with m = 3)
+    """
+    import numpy as np
+    out = []
+    d = np.concatenate([np.zeros(20), np.ones(20)])
+    out.append(("separated", np.column_stack([np.ones(40), d]), d.copy()))
+    rng = np.random.default_rng(332)
+    X = np.ones((64, 3))
+    X[:, 1:] = rng.random((64, 2)) * 1e4
+    out.append(("oscillating", X, (X[:, 1] > 5e3).astype(float)))
+    rng = np.random.default_rng(5)
+    X = np.column_stack([np.ones(30), rng.random(30)])
+    X[3, 1] = 1e160
+    out.append(("failing", X, (rng.random(30) < 0.5).astype(float)))
+    rng = np.random.default_rng(6)
+    d = rng.random(50)
+    out.append(("singular", np.column_stack([np.ones(50), d, d,
+                                             np.zeros(50)]),
+                (rng.random(50) < 1 / (1 + np.exp(0.5 - 2 * d)))
+                .astype(float)))
+    rng = np.random.default_rng(0)
+    n2 = int(rng.integers(4, 30))
+    d = np.repeat(rng.integers(1, 10 ** 6, n2).astype(float), 2)
+    k = float(rng.choice([3, 5, 7]))
+    out.append(("all_nan_p", np.column_stack([np.ones(2 * n2), d, k * d]),
+                np.tile([0.0, 1.0], n2)))
+    rng = np.random.default_rng(7)
+    dos = rng.random((200, 3))
+    out.append(("holm_m3", np.column_stack([np.ones(200), dos]),
+                (rng.random(200) < 1 / (1 + np.exp(1.0 - 3.0 * dos[:, 1])))
+                .astype(float)))
+    return out
+
+
+def logreg_pt12_designs(seed=11, B=16):
+    """B designs of PT = 12: eleven variant columns, padded and not."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    designs, ys = [], []
+    for b in range(B):
+        n = int(rng.integers(100, 300))
+        k = 11 if b % 2 == 0 else int(rng.integers(1, 11))
+        dos = rng.random((n, k))
+        ys.append((rng.random(n) < 1 / (1 + np.exp(-1.2 * dos[:, 0] + 0.4)))
+                  .astype(float))
+        designs.append(np.column_stack([np.ones(n), dos]))
+    return designs, ys
+
+
+def logit_err(a, b, bound):
+    """Max errors {p, beta, se} of logistic results ``a`` against ``b``
+    (dicts of numpy arrays) in their strings' scale; checks that NaN and
+    infinities agree."""
+    errs = {}
+    for name in ("p", "beta", "se"):
+        e = stat_err(name, a[name], b[name], b["se"], p_floor=P_FLOOR)
+        check(e <= bound, f"logreg: {name} error {e:.3g} > {bound:g}")
+        errs[name] = e
+    return errs
+
+
+def compare_logreg(X, y, used, ncols, deg, err, what):
+    """K11 kernel vs plain on the card: NA sets and infinities equal, p,
+    beta, se within LOGREG_REL; returns (kernel results as numpy, errors,
+    snarls whose step counts differ)."""
+    import numpy as np
+    from stoat_tpu_torch.stats.logreg import (logistic_regression,
+                                              logistic_regression_plain)
+    got = {k: to_np(v) for k, v in
+           logistic_regression(X, y, used, ncols, deg).items()}
+    plain = {k: to_np(v) for k, v in
+             logistic_regression_plain(X, y, used, ncols, deg).items()}
+    check(np.array_equal(np.isnan(got["p"]), np.isnan(plain["p"])),
+          f"logreg ({what}): NA sets differ at snarls "
+          f"{np.flatnonzero(np.isnan(got['p']) != np.isnan(plain['p']))}")
+    errs = logit_err(got, plain, LOGREG_REL)
+    for name in ("p", "beta", "se"):
+        err["logreg"] = max(err["logreg"], max_abs_err(
+            np.nan_to_num(got[name], posinf=0.0),
+            np.nan_to_num(plain[name], posinf=0.0)))
+    flips = np.flatnonzero(got["iters"] != plain["iters"]).tolist()
+    return got, errs, flips
+
+
+def logreg_edge_cases(device, err):
+    """Phase 3's logistic edge cases; returns a short description."""
+    import numpy as np
+    import torch
+    cases = logreg_edge_designs()
+    X, y, used, ncols = pack_designs([c[1] for c in cases],
+                                     [c[2] for c in cases], P=5, N=200)
+    # the same designs again, flagged degenerate: NA whatever the fit
+    X, y, used, ncols = (np.concatenate([a, a]) for a in (X, y, used,
+                                                          ncols))
+    deg = np.arange(X.shape[0]) >= len(cases)
+    got, errs, flips = compare_logreg(
+        *(upload_t(a, device) for a in (X, y, used, ncols, deg)), err,
+        "edge designs")
+    n = len(cases)
+    iters = got["iters"][:n].tolist()
+    p = got["p"][:n]
+    check(np.isnan(got["p"][n:]).all() and np.isnan(got["beta"][n:]).all(),
+          "logreg: a degenerate snarl is not NA")
+    check(iters[0] < 100 and np.isfinite(p[0]), f"logreg: separated design "
+          f"{p[0]} after {iters[0]} steps")
+    check(np.isnan(p[1]) and iters[1] == 100, f"logreg: oscillating design "
+          f"{p[1]} after {iters[1]} steps")
+    check(np.isnan(p[2]) and iters[2] == 1, "logreg: a non-finite step is "
+          "not NA")
+    check(p[4] == np.inf and got["beta"][4] == 0.0, f"logreg: all-NaN-p "
+          f"Holm case gives p {p[4]}, beta {got['beta'][4]}")
+    designs, ys = logreg_pt12_designs()
+    _, errs12, flips12 = compare_logreg(
+        *(upload_t(a, device) for a in pack_designs(designs, ys, 12, 300)),
+        upload_t(np.zeros(len(designs), bool), device), err, "PT = 12")
+    return (f"logistic edge designs ({', '.join(c[0] for c in cases)}: "
+            f"steps {iters}, p {p.tolist()}; the same flagged degenerate "
+            f"all NA) max err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + "; PT = 12 max err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs12.items())
+            + f"; step counts differing from the plain version: "
+            f"{flips + flips12}")
+
+
 def cuda_ms(fn, iters, warmup=2):
     import torch
     for _ in range(warmup):
@@ -814,18 +1202,25 @@ def phase_card(torch):
 
 
 def phase_native():
+    from concurrent.futures import ThreadPoolExecutor
     import stoat_tpu.native as native
     lib_dir = os.path.join(HERE, "build", "stoat_tpu_torch", "native")
     os.makedirs(lib_dir, exist_ok=True)
     lib_path = os.path.join(lib_dir, "libstoat_core.so")
-    # a library built here, never one copied in from another machine
+    graph_path = os.path.join(lib_dir, "libstoat_graph.so")
+    # libraries built here, never ones copied in from another machine
     native._LIB = lib_path
+    native._GRAPH_LIB = graph_path
     t0 = time.perf_counter()
-    lib = native.get_lib()
-    check(lib is not None, "native core failed to build or load")
-    check(os.path.samefile(lib._name, lib_path),
-          f"native core loaded from {lib._name}")
-    say(f"phase 2 native core: {lib_path} loaded in "
+    with ThreadPoolExecutor(max_workers=2) as pool:   # two g++ at once
+        lib, glib = (f.result() for f in [pool.submit(native.get_lib),
+                                          pool.submit(native.get_graph_lib)])
+    for got, path, what in ((lib, lib_path, "native core"),
+                            (glib, graph_path, "native graph core")):
+        check(got is not None, f"{what} failed to build or load")
+        check(os.path.samefile(got._name, path),
+              f"{what} loaded from {got._name}")
+    say(f"phase 2 native cores: {lib_path} and {graph_path} loaded in "
         f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -833,14 +1228,17 @@ def main_path_chunks(paths, device):
     """The first chunk of the first chromosome, as the main paths build it,
     on the card: the binary DeviceChunk, the quantitative one (the same
     words, no masks), the quantitative phenotype [N] and the AGE and SEX
-    covariates [N, 2], and H.  (The quantitative chunk cap,
-    2e9 // (N * 96) = 8,319 at N = 2,504, leaves the chunk at 8,192.)"""
+    covariates [N, 2], H, and the binary phenotype as ``vcf -b -c`` feeds
+    it to the logistic model (float64 [N]).  (The chunk cap of ``-q`` and
+    ``-b -c``, 2e9 // (N * 96) = 8,319 at N = 2,504, leaves the chunk at
+    8,192.)"""
     from stoat_tpu.io.phenotype import (parse_binary_pheno, parse_covariates,
                                         parse_quantitative_pheno)
     from stoat_tpu.io.snarl_file import parse_snarl_path
     from stoat_tpu.io.vcf import VcfReader
     from stoat_tpu.tables import pack_chromosome_chunks
-    from stoat_tpu_torch.convert import to_device_chunk, to_quant_inputs
+    from stoat_tpu_torch.convert import (to_binary_pheno, to_device_chunk,
+                                         to_quant_inputs)
     from stoat_tpu_torch.pipeline.runner import iter_chromosome_matrices
 
     reader = VcfReader(paths["vcf"])
@@ -858,11 +1256,12 @@ def main_path_chunks(paths, device):
     qchunk = to_device_chunk(packed, None, device, words=chunk.words)
     qpheno, qcovar = to_quant_inputs(pheno_q, covar, len(samples), device)
     gen.close()
-    return chunk, qchunk, qpheno, qcovar, packed.n_haplotypes
+    return (chunk, qchunk, qpheno, qcovar, packed.n_haplotypes,
+            to_binary_pheno(pheno, device))
 
 
-def phase_kernels(torch, device, chunks, err):
-    chunk, qchunk, qpheno, qcovar, H = chunks
+def phase_kernels(torch, device, chunks, err, graph):
+    chunk, qchunk, qpheno, qcovar, H, case = chunks
     args = (chunk.words, chunk.path_idx, chunk.path_valid, chunk.tail,
             chunk.g1_words)
     g0p, g1p = compare_membership(args, err)
@@ -881,6 +1280,8 @@ def phase_kernels(torch, device, chunks, err):
         f"err " + ", ".join(f"{k}={err[k]:.3g}" for k in BINARY_KERNELS))
 
     # Q1 -> Q2 -> Q3 on the first chunk of `vcf -q -c`
+    import numpy as np
+    from stoat_tpu_torch.pipeline.quantitative import quant_design
     d = compare_quant_design(qchunk, qcovar, H, err)
     used = d["used"]
     y = qpheno[None, :] * used
@@ -909,7 +1310,42 @@ def phase_kernels(torch, device, chunks, err):
     quant = {"chunk": qchunk, "covar": qcovar, "H": H, "X": d["X"], "y": y,
              "used": used, "ncols": d["ncols"], "deg": d["degenerate"],
              "stats": stats}
-    return g0p, g1p, tables, quant
+    del d
+
+    # K6 on the main graph's partition counts, then its edge rows
+    G0, G1, mask, k = graph_counts(graph, device)
+    compare_graph_stats(G0, G1, mask, err)
+    gedges = graph_edge_cases(device, err)
+    torch.cuda.synchronize()
+    say(f"phase 3 graph kernel vs plain: main graph ({G0.shape[0]} tested "
+        f"snarls of {graph['n_snarls']}, Pmax {G0.shape[1]}, k = "
+        f"{sorted(set(k.tolist()))}) ok; {gedges}; tolerances: bitwise "
+        f"against the plain version on the card, Fisher bitwise and chi2 "
+        f"rel 1e-12 with equal strings against the CPU's; max abs err "
+        f"graph_stats={err['graph_stats']:.3g}")
+
+    # K11 on the first chunk of `vcf -b -c` (its design has no covariates)
+    no_covar = torch.zeros((qcovar.shape[0], 0), dtype=torch.float64,
+                           device=device)
+    d = quant_design(qchunk, no_covar, *THRESHOLDS, H)
+    bused = d["used"]
+    by = case[None, :] * bused
+    got, lerrs, flips = compare_logreg(d["X"], by, bused, d["ncols"],
+                                       d["degenerate"], err, "main chunk")
+    ledges = logreg_edge_cases(device, err)
+    torch.cuda.synchronize()
+    say(f"phase 3 logistic kernel vs plain: main chunk (X "
+        f"{tuple(d['X'].shape)}, {int(np.isnan(got['p']).sum())} NA of "
+        f"{got['p'].size}, Newton steps per snarl: mean "
+        f"{float(got['iters'].mean()):.3f}, largest "
+        f"{int(got['iters'].max())}, "
+        f"step counts differing from the plain version at snarls {flips}) "
+        f"max err " + ", ".join(f"{k} {v:.3g}" for k, v in lerrs.items())
+        + f" (bound {LOGREG_REL:g}, p below {P_FLOOR:g} in units of "
+        f"{P_FLOOR:g}); {ledges}; max abs err logreg={err['logreg']:.3g}")
+    logit = {"X": d["X"], "y": by, "used": bused, "ncols": d["ncols"],
+             "deg": d["degenerate"], "graph": (G0, G1, mask)}
+    return g0p, g1p, tables, quant, logit
 
 
 def cli_args(paths, out, device):
@@ -932,6 +1368,7 @@ def phase_main(torch, paths, work, n_chroms, gen_s):
     out_cpu = os.path.join(work, "out_cpu")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     rc = cli.main(cli_args(paths, out_cuda, "cuda"))
@@ -988,17 +1425,27 @@ def phase_main(torch, paths, work, n_chroms, gen_s):
             f"{c} {s} ({why})" for c, s, why in filtered[:5])
         + f"; launches {launches}; native ingest of "
         f"{native_runs} chromosomes, python fallback 0; "
-        f"max_memory_allocated {peak / 2**20:.1f} MiB")
+        f"max_memory_allocated {memory_note(peak, held)}")
     return launches
 
 
 QUANT_STATS = ("p", "beta", "se", "r2")
+# each regression path of phase 4: its table, its kernels, its CLI
+# arguments beyond -s/-v/-o, and its statistics in TSV column order
+REGRESSION_PATHS = {
+    "q": ("quantitative_table_vcf.tsv", QUANT_KERNELS, "-q", False,
+          ("p", "r2", "beta", "se")),
+    "q_c": ("quantitative_table_vcf.tsv", QUANT_KERNELS, "-q", True,
+            ("p", "r2", "beta", "se")),
+    "b_c": ("binary_table_vcf.tsv", BC_KERNELS, "-b", True,
+            ("p", "beta", "se")),
+}
 
 
 def run_captured(cli, args):
     """Run the CLI; return its exit code and each snarl's results as the
     writer received them, at full precision: {(chrom, snarl): (filtered,
-    allele_paths, (p, beta, se, r2))}."""
+    allele_paths, (p, beta, se, r2))}, r2 NaN where the path has none."""
     import numpy as np
     from stoat_tpu import writer as W
     real = W.write_quant_rows_batch
@@ -1007,7 +1454,9 @@ def run_captured(cli, args):
     def capture(fh, chrom, snarls, res, has_r2=True):
         filtered = np.array(res["filtered"])
         allele = np.array(res["allele_paths"])
-        stats = np.stack([np.array(res[k]) for k in QUANT_STATS], axis=1)
+        stats = np.stack([np.array(res[k]) if k in res
+                          else np.full(len(filtered), np.nan)
+                          for k in QUANT_STATS], axis=1)
         for s, snarl in enumerate(snarls):
             got[(chrom, snarl.snarl_id_str)] = (
                 bool(filtered[s]), tuple(allele[s, :snarl.n_paths].tolist()),
@@ -1022,33 +1471,38 @@ def run_captured(cli, args):
     return rc, got
 
 
-def compare_quant_tsvs(tsv_cuda, tsv_cpu, got_cuda, got_cpu):
-    """The CUDA and CPU TSVs of one `vcf -q` run: the same rows and the
-    same PATH_LENGTHS, ALLELE_PATHS and DEPTH columns and NA cells; a
-    statistic string may differ only where the two float64 values agree
-    to TSV_REL.  Returns (rows, differing cells)."""
+def compare_quant_tsvs(tsv_cuda, tsv_cpu, got_cuda, got_cpu,
+                       names=("p", "r2", "beta", "se"), p_floor=0.0):
+    """The CUDA and CPU TSVs of one regression run (statistic columns
+    ``names`` from column 5 on): the same rows and the same PATH_LENGTHS,
+    ALLELE_PATHS and DEPTH columns and NA cells; a statistic string may
+    differ only where the two float64 values agree to TSV_REL.  Returns
+    (rows, differing cells)."""
     with open(tsv_cuda) as fh:
         a = fh.read().splitlines()
     with open(tsv_cpu) as fh:
         b = fh.read().splitlines()
     check(a[0] == b[0] and a[0].startswith("#CHR\t"), "TSV headers")
     check(len(a) == len(b), f"CUDA TSV has {len(a)} lines, CPU {len(b)}")
+    width = 7 + len(names)
+    fixed = (0, 1, 2, 3, 4, width - 2, width - 1)
     diffs = []
     for la, lb in zip(a[1:], b[1:]):
         ca, cb = la.split("\t"), lb.split("\t")
-        check(len(ca) == 11 and len(cb) == 11, f"malformed row {la!r}")
-        check([ca[i] for i in (0, 1, 2, 3, 4, 9, 10)]
-              == [cb[i] for i in (0, 1, 2, 3, 4, 9, 10)],
+        check(len(ca) == width and len(cb) == width,
+              f"malformed row {la!r}")
+        check([ca[i] for i in fixed] == [cb[i] for i in fixed],
               f"rows differ: {la!r} / {lb!r}")
         key = (ca[0], ca[3])
-        for col, name in zip((5, 6, 7, 8), ("p", "r2", "beta", "se")):
+        for col, name in enumerate(names, start=5):
             if ca[col] == cb[col]:
                 continue
             check("NA" not in (ca[col], cb[col]), f"NA differs: {la!r} / "
                   f"{lb!r}")
             k = QUANT_STATS.index(name)
             va, vb = got_cuda[key][2][k], got_cpu[key][2][k]
-            rel = stat_err(name, [va], [vb], [got_cpu[key][2][2]])
+            rel = stat_err(name, [va], [vb], [got_cpu[key][2][2]],
+                           p_floor=p_floor)
             check(rel <= TSV_REL, f"{key} {name}: {ca[col]} / {cb[col]} "
                   f"({va!r} / {vb!r}, relative {rel:.3g})")
             diffs.append(f"{key[0]} {key[1]} {name} {ca[col]}/{cb[col]} "
@@ -1056,50 +1510,60 @@ def compare_quant_tsvs(tsv_cuda, tsv_cpu, got_cuda, got_cpu):
     return len(a) - 1, diffs
 
 
-def phase_main_quant(torch, paths, work, n_chroms, with_covar, reference):
-    """`vcf -q` (or `vcf -q -c -C AGE,SEX`) on the card, then on the CPU:
-    Q1-Q3 on every chunk, the TSVs against each other, and the results
-    against the numpy reference."""
+def phase_main_regression(torch, paths, work, n_chroms, mode, reference):
+    """One regression path on the card, then on the CPU: ``vcf -q`` (mode
+    "q"), ``vcf -q -c -C AGE,SEX`` ("q_c") or ``vcf -b -c -C AGE,SEX``
+    ("b_c", logistic): its kernels on every chunk, the TSVs against each
+    other, and the results against the numpy reference."""
     import math
     from stoat_tpu_torch import cli, kernels
     table, stats = reference
-    tag = "q_c" if with_covar else "q"
-    out_cuda = os.path.join(work, f"out_cuda_{tag}")
-    out_cpu = os.path.join(work, f"out_cpu_{tag}")
+    table_name, path_kernels, flag, with_covar, names = \
+        REGRESSION_PATHS[mode]
+    logistic = mode == "b_c"
+    p_floor = P_FLOOR if logistic else 0.0
+    out_cuda = os.path.join(work, f"out_cuda_{mode}")
+    out_cpu = os.path.join(work, f"out_cpu_{mode}")
     # the runner's chunk cap, and make_fixture's split over chromosomes
     chunk = min(8192, max(int(2e9 // (paths["n_samples"] * 96)), 256))
     per_chrom = -(-paths["n_snarls"] // n_chroms)
     sizes = [min(per_chrom, paths["n_snarls"] - c * per_chrom)
              for c in range(n_chroms)]
     n_chunks = sum(math.ceil(n / chunk) for n in sizes if n > 0)
+
+    def argv(p, out, device):
+        covar = (["-c", p["covariate"], "-C", ",".join(COVAR_NAMES)]
+                 if with_covar else [])
+        pheno = p["binary"] if flag == "-b" else p["quantitative"]
+        return ["vcf", "-s", p["snarl"], "-v", p["vcf"], flag, pheno, *covar,
+                "-o", out, "--device", device]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rc, got_cuda = run_captured(cli, quant_cli_args(paths, out_cuda, "cuda",
-                                                    with_covar))
+    rc, got_cuda = run_captured(cli, argv(paths, out_cuda, "cuda"))
     torch.cuda.synchronize()
     wall_cuda = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"CUDA CLI exit code {rc}")
     for name, n in launches.items():
-        want = n_chunks if name in QUANT_KERNELS else 0
-        check(n == want, f"kernel {name}: {n} launches on the -q path, "
+        want = n_chunks if name in path_kernels else 0
+        check(n == want, f"kernel {name}: {n} launches on the {mode} path, "
               f"expected {want} ({n_chunks} chunks)")
     t1 = time.perf_counter()
-    rc, got_cpu = run_captured(cli, quant_cli_args(paths, out_cpu, "cpu",
-                                                   with_covar))
+    rc, got_cpu = run_captured(cli, argv(paths, out_cpu, "cpu"))
     wall_cpu = time.perf_counter() - t1
     check(rc == 0, f"CPU CLI exit code {rc}")
-    table_name = "quantitative_table_vcf.tsv"
-    n_rows, diffs = compare_quant_tsvs(os.path.join(out_cuda, table_name),
-                                       os.path.join(out_cpu, table_name),
-                                       got_cuda, got_cpu)
+    n_rows, diffs = compare_quant_tsvs(
+        os.path.join(out_cuda, table_name),
+        os.path.join(out_cpu, table_name), got_cuda, got_cpu, names,
+        p_floor)
 
     # every snarl's filter and ALLELE_PATHS against the numpy reference,
-    # the TSV's rows are exactly the unfiltered snarls, and p, beta, se,
-    # r2 of the sampled snarls at REF_REL
+    # the TSV's rows are exactly the unfiltered snarls, and the statistics
+    # of the sampled snarls at REF_REL
     check(list(got_cuda) == list(table), "snarl order differs from the "
           "reference")
     for key, (filtered, allele) in table.items():
@@ -1110,26 +1574,155 @@ def phase_main_quant(torch, paths, work, n_chroms, with_covar, reference):
     check(n_rows == len(table) - n_filtered, f"{n_rows} rows, reference "
           f"{len(table) - n_filtered}")
     worst, n_na = 0.0, 0
+    ref_index = {"q": 0, "q_c": 1, "b_c": 2}[mode]
+    ref_names = ("p", "beta", "se") if logistic else QUANT_STATS
     for key, ref in stats.items():
-        ref = ref[1] if with_covar else ref[0]
-        e = max(stat_err(name, [got_cuda[key][2][k]], [ref[k]], [ref[2]])
-                for k, name in enumerate(QUANT_STATS))
+        ref = ref[ref_index]
+        e = max(stat_err(name, [got_cuda[key][2][QUANT_STATS.index(name)]],
+                         [ref[k]], [ref[2]], p_floor=p_floor)
+                for k, name in enumerate(ref_names))
         n_na += all(math.isnan(v) for v in ref)
         check(e <= REF_REL, f"{key}: {got_cuda[key][2]} vs reference {ref} "
               f"(relative {e:.3g})")
         worst = max(worst, e)
-    say(f"phase 4 main path: vcf -q{' -c -C AGE,SEX' if with_covar else ''}"
-        f" on {paths['n_samples']} samples x {paths['n_snarls']} snarls: "
-        f"cuda wall {wall_cuda:.2f}s, cpu wall {wall_cpu:.2f}s; launches "
-        f"{launches} ({n_chunks} chunks); {n_rows} rows, CUDA and CPU TSVs "
-        f"equal in rows, PATH_LENGTHS/ALLELE_PATHS/DEPTH and NA cells, "
-        f"{len(diffs)} statistic strings differ (float64 values within "
-        f"rel {TSV_REL:g}){': ' + '; '.join(diffs[:10]) if diffs else ''};"
+    what = {"q": "vcf -q", "q_c": "vcf -q -c -C AGE,SEX",
+            "b_c": "vcf -b -c -C AGE,SEX"}[mode]
+    say(f"phase 4 main path: {what} on {paths['n_samples']} samples x "
+        f"{paths['n_snarls']} snarls: cuda wall {wall_cuda:.2f}s, cpu wall "
+        f"{wall_cpu:.2f}s; launches {launches} ({n_chunks} chunks); "
+        f"{n_rows} rows, CUDA and CPU TSVs equal in rows, "
+        f"PATH_LENGTHS/ALLELE_PATHS/DEPTH and NA cells, {len(diffs)} "
+        f"statistic strings differ (float64 values within rel "
+        f"{TSV_REL:g}){': ' + '; '.join(diffs[:10]) if diffs else ''};"
         f" filter and ALLELE_PATHS of all {len(table)} snarls equal the "
-        f"numpy reference ({n_filtered} filtered); p, beta, se, r2 of "
-        f"{len(stats)} sampled snarls ({n_na} NA) within "
-        f"{worst:.3g} of tests/reference_impl.py (bound {REF_REL:g}); "
-        f"max_memory_allocated {peak / 2**20:.1f} MiB")
+        f"numpy reference ({n_filtered} filtered); {', '.join(names)} of "
+        f"{len(stats)} sampled snarls ({n_na} NA) within {worst:.3g} of "
+        f"tests/reference_impl.py (bound {REF_REL:g}); max_memory_allocated "
+        f"{memory_note(peak, held)}")
+    return launches, wall_cuda
+
+
+def graph_reference_rows(tsv, n_sample=GRAPH_REF_ROWS, seed=0):
+    """P_FISHER and P_CHI2 of ``n_sample`` random tested rows of a graph
+    TSV against tests/reference_impl.py (scipy) on their GROUP_PATHS
+    counts, formatted as the writer formats them.  Returns (rows checked,
+    rows whose string flipped at a rounding boundary)."""
+    import numpy as np
+    from reference_impl import chi2_p, fisher_p
+    from stoat_tpu.writer import format_p
+    with open(tsv) as fh:
+        rows = [line.rstrip("\n").split("\t") for line in fh][1:]
+    tested = [r for r in rows if r[7] != "NA"]
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(tested), min(n_sample, len(tested)), replace=False)
+    flips = []
+    for i in sorted(pick.tolist()):
+        r = tested[i]
+        pairs = [tuple(int(v) for v in g.split(":")) for g in r[7].split(",")]
+        g0 = [a for a, _ in pairs]
+        g1 = [b for _, b in pairs]
+        want = [format_p(fisher_p(g0[0], g0[1], g1[0], g1[1]))
+                if len(pairs) == 2 else "NA", format_p(chi2_p(g0, g1))]
+        for got_s, want_s, what in zip(r[5:7], want, ("fisher", "chi2")):
+            if got_s == want_s:
+                continue
+            check("NA" not in (got_s, want_s), f"{r[3]} {what}: {got_s} / "
+                  f"reference {want_s}")
+            rel = abs(float(got_s) - float(want_s)) / float(want_s)
+            check(rel <= GRAPH_REF_REL, f"{r[3]} {what}: {got_s} / "
+                  f"reference {want_s}")
+            flips.append(f"{r[3]} {what} {got_s}/{want_s}")
+    return len(pick), flips
+
+
+def phase_graph(torch, graph, twin, work):
+    """``graph`` on the main graph: -T chi2 -O tsv on the card (K6
+    launched, the native path taken) and on the CPU, byte for byte; 2,000
+    rows against scipy; -T exact and -O fasta on both devices, byte for
+    byte; then the Python twin on the small graph against the native path,
+    on the card."""
+    from stoat_tpu_torch import cli, kernels
+    from stoat_tpu_torch.graph import association as assoc
+
+    def run(g, out, device, method="chi2", fmt="tsv", python=False):
+        os.environ["STOAT_GRAPH_PYTHON"] = "1" if python else "0"
+        paths0 = dict(assoc.GRAPH_PATHS)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["graph", "-p", g["gfa"], "-d", g["gfa"], "-b",
+                           g["pheno"], "-T", method, "-O", fmt, "-r", "ref",
+                           "-V", "0", "-o", out, "--device", device])
+        finally:
+            os.environ.pop("STOAT_GRAPH_PYTHON", None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"graph {method} {fmt} on {device}: exit code {rc}")
+        path = "python" if python else "native"
+        check(assoc.GRAPH_PATHS[path] == paths0[path] + 1
+              and sum(assoc.GRAPH_PATHS.values()) == sum(paths0.values())
+              + 1, f"graph {method} {fmt} on {device}: paths "
+              f"{assoc.GRAPH_PATHS}, before {paths0}")
+        name = "binary_table_graph.tsv" if fmt == "tsv" \
+            else "binary_output.fasta"
+        with open(os.path.join(out, name), "rb") as fh:
+            data = fh.read()
+        return wall, dict(kernels.LAUNCHES), data
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    wall_cuda, launches, tsv = run(graph, os.path.join(work, "g_cuda"),
+                                   "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        check((n > 0) == (name in GRAPH_KERNELS), f"kernel {name}: {n} "
+              f"launches on the graph path")
+    wall_cpu, _, tsv_cpu = run(graph, os.path.join(work, "g_cpu"), "cpu")
+    check(tsv == tsv_cpu, "graph: CUDA and CPU TSVs differ")
+    lines = tsv.decode().splitlines()
+    check(lines[0].startswith("#CHR\t") and len(lines) > graph["n_snarls"],
+          f"graph TSV has {len(lines)} lines")
+    depth2 = sum(1 for line in lines[1:] if line.endswith("\t2"))
+    kinds = {}
+    for line in lines[1:]:
+        k = line.split("\t")[7].count(",") + 1
+        kinds[k] = kinds.get(k, 0) + 1
+    t0 = time.perf_counter()
+    n_ref, flips = graph_reference_rows(os.path.join(work, "g_cuda",
+                                                     "binary_table_graph.tsv"))
+    ref_s = time.perf_counter() - t0
+    others = []
+    for method, fmt in (("exact", "tsv"), ("chi2", "fasta")):
+        w_cuda, _, a = run(graph, os.path.join(work, f"g_cuda_{method}_{fmt}"),
+                           "cuda", method, fmt)
+        w_cpu, _, b = run(graph, os.path.join(work, f"g_cpu_{method}_{fmt}"),
+                          "cpu", method, fmt)
+        check(a == b, f"graph -T {method} -O {fmt}: CUDA and CPU outputs "
+              f"differ")
+        n_lines = a.count(b"\n")
+        check(n_lines > 10, f"graph -T {method} -O {fmt}: {n_lines} lines")
+        others.append(f"-T {method} -O {fmt} {n_lines} lines, cuda "
+                      f"{w_cuda:.2f}s / cpu {w_cpu:.2f}s, identical")
+    w_native, _, native = run(twin, os.path.join(work, "t_native"), "cuda")
+    w_twin, twin_launches, python = run(twin, os.path.join(work, "t_python"),
+                                        "cuda", python=True)
+    check(native == python, "graph: the Python twin's TSV differs from the "
+          "native path's")
+    check(twin_launches["graph_stats"] == 1, f"graph twin: launches "
+          f"{twin_launches}")
+    say(f"phase 4 main path: graph -T chi2 on {graph['n_snarls']} snarls x "
+        f"{2 * graph['n_samples']} haplotype paths: cuda wall "
+        f"{wall_cuda:.2f}s, cpu wall {wall_cpu:.2f}s, {len(lines) - 1} rows "
+        f"byte-identical ({depth2} nested at depth 2; partitions per row "
+        f"{dict(sorted(kinds.items()))}); launches {launches}, native path; "
+        f"{n_ref} sampled rows' P_FISHER/P_CHI2 equal scipy's strings "
+        f"({ref_s:.1f}s), {len(flips)} at a rounding boundary"
+        f"{': ' + '; '.join(flips[:5]) if flips else ''}; "
+        + "; ".join(others)
+        + f"; Python twin on {twin['n_snarls']} snarls ({w_twin:.2f}s, "
+        f"graph_stats launched) byte-identical to the native path "
+        f"({w_native:.2f}s); max_memory_allocated {memory_note(peak, held)}")
     return launches, wall_cuda
 
 
@@ -1158,7 +1751,7 @@ def device_ms(torch, calls):
     return out
 
 
-def phase_times(torch, chunk, g0p, g1p, tables, quant, smi):
+def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, smi):
     from stoat_tpu_torch.pipeline.binary import (binary_tables,
                                                  binary_tables_plain)
     from stoat_tpu_torch.pipeline.packed import (membership_counts,
@@ -1168,10 +1761,14 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, smi):
     from stoat_tpu_torch.stats.chi2 import finish_chi2_pvalues
     from stoat_tpu_torch.stats.fisher import (fisher_exact_2x2,
                                               fisher_exact_2x2_plain)
+    from stoat_tpu_torch.graph.association import (graph_stats,
+                                                   graph_stats_plain)
     from stoat_tpu_torch.stats.linreg import (linear_regression_stats,
                                               linear_regression_stats_plain,
                                               student_t_pvalues,
                                               student_t_pvalues_plain)
+    from stoat_tpu_torch.stats.logreg import (logistic_regression,
+                                              logistic_regression_plain)
     args = (chunk.words, chunk.path_idx, chunk.path_valid, chunk.tail,
             chunk.g1_words)
     sidx = chunk.snarl_path_idx
@@ -1181,6 +1778,9 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, smi):
     design = (q["chunk"], q["covar"], *THRESHOLDS, q["H"])
     ols = (q["X"], q["y"], q["used"], q["ncols"])
     tail = (*q["stats"][:2], q["deg"], *q["stats"][2:])
+    counts = logit["graph"]
+    fit = (logit["X"], logit["y"], logit["used"], logit["ncols"],
+           logit["deg"])
     calls = {
         "membership_counts": lambda: membership_counts(*args),
         "binary_tables": lambda: binary_tables(g0p, g1p, sidx, *thr),
@@ -1188,6 +1788,8 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, smi):
         "quant_design": lambda: quant_design(*design),
         "ols": lambda: linear_regression_stats(*ols),
         "student_t": lambda: student_t_pvalues(*tail),
+        "graph_stats": lambda: graph_stats(*counts),
+        "logreg": lambda: logistic_regression(*fit),
     }
     times = {
         "membership_counts": (
@@ -1209,6 +1811,12 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, smi):
         "student_t": (
             cuda_ms(calls["student_t"], 20),
             cuda_ms(lambda: student_t_pvalues_plain(*tail), 3, warmup=1)),
+        "graph_stats": (
+            cuda_ms(calls["graph_stats"], 20),
+            cuda_ms(lambda: graph_stats_plain(*counts), 3, warmup=1)),
+        "logreg": (
+            cuda_ms(calls["logreg"], 5),
+            cuda_ms(lambda: logistic_regression_plain(*fit), 3, warmup=1)),
     }
     tail_ms = cuda_ms(lambda: finish_chi2_pvalues(
         tables["chi2_stat"], tables["chi2_df"], tables["chi2_invalid"],
@@ -1223,31 +1831,35 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, smi):
     return times, dev
 
 
+PROFILE_TITLES = {"b": "vcf -b", "q_c": "vcf -q -c -C AGE,SEX",
+                  "b_c": "vcf -b -c -C AGE,SEX"}
+
+
 def profile_main_path(torch, device, paths, work, out_dir, mode):
     """--profile DIR: where the time of one main path goes (mode "b" for
-    `vcf -b`, "q_c" for `vcf -q -c -C AGE,SEX`).  The stages run once
-    serially (the runner overlaps ingest, dispatch and writing on three
-    threads), then torch.profiler traces one whole CUDA CLI run.  Writes
-    DIR/profile_<mode>.txt and returns a one-line summary."""
-    from torch.profiler import ProfilerActivity, profile
+    `vcf -b`, "q_c" for `vcf -q -c -C AGE,SEX`, "b_c" for `vcf -b -c -C
+    AGE,SEX`).  The stages run once serially (the runner overlaps ingest,
+    dispatch and writing on three threads), then torch.profiler traces one
+    whole CUDA CLI run (trace_cli)."""
     from stoat_tpu import writer as W
     from stoat_tpu.io.phenotype import (parse_binary_pheno, parse_covariates,
                                         parse_quantitative_pheno)
     from stoat_tpu.io.snarl_file import parse_snarl_path
     from stoat_tpu.io.vcf import VcfReader
     from stoat_tpu.tables import pack_chromosome_chunks
-    from stoat_tpu_torch import cli
     from stoat_tpu_torch.convert import (chunk_words, pheno_masks,
-                                         to_device_chunk, to_quant_inputs,
-                                         upload_words)
+                                         to_binary_pheno, to_device_chunk,
+                                         to_quant_inputs, upload_words)
     from stoat_tpu_torch.pipeline.binary import binary_tables_packed
     from stoat_tpu_torch.pipeline.fetch import fetch_async
     from stoat_tpu_torch.pipeline.quantitative import quant_design
     from stoat_tpu_torch.pipeline.runner import iter_chromosome_matrices
     from stoat_tpu_torch.stats.linreg import (linear_regression_stats,
                                               student_t_pvalues)
+    from stoat_tpu_torch.stats.logreg import logistic_regression
 
     binary = mode == "b"
+    logistic = mode == "b_c"
     stage = dict.fromkeys(("parse inputs", "native ingest", "host pack",
                            "upload", "kernels", "fetch", "format+write"),
                           0.0)
@@ -1264,9 +1876,10 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
         reader = VcfReader(paths["vcf"])
         samples = reader.samples
         reader.close()
-        if binary:
+        if binary or logistic:
+            covar = (parse_covariates(paths["covariate"], COVAR_NAMES,
+                                      samples) if logistic else None)
             pheno, samples = parse_binary_pheno(paths["binary"], samples)
-            covar = None
         else:
             covar = parse_covariates(paths["covariate"], COVAR_NAMES,
                                      samples)
@@ -1279,6 +1892,12 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
             return binary_tables_packed(c, *THRESHOLDS)
         d = quant_design(c, consts[1], *THRESHOLDS, 2 * len(samples))
         used = d["used"]
+        if logistic:
+            out = logistic_regression(d.pop("X"), consts[0][None, :] * used,
+                                      used, d["ncols"], d["degenerate"])
+            del out["iters"]
+            return {"filtered": d["filtered"],
+                    "allele_paths": d["allele_paths"], **out}
         stats = linear_regression_stats(d.pop("X"), consts[0][None, :] *
                                         used, used, d["ncols"])
         return {"filtered": d["filtered"],
@@ -1286,7 +1905,8 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
                 **student_t_pvalues(*stats[:2], d["degenerate"],
                                     *stats[2:])}
 
-    write = W.write_binary_rows_batch if binary else W.write_quant_rows_batch
+    write = (W.write_binary_rows_batch if binary
+             else partial(W.write_quant_rows_batch, has_r2=not logistic))
     gen = iter_chromosome_matrices(paths["vcf"], 2 * len(samples),
                                    snarls_chr)
     consts = None
@@ -1301,10 +1921,17 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
 
             def up():
                 words = upload_words(chunk_words(packs[0]), device)
-                c = consts or (
-                    pheno_masks(pheno, packs[0].n_haplotypes,
-                                int(words.shape[1]), device) if binary
-                    else to_quant_inputs(pheno, covar, len(samples), device))
+                if consts:
+                    c = consts
+                elif binary:
+                    c = pheno_masks(pheno, packs[0].n_haplotypes,
+                                    int(words.shape[1]), device)
+                elif logistic:
+                    c = (to_binary_pheno(pheno, device),
+                         torch.zeros((len(samples), 0), dtype=torch.float64,
+                                     device=device))
+                else:
+                    c = to_quant_inputs(pheno, covar, len(samples), device)
                 return c, [to_device_chunk(p, pheno if binary else None,
                                            device, words=words,
                                            pheno=c if binary else None)
@@ -1323,8 +1950,25 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
                 write(sink, chrom, p.snarls, r) for p, r in zip(packs, res)])
 
     out = os.path.join(work, f"out_profile_{mode}")
-    args = (cli_args(paths, out, device.type) if binary
-            else quant_cli_args(paths, out, device.type, True))
+    if binary or logistic:
+        args = cli_args(paths, out, device.type)
+        if logistic:
+            args += ["-c", paths["covariate"], "-C", ",".join(COVAR_NAMES)]
+    else:
+        args = quant_cli_args(paths, out, device.type, True)
+    return trace_cli(torch, args, out_dir, mode,
+                     f"{PROFILE_TITLES[mode]}: {paths['n_samples']} samples x "
+                     f"{paths['n_snarls']} snarls", stage)
+
+
+def trace_cli(torch, args, out_dir, mode, title, stage):
+    """torch.profiler over one whole CUDA CLI run of ``args``; writes the
+    serial ``stage`` times, the run's wall and device busy time and the
+    profiler's table to DIR/profile_<mode>.txt and returns a one-line
+    summary."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from stoat_tpu_torch import cli
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1332,7 +1976,6 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     check(rc == 0, f"profiled CLI exit code {rc}")
-    from torch.autograd import DeviceType
     averages = prof.key_averages()
     key = ("self_device_time_total"
            if hasattr(averages[0], "self_device_time_total")
@@ -1344,10 +1987,7 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
     busy = device_us / 1e6 / wall
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, f"profile_{mode}.txt"), "w") as fh:
-        fh.write(f"{nvidia_smi_line()}\n"
-                 f"{'vcf -b' if binary else 'vcf -q -c -C AGE,SEX'}: "
-                 f"{paths['n_samples']} samples x {paths['n_snarls']} "
-                 f"snarls\n\nserial stages (s):\n")
+        fh.write(f"{nvidia_smi_line()}\n{title}\n\nserial stages (s):\n")
         for name, sec in stage.items():
             fh.write(f"  {name:16s} {sec:.4f}\n")
         fh.write(f"\nprofiled CUDA CLI run: wall {wall:.4f} s, device "
@@ -1358,6 +1998,55 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
         + f"; traced CUDA CLI wall {wall:.3f}s, device busy "
         f"{device_us / 1e6:.4f}s = {100 * busy:.2f}% (idle "
         f"{100 - 100 * busy:.2f}%)")
+
+
+def profile_graph(torch, device, graph, work, out_dir):
+    """--profile DIR: where the time of ``graph -T chi2`` goes.  The stages
+    run once serially (parse the phenotype, the native prepare, the
+    counts' upload, K6 and its tails, the host copy, the native splice and
+    write), then torch.profiler traces one whole CUDA CLI run."""
+    import numpy as np
+    from stoat_tpu import writer as W
+    from stoat_tpu.io.phenotype import parse_binary_pheno
+    from stoat_tpu.native import graph_assoc_native, graph_format_rows_native
+    from stoat_tpu_torch.convert import to_graph_counts
+    from stoat_tpu_torch.graph.association import graph_stats
+    from stoat_tpu_torch.pipeline.fetch import fetch_async
+    stage = dict.fromkeys(("parse inputs", "native prepare", "upload",
+                           "kernels", "fetch", "format+write"), 0.0)
+
+    def timed(name, fn, sync=False):
+        t = time.perf_counter()
+        out = fn()
+        if sync:
+            torch.cuda.synchronize()
+        stage[name] += time.perf_counter() - t
+        return out
+    pheno, samples = timed("parse inputs", lambda: parse_binary_pheno(
+        graph["pheno"], []))
+    blob, kinds, offs, g0, g1, _ = timed("native prepare", lambda:
+                                         graph_assoc_native(
+        graph["gfa"], {"ref"}, samples, pheno.astype(np.uint8), "chi2", 0))
+    G0, G1, mask, k = timed("upload", lambda: to_graph_counts(
+        kinds, offs, g0, g1, device), sync=True)
+    outs = timed("kernels", lambda: graph_stats(G0, G1, mask), sync=True)
+    res = timed("fetch", lambda: fetch_async(dict(zip(("p22", "pf", "pn"),
+                                                      outs))))
+    timed("fetch", res.wait)
+
+    def write():
+        text = graph_format_rows_native(blob, kinds, res["p22"], res["pf"],
+                                        res["pn"], (k == 2).astype(np.uint8))
+        with open(os.path.join(work, "profile_graph.tsv"), "w") as fh:
+            W.write_binary_header(fh)
+            fh.write(text.decode())
+    timed("format+write", write)
+    args = ["graph", "-p", graph["gfa"], "-d", graph["gfa"], "-b",
+            graph["pheno"], "-r", "ref", "-V", "0", "-o",
+            os.path.join(work, "out_profile_graph"), "--device", device.type]
+    return trace_cli(torch, args, out_dir, "graph",
+                     f"graph -T chi2: {graph['n_snarls']} snarls x "
+                     f"{2 * graph['n_samples']} haplotype paths", stage)
 
 
 def run(args):
@@ -1399,31 +2088,44 @@ def run(args):
                              seed=0, n_chroms=N_CHROMS)
         paths["n_samples"], paths["n_snarls"] = N_SAMPLES, args.snarls
         gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph = write_graph(os.path.join(work, "graph"), args.graph_snarls)
+        twin = write_graph(os.path.join(work, "twin"), TWIN_SNARLS, seed=1)
+        say(f"graphs generated in {time.perf_counter() - t0:.1f}s: "
+            f"{graph['n_snarls']} snarls x {2 * graph['n_samples']} "
+            f"haplotype paths ({os.path.getsize(graph['gfa']) / 1e6:.0f} MB "
+            f"GFA), and {twin['n_snarls']} for the Python twin")
         chunks = main_path_chunks(paths, device)
         err = {name: 0.0 for name in KERNELS}
-        g0p, g1p, tables, quant = phase_kernels(torch, device, chunks, err)
+        g0p, g1p, tables, quant, logit = phase_kernels(torch, device, chunks,
+                                                       err, graph)
         launches = phase_main(torch, paths, work, N_CHROMS, gen_s)
         t0 = time.perf_counter()
-        from stoat_tpu.io.phenotype import (parse_covariates,
+        from stoat_tpu.io.phenotype import (parse_binary_pheno,
+                                            parse_covariates,
                                             parse_quantitative_pheno)
         samples = list(paths["samples"])
         reference = quant_reference(
             paths, parse_quantitative_pheno(paths["quantitative"], samples),
-            parse_covariates(paths["covariate"], COVAR_NAMES, samples))
-        say(f"phase 4 numpy quantitative reference: {len(reference[0])} "
+            parse_covariates(paths["covariate"], COVAR_NAMES, samples),
+            parse_binary_pheno(paths["binary"], samples)[0])
+        say(f"phase 4 numpy regression reference: {len(reference[0])} "
             f"snarls, {len(reference[1])} sampled, in "
             f"{time.perf_counter() - t0:.1f}s")
-        for with_covar in (False, True):
-            q_launches, _ = phase_main_quant(torch, paths, work, N_CHROMS,
-                                             with_covar, reference)
-            for name in QUANT_KERNELS:
-                launches[name] = launches.get(name, 0) + q_launches[name]
+        for mode in ("q", "q_c", "b_c"):
+            r_launches, _ = phase_main_regression(torch, paths, work,
+                                                  N_CHROMS, mode, reference)
+            for name in REGRESSION_PATHS[mode][1]:
+                launches[name] = launches.get(name, 0) + r_launches[name]
+        g_launches, _ = phase_graph(torch, graph, twin, work)
+        launches["graph_stats"] = g_launches["graph_stats"]
         times, dev = phase_times(torch, chunks[0], g0p, g1p, tables, quant,
-                                 smi)
+                                 logit, smi)
         if args.profile:
-            for mode in ("b", "q_c"):
+            for mode in ("b", "q_c", "b_c"):
                 say(profile_main_path(torch, device, paths, work,
                                       args.profile, mode))
+            say(profile_graph(torch, device, graph, work, args.profile))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels_json = [
@@ -1448,9 +2150,12 @@ def main():
     ap.add_argument("--snarls", type=int, default=65536,
                     help="snarls in the generated cohort (fewer for a "
                          "quick run)")
+    ap.add_argument("--graph-snarls", type=int, default=GRAPH_SNARLS,
+                    help="snarls in the generated graph (fewer for a quick "
+                         "run)")
     ap.add_argument("--profile", metavar="DIR",
                     help="also write a stage breakdown and a torch.profiler "
-                         "table of the main path to DIR/profile.txt")
+                         "table of each main path to DIR/profile_<path>.txt")
     args = ap.parse_args()
     try:
         return run(args)

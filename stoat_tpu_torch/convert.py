@@ -1,14 +1,16 @@
 """Turn the reused host layer's numpy state into the port's tensors.
 
 ``stoat_tpu.tables.PackedChromosome`` (a chunk of one chromosome's snarls
-resolved against its edge matrix) and the parsed binary phenotype are
-numpy; the device stages take tensors.  Words travel as an int32 view of
-the uint32 words, because PyTorch on the CPU has no uint32 shifts or
-``index_select``; the bits are unchanged.  On a CUDA device each array is
+resolved against its edge matrix), the parsed phenotypes and the native
+graph core's partition counts are numpy; the device stages take
+tensors.  Words travel as an int32 view of the uint32 words, because
+PyTorch on the CPU has no uint32 shifts or ``index_select``; the bits are
+unchanged.  On a CUDA device each array is
 staged in pinned host memory and copied without blocking.
 
 The CPU tests feed the same numpy arrays to both packages through
-:func:`to_device_chunk` and :func:`to_quant_inputs`.
+:func:`to_device_chunk`, :func:`to_quant_inputs` and
+:func:`to_graph_counts`.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from stoat_tpu_torch.pipeline.packed import (pack_hap_mask_words,
                                              tail_mask_words)
 
 __all__ = ["DeviceChunk", "upload", "upload_words", "chunk_words",
-           "pheno_masks", "to_device_chunk", "to_quant_inputs"]
+           "pheno_masks", "to_device_chunk", "to_quant_inputs",
+           "to_binary_pheno", "to_graph_counts"]
 
 
 @dataclass
@@ -125,3 +128,40 @@ def to_quant_inputs(phenotype: np.ndarray, covar: Optional[np.ndarray],
         covar = np.zeros((n_samples, 0), np.float64)
     return (upload(np.asarray(phenotype, np.float64), device),
             upload(np.asarray(covar, np.float64), device))
+
+
+def to_binary_pheno(binary_phenotype: np.ndarray,
+                    device: torch.device) -> torch.Tensor:
+    """The parsed binary phenotype (bool [N], True = case) as the float64
+    [N] response of the logistic model, on ``device``."""
+    return upload(np.asarray(binary_phenotype).astype(np.float64), device)
+
+
+def to_graph_counts(kinds: np.ndarray, part_offs: np.ndarray,
+                    g0: np.ndarray, g1: np.ndarray, device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               np.ndarray]:
+    """The native graph prepare's ragged partition counts as ``(G0, G1,
+    mask, k)``: int32 [B, Pmax] control and case counts and bool [B,
+    Pmax] column mask on ``device``, one row per tested snarl (``kinds ==
+    1``) in walk order, and the host int64 [B] partition counts k.
+
+    Snarl i's partitions are ``g0/g1[part_offs[i]:part_offs[i + 1]]``.
+    Pmax is max(k, 2): the 2x2 tests read two columns, and masked columns
+    add nothing.  The counts are sample tallies; a count of 2^31 or more
+    raises rather than wrapping (stoat_tpu/graph/association.py:529-547)."""
+    tested = np.flatnonzero(np.asarray(kinds) == 1)
+    lo = np.asarray(part_offs, np.int64)[tested]
+    k = np.asarray(part_offs, np.int64)[tested + 1] - lo
+    top = max(int(np.max(g0, initial=0)), int(np.max(g1, initial=0)))
+    if top >= 2 ** 31:
+        raise ValueError(f"partition count {top} does not fit in int32")
+    pmax = max(2, int(k.max(initial=0)))
+    col = np.arange(pmax)
+    mask = col[None, :] < k[:, None]
+    src = (lo[:, None] + col[None, :])[mask]
+    G0 = np.zeros((len(tested), pmax), np.int32)
+    G1 = np.zeros((len(tested), pmax), np.int32)
+    G0[mask] = np.asarray(g0)[src]
+    G1[mask] = np.asarray(g1)[src]
+    return (upload(G0, device), upload(G1, device), upload(mask, device), k)

@@ -17,9 +17,9 @@
 //   out    = (beta1 / se1, df_res, beta1, se1, r2)
 //
 // The algebra repeats the plain version (stats/linreg.py, stats/linalg.py)
-// operation for operation: sequential subtractions in the LDL^T recursion,
-// (L_ik * L_jk) * D_k, the Jacobi rotation formulas, sums over p in
-// order; -fmad=false keeps each multiply and add separately rounded.  The
+// operation for operation: the LDL^T of ldlt_device.cuh (shared with
+// logreg.cu), the Jacobi rotation formulas, sums over p in order;
+// -fmad=false keeps each multiply and add separately rounded.  The
 // sums over the N rows run in another order than the plain version's
 // (each entry sequentially over the rows here), which the comparison on
 // the card bounds by a relative tolerance.  No atomics: every sum has a
@@ -44,6 +44,8 @@
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "ldlt_device.cuh"
 
 namespace {
 
@@ -110,34 +112,15 @@ __device__ void solve_normal_equations(double* A, double* L, double* inv,
                                        double* V, double* D, double* xty,
                                        double* beta, double* col, int P,
                                        int nc) {
-  // unpivoted LDL^T (linalg.py ldlt_factor, unrolled order)
-  for (int j = 0; j < P; ++j) {
-    double dj = A[j * P + j];
-    for (int k = 0; k < j; ++k) dj = dj - L[j * P + k] * L[j * P + k] * D[k];
-    D[j] = dj;
-    const double dj_safe = dj == 0.0 ? 1.0 : dj;
-    for (int i = j + 1; i < P; ++i) {
-      double s = A[i * P + j];
-      for (int k = 0; k < j; ++k) s = s - L[i * P + k] * L[j * P + k] * D[k];
-      L[i * P + j] = s / dj_safe;
-    }
-  }
+  stoat::ldlt_factor(A, L, D, P);
   bool bad = false;
   for (int j = 0; j < nc && j < P; ++j) {
     bad = bad || fabs(D[j]) < kLdltTol || !isfinite(D[j]);
   }
   // the inverse, one identity column at a time (ldlt_solve)
   for (int m = 0; m < P; ++m) {
-    for (int i = 0; i < P; ++i) {
-      double s = i == m ? 1.0 : 0.0;
-      for (int k = 0; k < i; ++k) s = s - L[i * P + k] * col[k];
-      col[i] = s;
-    }
-    for (int t = P - 1; t >= 0; --t) {
-      double s = col[t] / (D[t] == 0.0 ? 1.0 : D[t]);
-      for (int k = t + 1; k < P; ++k) s = s - L[k * P + t] * col[k];
-      col[t] = s;
-    }
+    for (int i = 0; i < P; ++i) col[i] = i == m ? 1.0 : 0.0;
+    stoat::ldlt_solve(L, D, col, P);
     for (int i = 0; i < P; ++i) inv[i * P + m] = col[i];
   }
   if (bad) {

@@ -5,8 +5,10 @@ Each kernel has a wrapper beside its plain PyTorch version:
 ``pipeline/binary.py binary_tables`` (csrc/binary_tables.cu),
 ``stats/fisher.py fisher_exact_2x2`` (csrc/fisher.cu),
 ``pipeline/quantitative.py quant_design`` (csrc/quant_design.cu),
-``stats/linreg.py linear_regression_stats`` (csrc/ols.cu) and
-``stats/linreg.py student_t_pvalues`` (csrc/student_t.cu).  A wrapper given
+``stats/linreg.py linear_regression_stats`` (csrc/ols.cu),
+``stats/linreg.py student_t_pvalues`` (csrc/student_t.cu),
+``graph/association.py graph_stats`` (csrc/graph_stats.cu) and
+``stats/logreg.py logistic_regression`` (csrc/logreg.cu).  A wrapper given
 CUDA tensors launches its kernel through :func:`launch` or raises; given
 CPU tensors it runs the plain version.  :data:`LAUNCHES` counts the
 launches of each kernel, so that a run can show which kernels it went
@@ -29,7 +31,7 @@ F64 = ctypes.c_double
 
 LAUNCHES: Dict[str, int] = {"membership_counts": 0, "binary_tables": 0,
                             "fisher": 0, "quant_design": 0, "ols": 0,
-                            "student_t": 0}
+                            "student_t": 0, "graph_stats": 0, "logreg": 0}
 
 
 def reset_launch_counts() -> None:

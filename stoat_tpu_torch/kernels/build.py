@@ -5,8 +5,9 @@ compiles, at its first use, into its own shared library under
 ``build/stoat_tpu_torch/`` at the root of the checkout.  The sources in
 the package are the only input: nothing is downloaded, and no PyTorch
 header is included (a file that includes them takes minutes to build).
-A library's file name carries a hash of its source and of the flags, so a
-build from other sources is never loaded.
+A library's file name carries a hash of its source, of the headers under
+``csrc/`` (``*.cuh``, which sources include) and of the flags, so a build
+from other sources is never loaded.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no nvcc.
@@ -75,8 +76,10 @@ def _build(name: str) -> Path:
     if info is not None:                    # built by this process
         return Path(info.path)
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         BUILD_LOG[name] = BuildInfo(name, str(out), 0.0, "")

@@ -17,12 +17,17 @@ snarl of a chunk (``_design_from_membership``, :122-259):
   degenerate     no variant column survives (NA in the output)
 
 then OLS on y = phenotype * used (K9), the Student-t tail (K10) and the NA
-masking of degenerate snarls (``_fused_packed_analysis``, :305-350).
+masking of degenerate snarls (``_fused_packed_analysis``, :305-350).  A
+binary phenotype with covariates (``vcf -b -c``) takes the same design
+without the covariates, which the reference never puts in its model, and
+IRLS logistic regression (K11, stats/logreg.py) on y = case * used
+(``binary_covar_analyze_chromosome``, :545-565).
 
 CUDA tensors run three kernels: csrc/quant_design.cu (K1 + K7 + K8 fused:
 words in, X out), csrc/ols.cu (K9) and csrc/student_t.cu (K10 and the
-masking).  CPU tensors run the plain versions: membership words, unpack,
-then ``design_from_membership_plain``.
+masking); ``vcf -b -c`` runs csrc/quant_design.cu and csrc/logreg.cu.
+CPU tensors run the plain versions: membership words, unpack, then
+``design_from_membership_plain``.
 """
 
 from __future__ import annotations
@@ -39,9 +44,11 @@ from stoat_tpu_torch.pipeline.packed import (membership_words_plain,
                                              unpack_membership_plain)
 from stoat_tpu_torch.stats.linreg import (linear_regression_stats,
                                           student_t_pvalues)
+from stoat_tpu_torch.stats.logreg import logistic_regression
 
 __all__ = ["DESIGN_KEYS", "design_from_membership_plain", "quant_design",
-           "quant_design_plain", "quantitative_analyze_chromosome"]
+           "quant_design_plain", "quantitative_analyze_chromosome",
+           "binary_covar_analyze_chromosome"]
 
 DESIGN_KEYS = ("X", "used", "ncols", "filtered", "degenerate",
                "allele_paths")
@@ -229,5 +236,33 @@ def quantitative_analyze_chromosome(packed, pheno: torch.Tensor,
     # the allocator hands its memory to the next chunk's X only behind the
     # OLS launch on the same stream
     out = student_t_pvalues(t1, df_res, d["degenerate"], beta, se, r2)
+    return fetch_async({"filtered": d["filtered"],
+                        "allele_paths": d["allele_paths"], **out})
+
+
+def binary_covar_analyze_chromosome(packed, pheno: torch.Tensor,
+                                    min_individuals: int,
+                                    min_haplotypes: int,
+                                    maf_threshold: float, device,
+                                    words=None) -> HostResult:
+    """Run one packed chunk through ``vcf -b -c`` on ``device``: the design
+    with no covariates (the reference's shadowing, kept on purpose), IRLS
+    logistic regression of y = pheno * used, and NA where the snarl is
+    degenerate.
+
+    ``pheno`` is the float64 [N] case indicator on ``device``
+    (convert.to_binary_pheno).  Returns a ``fetch.HostResult`` with
+    filtered, allele_paths, p, beta, se."""
+    chunk = to_device_chunk(packed, None, device, words=words)
+    no_covar = torch.zeros((pheno.shape[0], 0), dtype=torch.float64,
+                           device=pheno.device)
+    d = quant_design(chunk, no_covar, min_individuals, min_haplotypes,
+                     maf_threshold, packed.n_haplotypes)
+    used = d["used"]
+    # X, alive through every Newton step, is released once K11 is queued:
+    # the allocator reuses it only behind that launch, as after the OLS
+    out = logistic_regression(d.pop("X"), pheno[None, :] * used, used,
+                              d["ncols"], d["degenerate"])
+    del out["iters"]                   # the Newton step counts stay behind
     return fetch_async({"filtered": d["filtered"],
                         "allele_paths": d["allele_paths"], **out})

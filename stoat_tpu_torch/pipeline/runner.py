@@ -1,6 +1,6 @@
 """VCF-mode orchestration on one device: stream -> pack -> device batch ->
-TSV, for a binary trait (``-b``) or a quantitative one (``-q``, with
-optional covariates).
+TSV, for a binary trait (``-b``, or ``-b -c``: logistic regression) or a
+quantitative one (``-q``, with optional covariates).
 
 The port of the single-device binary and quantitative paths of
 stoat_tpu/pipeline/runner.py run_vcf_analysis (:412-814).  The VCF is
@@ -38,17 +38,18 @@ from stoat_tpu.io.vcf import VcfReader
 from stoat_tpu.matrix import EdgeHaplotypeMatrix
 from stoat_tpu.tables import pack_chromosome_chunks, tokenize_chromosome
 from stoat_tpu_torch.convert import (chunk_words, pheno_masks,
-                                     to_quant_inputs, upload_words)
+                                     to_binary_pheno, to_quant_inputs,
+                                     upload_words)
 from stoat_tpu_torch.pipeline.binary import binary_analyze_chromosome
-from stoat_tpu_torch.pipeline.quantitative import \
-    quantitative_analyze_chromosome
+from stoat_tpu_torch.pipeline.quantitative import (
+    binary_covar_analyze_chromosome, quantitative_analyze_chromosome)
 
 logger = logging.getLogger("stoat")
 
 __all__ = ["run_vcf_analysis", "iter_chromosome_matrices", "INGEST_COUNTS",
            "MODES"]
 
-MODES = ("binary", "quantitative")
+MODES = ("binary", "binary_covar", "quantitative")
 
 # chromosomes read by each VCF reader since the process started (the
 # native core, or the pure-Python fallback)
@@ -269,7 +270,8 @@ def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
     """Queue one chromosome's chunks on the device and their writes on
     the writer thread, then its checkpoint; returns the run's phenotype
     tensors (uploaded on the first chunk of the run: the packed masks in
-    binary mode, the phenotype and covariates in quantitative mode)."""
+    binary mode, the case indicator in binary_covar mode, the phenotype
+    and covariates in quantitative mode)."""
     t0 = time.time()
     logger.info("Analysing chr : %s", chrom)
     _log_degenerate(chrom, matrix, len(snarls))
@@ -289,6 +291,13 @@ def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
                 packed, phenotype, min_individuals, min_haplotypes,
                 maf_threshold, device, words=words, pheno=pheno)
             write = W.write_binary_rows_batch
+        elif mode == "binary_covar":
+            if pheno is None:
+                pheno = to_binary_pheno(phenotype, device)
+            res = binary_covar_analyze_chromosome(
+                packed, pheno, min_individuals, min_haplotypes,
+                maf_threshold, device, words=words)
+            write = partial(W.write_quant_rows_batch, has_r2=False)
         else:
             if pheno is None:
                 pheno = to_quant_inputs(phenotype, covariate,
@@ -336,16 +345,18 @@ def run_vcf_analysis(
 ) -> int:
     """Run the GWAS over a VCF on ``device``; returns the number of snarls
     filtered.  ``mode`` "binary" takes a bool phenotype (chi-squared and
-    Fisher), "quantitative" a float64 phenotype and optional [N, C]
-    covariates (OLS).  Writes ``output_tsv`` byte-identical to
-    stoat_tpu's run_vcf_analysis in the same mode."""
+    Fisher), "binary_covar" the same phenotype for logistic regression
+    (the covariates were validated by the caller and stay out of the
+    model, as in the reference), "quantitative" a float64 phenotype and
+    optional [N, C] covariates (OLS).  Writes ``output_tsv``
+    byte-identical to stoat_tpu's run_vcf_analysis in the same mode."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     header_reader = VcfReader(vcf_path)
     samples = sample_names or header_reader.samples
     header_reader.close()
     n_hap = 2 * len(samples)
-    if mode == "quantitative" and samples:
+    if mode != "binary" and samples:
         # the [chunk, samples, 1 + Pmax + C] float64 design stays near
         # 2 GB (stoat_tpu/pipeline/runner.py:598-605)
         snarl_chunk_size = min(snarl_chunk_size,
@@ -370,6 +381,8 @@ def run_vcf_analysis(
         outf = open(output_tsv, "w", newline="")
         if mode == "binary":
             W.write_binary_header(outf)
+        elif mode == "binary_covar":
+            W.write_binary_covar_header(outf)
         else:
             W.write_quantitative_header(outf)
 

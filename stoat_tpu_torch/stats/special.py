@@ -13,14 +13,21 @@ incomplete beta function, which torch does not have.  ``betainc_plain``
 transcribes JAX's ``regularized_incomplete_beta_impl``
 (jax/_src/lax/special.py, itself XLA's math.cc); csrc/student_t.cu runs the
 same continued fraction on the card (stats/linreg.py student_t_pvalues).
+
+The two-sided normal tail of the Wald test (:64-72) is ``2 * (1 - ndtr)``
+taken literally, as the reference does: ``ndtr_plain`` transcribes JAX's
+``_ndtr`` (jax/_src/scipy/special.py), and csrc/logreg.cu repeats it with
+CUDA's erf and erfc (stats/logreg.py).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["CHI2_HIGH_PRECISION_THRESHOLD", "chi2_sf", "betainc_plain",
-           "student_t_sf2_plain"]
+           "student_t_sf2_plain", "ndtr_plain", "normal_sf2_plain"]
 
 CHI2_HIGH_PRECISION_THRESHOLD = 85.0
 _DBL_MIN = 2.2250738585072014e-308
@@ -143,3 +150,25 @@ def student_t_sf2_plain(t_abs: torch.Tensor, df: torch.Tensor
     df = df.to(torch.float64)
     x = _flush(df / (df + t_abs * t_abs))
     return _flush(betainc_plain(df * 0.5, torch.full_like(df, 0.5), x))
+
+
+_HALF_SQRT_2 = 0.5 * math.sqrt(2.0)
+
+
+def ndtr_plain(x: torch.Tensor) -> torch.Tensor:
+    """Standard normal CDF, float64: JAX 0.9's ``_ndtr``.  With w = x *
+    sqrt(2)/2: 1 + erf(w) where |w| < sqrt(2)/2, else 2 - erfc(|w|) for
+    w > 0 and erfc(|w|) below; times 0.5.  (``torch.special.ndtr`` takes
+    another branch rule and differs in the last bit.)"""
+    w = x.to(torch.float64) * _HALF_SQRT_2
+    z = w.abs()
+    y = torch.where(z < _HALF_SQRT_2, 1.0 + torch.erf(w),
+                    torch.where(w > 0.0, 2.0 - torch.erfc(z), torch.erfc(z)))
+    return 0.5 * y
+
+
+def normal_sf2_plain(z_abs: torch.Tensor) -> torch.Tensor:
+    """Two-sided normal p-value 2 * (1 - ndtr(|z|)) (stats_test.cpp:143),
+    computed literally: p moves in steps of 2^-52 near 0 and is exactly 0
+    for |z| above about 8.3, as in the reference."""
+    return 2.0 * (1.0 - ndtr_plain(z_abs))

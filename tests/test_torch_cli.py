@@ -1,5 +1,6 @@
 """End-to-end parity: ``python -m stoat_tpu_torch vcf -b|-q ... --device
-cpu`` writes the same bytes as ``python -m stoat_tpu vcf -b|-q ...``.
+cpu`` (with or without ``-c -C``) writes the same bytes as ``python -m
+stoat_tpu vcf -b|-q ...``.
 
 Both CLIs run in process, through each package's ``cli.main``, on
 fixtures made by ``tests/fixtures.make_fixture`` from a seed.
@@ -27,13 +28,13 @@ def _args(paths, out, *extra):
 
 
 def _mode_args(mode, paths, out, *extra):
-    """(argv, table name) of a run in ``mode``: "b" (binary), "q"
-    (quantitative) or "qc" (quantitative with the AGE and SEX
-    covariates)."""
-    if mode == "b":
-        return _args(paths, out, *extra), TSV
+    """(argv, table name) of a run in ``mode``: "b" (binary), "bc" (binary
+    with the AGE and SEX covariates: logistic regression), "q"
+    (quantitative) or "qc" (quantitative with the covariates)."""
     covar = (["-c", paths["covariate"], "-C", "AGE,SEX"]
-             if mode == "qc" else [])
+             if mode in ("bc", "qc") else [])
+    if mode in ("b", "bc"):
+        return _args(paths, out, *covar, *extra), TSV
     return (["vcf", "-s", paths["snarl"], "-v", paths["vcf"], "-q",
              paths["quantitative"], *covar, "-o", out, *extra], QTSV)
 
@@ -46,7 +47,7 @@ def _read(path):
 @pytest.mark.parametrize("n_samples,n_chroms,mode", [
     pytest.param(n, c, mode, id=f"{n}-{c}" + ("" if mode == "b" else
                                                 f"-{mode}"))
-    for mode in ("b", "q", "qc") for n, c in ((40, 1), (200, 2))])
+    for mode in ("b", "bc", "q", "qc") for n, c in ((40, 1), (200, 2))])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_cli_byte_identical(tmp_path, seed, n_samples, n_chroms, mode):
     paths = make_fixture(str(tmp_path / "data"), n_samples=n_samples,
@@ -120,6 +121,11 @@ def test_cli_quantitative_resume_after_interrupt(tmp_path, monkeypatch):
     _resume_after_interrupt(tmp_path, monkeypatch, "qc")
 
 
+def test_cli_binary_covar_resume_after_interrupt(tmp_path, monkeypatch):
+    """--resume of a ``vcf -b -c -C AGE,SEX`` run."""
+    _resume_after_interrupt(tmp_path, monkeypatch, "bc")
+
+
 def _resume_after_interrupt(tmp_path, monkeypatch, mode):
     paths = make_fixture(str(tmp_path / "data"), n_samples=40, n_snarls=36,
                          seed=2, n_chroms=3)
@@ -163,13 +169,14 @@ def _spy(real, seen):
 
 
 @pytest.mark.parametrize("argv", [
-    ["vcf", "-b", "x", "-q", "y"], ["vcf", "-b", "x", "-c", "y", "-C", "AGE"],
+    ["vcf", "-b", "x", "-q", "y"], ["simulate"],
     ["vcf", "--lmm"], ["vcf", "--permutations", "10"], ["vcf", "-T", "0.01"],
-    ["vcf", "--no-such-flag"], ["graph"], ["BHcorrect"],
+    ["vcf", "--no-such-flag"], ["truth"], ["BHcorrect"],
     ["vcf", "-e", "x", "-G", "y"], ["vcf", "-q", "x", "-k", "y", "--lmm"]])
 def test_unported_modes_exit_nonzero_naming_roadmap(argv, capsys):
-    """Dual -b -q, -b -c (logistic), eQTL, LMM, permutations and -T are
-    refused before anything runs, never run on another path."""
+    """Dual -b -q, eQTL, LMM, permutations, -T and the simulate, truth and
+    BHcorrect subcommands are refused before anything runs, never run on
+    another path."""
     assert torch_cli.main(argv) != 0
     assert "ROADMAP.md" in capsys.readouterr().err
 

@@ -31,26 +31,30 @@ def _run(script: str, tmp_path) -> subprocess.CompletedProcess:
 
 
 def test_port_runs_without_jax_or_triton(tmp_path):
-    """Importing the port, its CLI, its runner and every kernel module, and
-    whole CPU runs of ``vcf -b`` and ``vcf -q -c``, leave jax and triton
-    out of sys.modules and need no CUDA toolkit (nothing is built)."""
+    """Importing the port, its CLI, its runner, graph mode and every kernel
+    module, and whole CPU runs of ``vcf -b``, ``vcf -b -c``, ``vcf -q -c``
+    and ``graph``, leave jax and triton out of sys.modules and need no
+    CUDA toolkit (nothing is built)."""
     res = _run(f"""
         import os, sys
         import stoat_tpu_torch
         import stoat_tpu_torch.cli
+        import stoat_tpu_torch.graph
         import stoat_tpu_torch.pipeline.runner
         import stoat_tpu_torch.pipeline.quantitative
         import stoat_tpu_torch.stats.linalg
         import stoat_tpu_torch.stats.linreg
+        import stoat_tpu_torch.stats.logreg
         import stoat_tpu_torch.stats.special
         from stoat_tpu_torch.kernels import build
         from fixtures import make_fixture
         p = make_fixture({str(tmp_path / 'data')!r}, n_samples=20,
                          n_snarls=12, seed=4)
         out = {str(tmp_path / 'out')!r}
+        covar = ["-c", p["covariate"], "-C", "AGE,SEX"]
         for pheno, table in ((["-b", p["binary"]], "binary"),
-                             (["-q", p["quantitative"], "-c",
-                               p["covariate"], "-C", "AGE,SEX"],
+                             (["-b", p["binary"], *covar], "binary"),
+                             (["-q", p["quantitative"], *covar],
                               "quantitative")):
             rc = stoat_tpu_torch.cli.main(
                 ["vcf", "-s", p["snarl"], "-v", p["vcf"], *pheno,
@@ -59,6 +63,18 @@ def test_port_runs_without_jax_or_triton(tmp_path):
             with open(os.path.join(out, table + "_table_vcf.tsv")) as fh:
                 assert fh.readline().startswith("#CHR")
                 assert fh.readline()
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", os.path.join({REPO!r}, "chip_smoke.py"))
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        g = smoke.write_graph({str(tmp_path / 'graph')!r}, 30, 8)
+        rc = stoat_tpu_torch.cli.main(
+            ["graph", "-p", g["gfa"], "-d", g["gfa"], "-b", g["pheno"],
+             "-r", "ref", "-V", "0", "-o", out, "--device", "cpu"])
+        assert rc == 0, rc
+        with open(os.path.join(out, "binary_table_graph.tsv")) as fh:
+            assert len(fh.readlines()) > 20
         assert not build.BUILD_LOG, build.BUILD_LOG
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "triton"))
@@ -148,5 +164,5 @@ def test_launch_counts_reset():
     kernels.reset_launch_counts()
     assert set(kernels.LAUNCHES) == {"membership_counts", "binary_tables",
                                      "fisher", "quant_design", "ols",
-                                     "student_t"}
+                                     "student_t", "graph_stats", "logreg"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
