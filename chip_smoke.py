@@ -6,18 +6,21 @@ g++:
 
     python3 chip_smoke.py
 
-It builds the port's eight CUDA kernels (one nvcc per source, all at
-once) and the native VCF and graph cores from the sources in the
-checkout, then runs five phases, each printing lines and each fatal on
-failure:
+It builds the port's CUDA kernels (thirteen entry points in eleven
+sources, one nvcc per source, all at once) and the native VCF and graph
+cores from the sources in the checkout, then runs five phases, each
+printing lines and each fatal on failure:
 
   1. card: nvidia-smi name and power limit, torch and CUDA versions, the
      kernels' nvcc build with ptxas register and spill counts;
-  2. native cores: built into build/stoat_tpu_torch/native and loaded;
+  2. native cores: built into build/stoat_tpu_torch/native under their
+     host-keyed names and loaded;
   3. kernels against their plain PyTorch versions, on the card, at the
      main paths' shapes (the first chunk of ``vcf -b``, of ``vcf -q -c``
-     and of ``vcf -b -c``, and the main graph's partition counts) and on
-     edge cases (tolerances printed);
+     and of ``vcf -b -c``, the main graph's partition counts, and the
+     permutation kernels on the first chunk with 16 permutations and
+     again with the main path's 1,001 rows, perm_ols at both the ``-q``
+     and the ``-q -c`` design) and on edge cases (tolerances printed);
   4. main paths: the port's CLI with ``--device cuda``: ``vcf -b``, ``vcf
      -q``, ``vcf -q -c -C AGE,SEX`` and ``vcf -b -c -C AGE,SEX`` on a
      generated cohort of 2,504 samples (the 1000 Genomes phase-3 size)
@@ -27,18 +30,24 @@ failure:
      path; then the same runs with ``--device cpu`` (the binary and graph
      outputs byte for byte, the regression TSVs as phase 4 states), numpy
      and scipy references built from the inputs' text, and graph mode's
-     Python twin against its native path;
+     Python twin against its native path; then each ``vcf`` mode again
+     with ``--permutations 1000`` at full size (every kernel on every
+     chunk, P_EMP and P_FWER recounted in numpy from the captured
+     p-values), and CUDA against CPU with 50 permutations on a sub-cohort
+     of 2,048 snarls, then the two quantitative passes once more;
   5. each kernel's time and its plain version's, on the card, at the main
      paths' shapes (CUDA events, after a warm-up, and profiler device
-     time).
+     time), its bound (bytes over the card's memory rate or operations
+     over its peak rate, whichever is larger), and the wall of each
+     permutation pass.
 
 The last two lines of standard output are a JSON object of the kernels and
 the contract line {"ok": true, "device": {...}}.  Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.  The generated data lives under build/stoat_tpu_torch/ and is
-removed at the end.  It imports nothing of JAX: only the JAX package's
-host modules that the port reuses (parsers, packing, native core) and
-tests/reference_impl.py (numpy and scipy).
+removed at the end.  It imports nothing of JAX and nothing of the JAX
+package: the port's own modules, tests/fixtures.py (numpy) and its own
+numpy and scipy references (copies of tests/reference_impl.py's).
 """
 
 from __future__ import annotations
@@ -102,11 +111,46 @@ KERNELS = {
                     "stoat_tpu/graph/association.py:496"),
     "logreg": ("stoat_tpu_torch/csrc/logreg.cu",
                "stoat_tpu/stats/logreg.py:44"),
+    "perm_membership": ("stoat_tpu_torch/csrc/perm_binary.cu",
+                        "stoat_tpu/pipeline/permutation.py:256"),
+    "perm_binary": ("stoat_tpu_torch/csrc/perm_binary.cu",
+                    "stoat_tpu/pipeline/permutation.py:79"),
+    "perm_ols": ("stoat_tpu_torch/csrc/perm_ols.cu",
+                 "stoat_tpu/pipeline/permutation.py:104"),
+    "score_precompute": ("stoat_tpu_torch/csrc/score_test.cu",
+                         "stoat_tpu/pipeline/permutation.py:194"),
+    "score_perm": ("stoat_tpu_torch/csrc/score_test.cu",
+                   "stoat_tpu/pipeline/permutation.py:201"),
 }
+# the kernel sources (one nvcc each), by their build names
+SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
 BINARY_KERNELS = ("membership_counts", "binary_tables", "fisher")
 QUANT_KERNELS = ("quant_design", "ols", "student_t")
 BC_KERNELS = ("quant_design", "logreg")
 GRAPH_KERNELS = ("graph_stats",)
+PERM_KERNELS = ("perm_membership", "perm_binary", "perm_ols",
+                "score_precompute", "score_perm")
+# permutations: phase 3 checks the kernels with PERM_K; phase 4 runs each
+# mode's CLI with PERM_FULL (users run 1,000) at full size, and CUDA
+# against CPU with PERM_SUB on a sub-cohort of SUB_SNARLS snarls (the plain
+# CPU path at full size would take hours)
+PERM_K = 16
+PERM_FULL = 1000
+PERM_SUB = 50
+SUB_SNARLS = 2048
+# the score test, kernel vs plain on the card: V^-1 relative to each
+# snarl's largest entry, T relative to max(T, 1) (rows summed in another
+# order); a P_EMP/P_FWER count of two runs may differ only at a tie that
+# the p-values resolve within TIE_REL
+SCORE_REL = 1e-10
+TIE_REL = 1e-9
+# the bound of a kernel's time: the H100 SXM's 3.35 TB/s of HBM3 and its
+# float64 peak, 67 TFLOP/s (the tensor cores; NVIDIA's data sheet), and
+# for int32 work (AND, popcount)
+# 132 SMs x 64 int32 lanes x 1.98 GHz (the Hopper white paper)
+HBM_BYTES_S = 3.35e12
+F64_FLOPS = 67e12
+INT32_OPS = 132 * 64 * 1.98e9
 COVAR_NAMES = ["AGE", "SEX"]
 THRESHOLDS = (3, 5, 0.05)
 # the Student-t grid of tests/test_torch_linreg.py
@@ -137,7 +181,7 @@ REF_REL = 1e-8
 LOGREG_REL = 1e-10
 P_FLOOR = 1e-5
 # graph mode: P_FISHER / P_CHI2 of the sampled rows against
-# tests/reference_impl.py (scipy); a 4-digit string may flip at a rounding
+# chi2_p / fisher_p (scipy); a 4-digit string may flip at a rounding
 # boundary, never by more than one unit
 GRAPH_REF_ROWS = 2000
 GRAPH_REF_REL = 1e-3
@@ -212,6 +256,129 @@ def memory_note(peak, held):
 
 # ---------------------------------------------------------------- reference
 
+def chi2_p(g0, g1):
+    """scipy's chi-squared p of a 2 x N table (NaN where a margin is 0).
+    This and the functions below to irls_reference are copies of
+    tests/reference_impl.py, an independent per-snarl reading of the
+    reference's C++ sources."""
+    import numpy as np
+    import scipy.stats
+    g0 = np.asarray(g0, float)
+    g1 = np.asarray(g1, float)
+    colsum = g0 + g1
+    if (colsum.sum() == 0 or g0.sum() == 0 or g1.sum() == 0
+            or np.any(colsum == 0)):
+        return np.nan
+    return scipy.stats.chi2_contingency(np.stack([g0, g1]),
+                                        correction=False)[1]
+
+
+def fisher_p(a, b, c, d):
+    import numpy as np
+    import scipy.stats
+    if (a + b == 0) or (c + d == 0) or (a + c == 0) or (b + d == 0):
+        return np.nan
+    return scipy.stats.fisher_exact([[a, b], [c, d]])[1]
+
+
+def filtration_quantitative(df, min_individuals, min_haplotypes, maf):
+    import numpy as np
+    if df.size == 0 or df.shape[1] < 2 or df.shape[0] < min_individuals:
+        return True
+    total = df.sum()
+    if total < min_haplotypes:
+        return True
+    freq = df.sum(axis=0) / total
+    m = np.minimum(freq, 1 - freq)
+    return int(np.sum(m > maf)) < 2
+
+
+def combine_identical_columns(df):
+    import numpy as np
+    n_cols = df.shape[1]
+    if n_cols < 3:
+        return df
+    merged = [False] * n_cols
+    new_cols = []
+    for i in range(n_cols):
+        if merged[i]:
+            continue
+        col = df[:, i].copy()
+        for j in range(i + 1, n_cols):
+            if not merged[j] and np.array_equal(df[:, j], df[:, i]):
+                col += df[:, j]
+                merged[j] = True
+        new_cols.append(col)
+    return np.stack(new_cols, axis=1)
+
+
+def ols_reference(df, y, covar):
+    """OLS reporting the first variant column (stats_test.cpp:423-506)."""
+    import numpy as np
+    import scipy.stats
+    n = df.shape[0]
+    parts = [np.ones((n, 1)), df]
+    if covar is not None and covar.shape[1] > 0:
+        parts.append(covar)
+    X = np.concatenate(parts, axis=1)
+    XtXinv = np.linalg.inv(X.T @ X)
+    beta = XtXinv @ (X.T @ y)
+    resid = y - X @ beta
+    rss = float(resid @ resid)
+    tss = float(((y - y.mean()) ** 2).sum())
+    df_res = max(n - X.shape[1] + 1, 1)
+    se = np.sqrt(np.diag(XtXinv) * rss / df_res)
+    t = beta / se
+    p = (1.0 if not np.isfinite(t[1])
+         else 2 * scipy.stats.t.sf(abs(t[1]), df_res))
+    return p, beta[1], se[1], 1 - rss / tss
+
+
+def adjusted_holm(p):
+    """Holm's step-down with monotonicity (stoat_tpu/corrections.py)."""
+    import numpy as np
+    p = np.asarray(p, np.float64)
+    order = np.argsort(p, kind="stable")
+    raw = np.minimum(p[order] * np.arange(p.size, 0, -1, dtype=np.float64),
+                     1.0)
+    out = np.empty_like(raw)
+    out[order] = np.maximum.accumulate(raw)
+    return out
+
+
+def irls_reference(df, y):
+    """Logistic IRLS, Wald test and Holm (stats_test.cpp:49-176); None
+    when it does not converge in 100 steps."""
+    import numpy as np
+    import scipy.stats
+    n = df.shape[0]
+    X = np.concatenate([np.ones((n, 1)), df], axis=1)
+    pdim = X.shape[1]
+    beta = np.zeros(pdim)
+    beta_old = beta.copy()
+    for _ in range(100):
+        prob = 1 / (1 + np.exp(-(X @ beta)))
+        w = np.clip(prob * (1 - prob), 1e-8, 1.0)
+        H = (X * w[:, None]).T @ X + 1e-4 * np.eye(pdim)
+        beta = beta + np.linalg.solve(H, X.T @ (y - prob) - 1e-4 * beta)
+        if np.linalg.norm(beta - beta_old) < 1e-6:
+            break
+        beta_old = beta.copy()
+    else:
+        return None
+    prob = 1 / (1 + np.exp(-(X @ beta)))
+    w = np.clip(prob * (1 - prob), 1e-8, 1.0)
+    cov = np.linalg.inv((X * w[:, None]).T @ X + 1e-4 * np.eye(pdim))
+    se = np.sqrt(np.diag(cov))
+    pvals = np.array([2 * (1 - scipy.stats.norm.cdf(abs(beta[i] / se[i])))
+                      for i in range(1, pdim)])
+    if len(pvals) > 1:
+        adj = adjusted_holm(pvals)
+        k = int(np.argmin(adj))
+        return adj[k], beta[k + 1], se[k + 1]
+    return pvals[0], beta[1], se[1]
+
+
 def reference_rows(paths, min_individuals=3, min_haplotypes=5, maf=0.05):
     """The rows ``vcf -b`` must write for a ``make_fixture`` cohort, from
     the VCF text and the phenotype file alone, in numpy.
@@ -273,14 +440,11 @@ def quant_reference(paths, pheno, covar, case, n_sample=512, seed=0,
     modes filter alike); ``stats`` maps (chrom, snarl) of up to
     ``n_sample`` random unfiltered snarls to ((p, beta, se, r2) of OLS
     without covariates, the same with them, (p, beta, se) of the logistic
-    model of the bool phenotype ``case``), from tests/reference_impl.py
+    model of the bool phenotype ``case``), from the references above
     (NaN for a degenerate snarl, whose merged columns all drop, and for a
     logistic fit that never converges).  A haplotype carries path i
     exactly when its allele is i (reference_rows)."""
     import numpy as np
-    from reference_impl import (combine_identical_columns,
-                                filtration_quantitative, irls_reference,
-                                ols_reference)
     N = pheno.shape[0]
     sample_of = np.arange(2 * N) // 2
     records = []
@@ -468,7 +632,7 @@ def compare_tables(g0p, g1p, sidx, thresholds, err):
 
 def compare_fisher(cols, err, expected=None):
     """K4 kernel vs plain: bitwise, on the card and against the CPU."""
-    from stoat_tpu.writer import format_p
+    from stoat_tpu_torch.writer import format_p
     from stoat_tpu_torch.stats.fisher import (fisher_exact_2x2,
                                               fisher_exact_2x2_plain)
     got = to_np(fisher_exact_2x2(*cols))
@@ -517,7 +681,7 @@ def edge_cases(device, err):
     """Phase 3 edge cases; returns a short description."""
     import numpy as np
     import torch
-    from stoat_tpu.writer import format_p
+    from stoat_tpu_torch.writer import format_p
     from stoat_tpu_torch.stats.special import chi2_sf
 
     # K1+K2: zero-edge valid path, invalid path, H % 32 != 0, W = 1
@@ -926,7 +1090,7 @@ def compare_graph_stats(G0, G1, mask, err, expected_fisher=None):
     torch ops on bitwise statistics); against the CPU's plain version
     Fisher bitwise and the chi-squared p-values (torch.special.gammaincc on
     the card and on the CPU) to a relative 1e-12 with equal strings."""
-    from stoat_tpu.writer import format_p
+    from stoat_tpu_torch.writer import format_p
     from stoat_tpu_torch.graph.association import (graph_stats,
                                                    graph_stats_plain)
     got = [to_np(t) for t in graph_stats(G0, G1, mask)]
@@ -991,8 +1155,8 @@ def graph_counts(graph, device):
     """The main graph's K6 inputs, from the native prepare as ``graph``
     runs it: (G0, G1, mask) on ``device``, and k."""
     import numpy as np
-    from stoat_tpu.io.phenotype import parse_binary_pheno
-    from stoat_tpu.native import graph_assoc_native
+    from stoat_tpu_torch.io.phenotype import parse_binary_pheno
+    from stoat_tpu_torch.native import graph_assoc_native
     from stoat_tpu_torch.convert import to_graph_counts
     pheno, samples = parse_binary_pheno(graph["pheno"], [])
     got = graph_assoc_native(graph["gfa"], {"ref"}, samples,
@@ -1163,6 +1327,666 @@ def logreg_edge_cases(device, err):
             f"{flips + flips12}")
 
 
+# ---------------------------------------------------------------- permutations
+
+def perm_host_rows(pheno_bin, pheno_q, covar, n_words, n_perms, seed=0):
+    """The permutation test's rows as run_permutation_test builds them:
+    {"masks": [1 + K, W] packed case masks, "phenos": [1 + K, N]
+    Freedman-Lane phenotypes with covariates (``-q -c``), "phenos_q":
+    [1 + K, N] label permutations (``-q``), "Z", "w" and "e": [1 + K, N]
+    residual rows of the reduced logistic fit with covariates}, row 0 the
+    observed phenotype."""
+    import numpy as np
+    from stoat_tpu_torch.pipeline import permutation as pm
+    from stoat_tpu_torch.pipeline.packed import pack_hap_mask_words
+    idx = pm.permutation_indices(len(pheno_bin), n_perms, seed)
+    obs = pack_hap_mask_words(np.repeat(pheno_bin.astype(bool), 2), n_words)
+    masks = pm.permutation_masks(pheno_bin, n_perms, seed, n_words, idx)
+    phenos = pm.freedman_lane_phenos(pheno_q, covar, idx)
+    phenos_q = pm.freedman_lane_phenos(pheno_q, None, idx)
+    Z, w, e = pm.logistic_null_context(pheno_bin, covar)
+    return {"masks": np.concatenate([obs[None, :], masks]),
+            "phenos": np.concatenate([pheno_q[None, :], phenos]),
+            "phenos_q": np.concatenate([pheno_q[None, :], phenos_q]),
+            "Z": Z, "w": w, "e": np.concatenate([e[None, :], e[idx]])}
+
+
+def compare_perm_binary(chunk, masks, err, cpu=True):
+    """K1 alone and K15, kernel vs plain on the card (and on the CPU with
+    ``cpu``): membership words and counts exact, statistic and df bitwise,
+    flags exact; row 0's statistic also bitwise equal to K3's kernel on
+    the same mask's counts."""
+    import numpy as np
+    from stoat_tpu_torch.pipeline import permutation as pm
+    from stoat_tpu_torch.pipeline.binary import binary_tables
+    from stoat_tpu_torch.pipeline.packed import membership_counts
+    args = (chunk.words, chunk.path_idx, chunk.path_valid, chunk.tail)
+    mem, g_all = pm.perm_membership(*args)
+    for plain in (pm.perm_membership_plain(*args),
+                  pm.perm_membership_plain(*(a.cpu() for a in args))):
+        check(np.array_equal(to_np(mem), to_np(plain[0]))
+              and np.array_equal(to_np(g_all), to_np(plain[1])),
+              "perm_membership: kernel != plain")
+    sargs = (mem, g_all, masks, chunk.snarl_path_idx, *THRESHOLDS)
+    got = pm.perm_binary_stats(*sargs)
+    plains = [("card", lambda: pm.perm_binary_stats_plain(*sargs))]
+    if cpu:
+        plains.append(("CPU", lambda: pm.perm_binary_stats_plain(
+            *(a.cpu() for a in sargs[:4]), *THRESHOLDS)))
+    for where, run_plain in plains:
+        plain = run_plain()
+        check(same_bits(to_np(got[0]), to_np(plain[0]))
+              and same_bits(to_np(got[1]), to_np(plain[1]))
+              and np.array_equal(to_np(got[2]), to_np(plain[2])),
+              f"perm_binary: kernel != plain bitwise ({where})")
+        err["perm_binary"] = max(err["perm_binary"],
+                                 max_abs_err(to_np(got[0]), to_np(plain[0])))
+    t = binary_tables(*membership_counts(*args, masks[0]),
+                      chunk.snarl_path_idx, *THRESHOLDS)
+    check(same_bits(to_np(got[0][0]), to_np(t["chi2_stat"])),
+          "perm_binary: row 0 != K3's statistic bitwise")
+    return mem, g_all, got
+
+
+def compare_perm_ols(X, used, ncols, phenos, err, pinv, what):
+    """K16a kernel vs plain on the card: t1 within OLS_REL (OLS_PINV_REL on
+    the pseudo-inverse rows), df exact.  Returns (t1, df) and the largest
+    error."""
+    import numpy as np
+    from stoat_tpu_torch.pipeline import permutation as pm
+    t1, df = pm.perm_ols_stats(X, used, ncols, phenos)
+    p1, pdf = pm.perm_ols_stats_plain(X, used, ncols, phenos)
+    a, b = to_np(t1), to_np(p1)
+    rows = np.zeros(X.shape[0], bool)
+    rows[list(pinv)] = True
+    worst = 0.0
+    for sel, bound in ((~rows, OLS_REL), (rows, OLS_PINV_REL)):
+        if sel.any():
+            e = stat_err("t1", a[:, sel], b[:, sel])
+            check(e <= bound, f"perm_ols ({what}): t1 error {e:.3g} > "
+                  f"{bound:g}")
+            worst = max(worst, e)
+    check(np.array_equal(to_np(df), to_np(pdf)), f"perm_ols ({what}): df "
+          f"differs")
+    err["perm_ols"] = max(err["perm_ols"], max_abs_err(a[:, ~rows],
+                                                       b[:, ~rows]))
+    return t1, df, worst
+
+
+def compare_score(X, used, ncols, bad, Z, w, e, err, what):
+    """K16b/c kernel vs plain on the card: D bitwise, df and allbad exact;
+    on the snarls not flagged, V^-1 within SCORE_REL of each snarl's
+    largest entry and T within SCORE_REL of max(T, 1) (a chi-squared
+    statistic's scale); the sanitised p-values' +inf sets equal.  Returns
+    (D, Vinv, df, allbad, T) and the largest errors."""
+    import numpy as np
+    from stoat_tpu_torch.pipeline import permutation as pm
+    got = pm.score_precompute(X, used, ncols, bad, Z, w)
+    plain = pm.score_precompute_plain(X, used, ncols, bad, Z, w)
+    check(same_bits(to_np(got[0]), to_np(plain[0])),
+          f"score_precompute ({what}): D differs")
+    check(np.array_equal(to_np(got[2]), to_np(plain[2]))
+          and np.array_equal(to_np(got[3]), to_np(plain[3])),
+          f"score_precompute ({what}): df or allbad differs")
+    # V^-1 and T of a flagged snarl are never read (its p is +inf): an
+    # ill-conditioned V inverts to finite garbage in both versions
+    good = ~to_np(got[3])
+    V, Vp = to_np(got[1])[good], to_np(plain[1])[good]
+    scale = np.abs(Vp).max(axis=(1, 2), keepdims=True)
+    ev = float(np.max(np.abs(V - Vp) / np.maximum(scale, 1e-300))) \
+        if good.any() else 0.0
+    check(ev <= SCORE_REL, f"score_precompute ({what}): Vinv error {ev:.3g}")
+    err["score_precompute"] = max(err["score_precompute"],
+                                  max_abs_err(V, Vp))
+    T = pm.score_perm_stats(got[0], used, got[1], e)
+    Tp = pm.score_perm_stats_plain(got[0], used, got[1], e)
+    a, b = to_np(T)[:, good], to_np(Tp)[:, good]
+    fin = np.isfinite(b)
+    check(np.array_equal(np.isfinite(a), fin), f"score_perm ({what}): "
+          f"non-finite T differ")
+    et = float(np.max(np.abs(a[fin] - b[fin])
+                      / np.maximum(np.abs(b[fin]), 1.0))) if fin.any() else 0
+    check(et <= SCORE_REL, f"score_perm ({what}): T error {et:.3g}")
+    err["score_perm"] = max(err["score_perm"], max_abs_err(a[fin], b[fin]))
+    pk = to_np(pm.score_perm_pvalues(T, got[2], got[3]))
+    pp = to_np(pm.score_perm_pvalues(Tp, plain[2], plain[3]))
+    check(np.array_equal(np.isinf(pk), np.isinf(pp)),
+          f"score p ({what}): +inf sets differ")
+    return (*got, T), (ev, et)
+
+
+def perm_edge_cases(device, err):
+    """Phase 3's permutation edge cases: rank-deficient designs (the
+    pseudo-inverse) and a filtered snarl for K16a; an ill-conditioned
+    Z^T W Z and non-finite T for K16b/c; 40 permutations (a ragged block of
+    32) and W = 3 words for K15.  Returns a short description."""
+    import numpy as np
+    import torch
+    from stoat_tpu_torch.convert import DeviceChunk
+    from stoat_tpu_torch.pipeline import permutation as pm
+    from stoat_tpu_torch.pipeline.packed import tail_mask_words
+    rng = np.random.default_rng(21)
+    X, y, mask, ncols = ols_cases(device, 3, 24, 300, 6)
+    phenos = torch.from_numpy(rng.standard_normal((40, 300)) + 2.0) \
+        .to(device)
+    t1, df, e_ols = compare_perm_ols(X, mask, ncols, phenos, err, (0, 1),
+                                     "edge designs")
+    bad = torch.zeros(24, dtype=torch.bool, device=device)
+    bad[5] = True
+    p = to_np(pm.quant_perm_pvalues(t1, df, bad))
+    check(np.isinf(p[:, 5]).all() and np.isfinite(p[:, 6]).all(),
+          "perm p: a filtered snarl is not +inf")
+
+    Z = np.column_stack([np.ones(300), rng.standard_normal((300, 2))])
+    w = rng.random(300) * 0.25 + 0.01
+    e = rng.standard_normal((40, 300)) * 0.5
+    e[3, 7] = np.nan                         # T not finite for row 3
+    Zd = Z.copy()
+    Zd[:, 2] = Zd[:, 1]                      # Z^T W Z singular
+    outs = []
+    for Zc in (Z, Zd):
+        got, (ev, et) = compare_score(
+            X, mask, ncols, bad, *(upload_t(a, device) for a in (Zc, w, e)),
+            err, "edge designs")
+        outs.append((got, ev, et))
+    T = to_np(outs[0][0][4])
+    # used * e is 0 * NaN = NaN on the unused rows too, as in JAX: every
+    # snarl's T of that row is NaN
+    check(not np.isfinite(T[3]).any() and np.isfinite(T[2]).all(),
+          "score_perm: a NaN residual does not make row 3's T NaN")
+    p = to_np(pm.score_perm_pvalues(outs[0][0][4], outs[0][0][2],
+                                    outs[0][0][3]))
+    check(np.isinf(p[3]).all(), "score p: non-finite T not +inf")
+    check(bool(to_np(outs[1][0][3]).all()), "score_precompute: a singular "
+          "Z^T W Z is not flagged")
+    for seed, H in ((0, 90), (1, 64)):
+        words, idx, valid, tail, _ = membership_case(seed, 29, H, 31)
+        chunk = DeviceChunk(*(upload_t(a, device) for a in (
+            words.view(np.int32), idx, valid,
+            rng.integers(-1, 31, (17, 5)).astype(np.int32),
+            tail_mask_words(H, words.shape[1]).view(np.int32))))
+        masks = np.stack([pm.permutation_masks(
+            rng.random(H // 2) < 0.4, 1, s, words.shape[1])[0]
+            for s in range(40)])
+        compare_perm_binary(chunk, upload_t(masks.view(np.int32), device),
+                            err)
+    return (f"perm edge cases ok (rank-deficient designs 0, 1 within "
+            f"{e_ols:.3g}; a filtered snarl +inf; a NaN residual makes its "
+            f"row's T NaN on all {T.shape[1]} snarls, p +inf; singular "
+            f"Z^T W Z flags all of them; V^-1 error "
+            f"{max(o[1] for o in outs):.3g},"
+            f" T error {max(o[2] for o in outs):.3g}; K15 on W = 3 and W = 2"
+            f" words with 40 masks bitwise)")
+
+
+def phase_perm_kernels(torch, device, chunks, quant, logit, err):
+    """Phase 3 for the permutation kernels, on the first full-size chunk
+    with PERM_K permutations; returns phase 5's inputs at the main path's
+    K = 1 + PERM_FULL."""
+    import numpy as np
+    from stoat_tpu_torch.convert import to_perm_inputs
+    chunk, qchunk, qpheno, qcovar, H, case = chunks
+    pheno_bin = to_np(case) > 0.5
+    covar = to_np(qcovar)
+    W = int(chunk.words.shape[1])
+    rows = perm_host_rows(pheno_bin, to_np(qpheno), covar, W, PERM_K)
+    rows.pop("phenos_q")
+    inp = to_perm_inputs(device, **rows)
+    mem, g_all, _ = compare_perm_binary(chunk, inp.masks, err)
+
+    q = quant
+    pinv, _ = pinv_rows(q["X"], q["ncols"])
+    t1, df, e_q = compare_perm_ols(q["X"], q["used"], q["ncols"],
+                                   inp.phenos, err, pinv, "main chunk")
+    one = stat_err("t1", to_np(t1[0]), to_np(q["stats"][0]))
+    rows_ok = np.ones(q["X"].shape[0], bool)
+    rows_ok[pinv] = False
+    one_ok = stat_err("t1", to_np(t1[0])[rows_ok],
+                      to_np(q["stats"][0])[rows_ok])
+    check(one_ok <= OLS_REL and np.array_equal(to_np(df[0]),
+                                               to_np(q["stats"][1])),
+          f"perm_ols row 0 vs ols.cu: t1 error {one_ok:.3g}")
+
+    lg = logit
+    bad = lg["filtered"] | lg["deg"]
+    _, (ev, et) = compare_score(lg["X"], lg["used"], lg["ncols"], bad,
+                                inp.Z, inp.w, inp.e, err, "main chunk")
+    edges = perm_edge_cases(device, err)
+    torch.cuda.synchronize()
+    say(f"phase 3 permutation kernels vs plain: first chunk, K = {PERM_K} "
+        f"+ the observed row: perm_membership exact and perm_binary "
+        f"statistic bitwise (card and CPU; row 0 = K3's bits); perm_ols t1 "
+        f"within {e_q:.3g} (bound {OLS_REL:g}, {OLS_PINV_REL:g} on "
+        f"{len(pinv)} pseudo-inverse rows), row 0 vs ols.cu {one_ok:.3g} "
+        f"({one:.3g} with the pseudo-inverse rows); score_precompute D "
+        f"bitwise, V^-1 within {ev:.3g}, score_perm T within {et:.3g} "
+        f"(bound {SCORE_REL:g}); {edges}; max abs err "
+        + ", ".join(f"{k}={err[k]:.3g}" for k in PERM_KERNELS))
+
+    full = perm_host_rows(pheno_bin, to_np(qpheno), covar, W, PERM_FULL)
+    phenos_q = upload_t(full.pop("phenos_q"), device)
+    fin = to_perm_inputs(device, **full)
+    D, Vinv = compare_perm_full(torch, chunk, q, lg, bad, fin, phenos_q,
+                                err)
+    return {"chunk": chunk, "mem": mem, "g_all": g_all, "masks": fin.masks,
+            "X": q["X"], "used": q["used"], "ncols": q["ncols"],
+            "phenos": fin.phenos, "bX": lg["X"], "bused": lg["used"],
+            "bncols": lg["ncols"], "phenos_q": phenos_q, "bad": bad,
+            "Z": fin.Z, "w": fin.w, "e": fin.e, "D": D, "Vinv": Vinv}
+
+
+def compare_perm_full(torch, chunk, q, lg, bad, fin, phenos_q, err):
+    """Phase 3 at the main path's K = 1 + PERM_FULL rows, kernel vs plain on
+    the card: K15 bitwise (every block of 32 masks); K16a at the ``-q -c``
+    design (PT = 7, Freedman-Lane rows) and at the ``-q`` design (PT = 5,
+    label permutations), t1 within OLS_REL (OLS_PINV_REL on the
+    pseudo-inverse rows) and df exact; Q3's p-only route over the [K * S]
+    statistics (linear_pvalues) against finish_linear_pvalues within T_REL;
+    K16b/c within SCORE_REL.  Returns the score test's D and V^-1."""
+    from stoat_tpu_torch.stats.linreg import (finish_linear_pvalues,
+                                              linear_pvalues)
+    K = int(fin.masks.shape[0])
+    compare_perm_binary(chunk, fin.masks, err, cpu=False)
+    pinv7, _ = pinv_rows(q["X"], q["ncols"])
+    t1, df, e7 = compare_perm_ols(q["X"], q["used"], q["ncols"], fin.phenos,
+                                  err, pinv7, f"-q -c design, K = {K}")
+    pinv5, _ = pinv_rows(lg["X"], lg["ncols"])
+    _, _, e5 = compare_perm_ols(lg["X"], lg["used"], lg["ncols"], phenos_q,
+                                err, pinv5, f"-q design, K = {K}")
+    p, pp = to_np(linear_pvalues(t1, df)), to_np(finish_linear_pvalues(t1,
+                                                                       df))
+    ep = rel_err(p, pp)
+    check(ep <= T_REL, f"linear_pvalues (K = {K}): relative error {ep:.3g} "
+          f"> {T_REL:g} against finish_linear_pvalues")
+    err["student_t"] = max(err["student_t"], max_abs_err(p, pp))
+    got, (ev, et) = compare_score(lg["X"], lg["used"], lg["ncols"], bad,
+                                  fin.Z, fin.w, fin.e, err, f"K = {K}")
+    torch.cuda.synchronize()
+    say(f"phase 3 permutation kernels vs plain at the main path's K = {K} "
+        f"rows ({int(t1.shape[1])} snarls): perm_binary statistic bitwise; "
+        f"perm_ols t1 within {e7:.3g} at PT = {int(q['X'].shape[2])} "
+        f"({len(pinv7)} pseudo-inverse rows) and {e5:.3g} at PT = "
+        f"{int(lg['X'].shape[2])} ({len(pinv5)}), df exact; linear_pvalues "
+        f"over [{K} x {int(t1.shape[1])}] within {ep:.3g} (bound "
+        f"{T_REL:g}); score_precompute V^-1 within {ev:.3g}, score_perm T "
+        f"within {et:.3g} (bound {SCORE_REL:g})")
+    return got[0], got[1]
+
+
+class PermCapture:
+    """Records what run_permutation_test computes, by wrapping its
+    accumulate_chunk (each chunk's [1 + K, S] p-values on the device) and
+    timing the whole pass: per chunk the observed row and each
+    permutation's minimum, and the full matrices of the first ``full``
+    chunks."""
+
+    def __init__(self, full=1):
+        self.full = full
+
+    def __enter__(self):
+        from stoat_tpu_torch.pipeline import permutation as pm
+        self.pm = pm
+        self.real_acc = pm.accumulate_chunk
+        self.real_run = pm.run_permutation_test
+        self.chunks, self.walls = [], []
+
+        def acc(state, chrom, snarls, p):
+            S = len(snarls)
+            rec = {"chrom": chrom, "snarls": [s.snarl_id_str for s in snarls],
+                   "obs": to_np(p[0, :S]), "min": to_np(p[1:, :S].amin(1))
+                   if S else None}
+            if len(self.chunks) < self.full:
+                rec["p"] = to_np(p[:, :S])
+            self.chunks.append(rec)
+            return self.real_acc(state, chrom, snarls, p)
+
+        def run(*a, **k):
+            import torch
+            t0 = time.perf_counter()
+            out = self.real_run(*a, **k)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.walls.append(time.perf_counter() - t0)
+            return out
+        pm.accumulate_chunk, pm.run_permutation_test = acc, run
+        return self
+
+    def __exit__(self, *exc):
+        self.pm.accumulate_chunk = self.real_acc
+        self.pm.run_permutation_test = self.real_run
+        return False
+
+
+def read_perm_tsv(path):
+    """{(chrom, snarl): (P_ASY, P_EMP, P_FWER)} strings, in file order."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    check(lines[0] == "#CHR\tSTART_POS\tEND_POS\tSNARL\tP_ASY\tP_EMP\t"
+          "P_FWER", f"permutation TSV header {lines[0]!r}")
+    out = {}
+    for line in lines[1:]:
+        c = line.split("\t")
+        check(len(c) == 7, f"malformed permutation row {line!r}")
+        out[(c[0], c[3])] = tuple(c[4:])
+    return out
+
+
+def recount_perm(cap, got, n_perms):
+    """The numpy recount of P_EMP (the fully captured chunks' snarls) and
+    P_FWER (every snarl) from the captured p-values; returns the snarls
+    checked for each."""
+    import numpy as np
+    from stoat_tpu_torch.writer import format_p
+    null_min = np.min(np.stack([c["min"] for c in cap.chunks
+                                if c["min"] is not None]), axis=0)
+    n_emp = n_fwer = 0
+    for c in cap.chunks:
+        for i, sid in enumerate(c["snarls"]):
+            obs = c["obs"][i]
+            asy, emp, fwer = got[(c["chrom"], sid)]
+            if not np.isfinite(obs):
+                check((asy, emp, fwer) == ("NA",) * 3, f"{sid}: not NA")
+                continue
+            check(asy == format_p(obs), f"{sid}: P_ASY {asy} != {obs!r}")
+            fw = int(np.sum(null_min <= obs))
+            check(fwer == format_p((1 + fw) / (n_perms + 1)),
+                  f"{sid}: P_FWER {fwer}, recount {fw}")
+            n_fwer += 1
+            if "p" in c:
+                exc = int(np.sum(c["p"][1:, i] <= obs))
+                check(emp == format_p((1 + exc) / (n_perms + 1)),
+                      f"{sid}: P_EMP {emp}, recount {exc}")
+                n_emp += 1
+    return n_emp, n_fwer
+
+
+def perm_same_but_ties(got_a, cap_a, got_b, cap_b, n_perms):
+    """Two runs' permutation tables (CUDA and CPU) agree: the same rows
+    and NA cells; a P_ASY string may differ only at a rounding boundary,
+    where the two p-values agree to TSV_REL; a P_EMP/P_FWER count may
+    differ only inside the tie band of TIE_REL around run b's own p-values.
+    Returns the differing rows."""
+    import numpy as np
+
+    def cells(cap):
+        out = {}
+        for c in cap.chunks:
+            for i, sid in enumerate(c["snarls"]):
+                out[(c["chrom"], sid)] = (c["obs"][i], c["p"][1:, i])
+        return out, np.min(np.stack([c["min"] for c in cap.chunks
+                                     if c["min"] is not None]), axis=0)
+    check(list(got_a) == list(got_b), "permutation TSVs: rows differ")
+    (cells_a, _), (cells_b, null_min) = cells(cap_a), cells(cap_b)
+    diffs = []
+    for key, a in got_a.items():
+        b = got_b[key]
+        if a == b:
+            continue
+        check(("NA" in a) == ("NA" in b), f"{key}: NA differs {a} / {b}")
+        obs_a, _ = cells_a[key]
+        obs, perm = cells_b[key]
+        check(a[0] == b[0] or abs(obs_a - obs) <= TSV_REL * abs(obs),
+              f"{key}: P_ASY {a[0]} / {b[0]} ({obs_a!r} / {obs!r})")
+        for col, counts in ((1, perm), (2, null_min)):
+            if a[col] == b[col]:
+                continue
+            n = round(float(a[col]) * (n_perms + 1)) - 1
+            lo = int(np.sum(counts < obs - TIE_REL * obs))
+            hi = int(np.sum(counts <= obs + TIE_REL * obs))
+            check(lo <= n <= hi, f"{key}: {a} / {b}: count {n} outside "
+                  f"the tie band [{lo}, {hi}]")
+        diffs.append(f"{key[0]} {key[1]} {'/'.join(a)} vs {'/'.join(b)}")
+    return diffs
+
+
+def perm_cli_args(paths, out, device, mode, n_perms):
+    flag = "-b" if mode in ("b", "b_c") else "-q"
+    pheno = paths["binary"] if flag == "-b" else paths["quantitative"]
+    covar = (["-c", paths["covariate"], "-C", ",".join(COVAR_NAMES)]
+             if mode in ("q_c", "b_c") else [])
+    return ["vcf", "-s", paths["snarl"], "-v", paths["vcf"], flag, pheno,
+            *covar, "-o", out, "--device", device, "--permutations",
+            str(n_perms), "--perm-seed", "0"]
+
+
+PERM_TABLES = {"b": "binary_permutation_vcf.tsv",
+               "b_c": "binary_permutation_vcf.tsv",
+               "q": "quantitative_permutation_vcf.tsv",
+               "q_c": "quantitative_permutation_vcf.tsv"}
+# each mode's kernels and their launches per chunk: the main table's, then
+# the permutation pass's
+PERM_LAUNCHES = {
+    "b": {"membership_counts": 1, "binary_tables": 1, "fisher": 1,
+          "perm_membership": 1, "perm_binary": 1},
+    "q": {"quant_design": 2, "ols": 1, "student_t": 2, "perm_ols": 1},
+    "q_c": {"quant_design": 2, "ols": 1, "student_t": 2, "perm_ols": 1},
+    "b_c": {"quant_design": 2, "logreg": 1, "score_precompute": 1,
+            "score_perm": 1},
+}
+
+
+def phase_perm_main(torch, paths, sub, work, n_chroms, mode):
+    """``vcf ... --permutations PERM_FULL`` on the card at full size: every
+    kernel of the mode launched on every chunk, the table's rows and a
+    numpy recount of P_EMP (first chunk) and P_FWER (every snarl) from the
+    captured p-values; then, unless ``sub`` is None, CUDA against CPU on
+    the sub-cohort with PERM_SUB permutations.  Returns (launches, pass
+    wall, the sub-cohort's CPU wall, line)."""
+    import math
+    from stoat_tpu_torch import cli, kernels
+    per_chrom = -(-paths["n_snarls"] // n_chroms)
+    n_chunks = sum(math.ceil(min(per_chrom, paths["n_snarls"] - c * per_chrom)
+                             / 8192) for c in range(n_chroms))
+    out = os.path.join(work, f"perm_cuda_{mode}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with PermCapture() as cap:
+        rc = cli.main(perm_cli_args(paths, out, "cuda", mode, PERM_FULL))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"--permutations {mode}: exit code {rc}")
+    for name, n in launches.items():
+        want = PERM_LAUNCHES[mode].get(name, 0) * n_chunks
+        check(n == want, f"--permutations {mode}: kernel {name} launched "
+              f"{n} times, expected {want} ({n_chunks} chunks)")
+    got = read_perm_tsv(os.path.join(out, PERM_TABLES[mode]))
+    check(len(got) == paths["n_snarls"], f"--permutations {mode}: "
+          f"{len(got)} rows")
+    n_emp, n_fwer = recount_perm(cap, got, PERM_FULL)
+    perm_wall = cap.walls[0]
+    tests_s = PERM_FULL * paths["n_snarls"] / perm_wall
+    n_tested = sum(1 for v in got.values() if v[0] != "NA")
+    line = (f"phase 4 permutations: {PERM_TITLES[mode]} --permutations "
+            f"{PERM_FULL} on {paths['n_samples']} samples x "
+            f"{paths['n_snarls']} snarls: CLI wall {wall:.2f}s, permutation "
+            f"pass {perm_wall:.2f}s = {tests_s:.4g} permuted snarl-tests/s; "
+            f"launches {launches} ({n_chunks} chunks); {len(got)} rows, "
+            f"{n_tested} tested; numpy recount equal for P_EMP of "
+            f"{n_emp} snarls (first chunk) and P_FWER of {n_fwer}; "
+            f"max_memory_allocated {memory_note(peak, held)}")
+    if sub is None:
+        return launches, perm_wall, None, line
+
+    # CUDA against CPU on the sub-cohort
+    subs = {}
+    for device in ("cuda", "cpu"):
+        o = os.path.join(work, f"perm_sub_{device}_{mode}")
+        with PermCapture(full=10 ** 6) as c:
+            t1 = time.perf_counter()
+            check(cli.main(perm_cli_args(sub, o, device, mode,
+                                         PERM_SUB)) == 0,
+                  f"sub-cohort --permutations {mode} on {device}")
+            subs[device] = (read_perm_tsv(os.path.join(o, PERM_TABLES[mode])),
+                            c, time.perf_counter() - t1)
+    diffs = perm_same_but_ties(*subs["cuda"][:2], *subs["cpu"][:2],
+                               PERM_SUB)
+    line += (f"; sub-cohort {sub['n_samples']} samples x "
+             f"{sub['n_snarls']} snarls, K = {PERM_SUB}: cuda "
+             f"{subs['cuda'][2]:.2f}s, cpu {subs['cpu'][2]:.2f}s, "
+             f"{len(subs['cpu'][0])} rows, {len(diffs)} differing (ties "
+             f"within {TIE_REL:g} or a P_ASY rounding boundary)"
+             f"{': ' + '; '.join(diffs[:5]) if diffs else ''}")
+    return launches, perm_wall, subs["cpu"][2], line
+
+
+PERM_TITLES = {"b": "vcf -b", "q": "vcf -q", "q_c": "vcf -q -c -C AGE,SEX",
+               "b_c": "vcf -b -c -C AGE,SEX"}
+
+
+# ---------------------------------------------------------------- bounds
+
+def cf_iterations(t1, df):
+    """Continued-fraction iterations of the Student-t tail of each |t1| on
+    df (the loop of stats/special.py _betainc_continued_fraction, in numpy:
+    the data-dependent work of student_t.cu)."""
+    import numpy as np
+    t1 = np.abs(np.asarray(t1, np.float64))
+    df = np.asarray(df, np.float64)
+    fin = np.isfinite(t1)
+    a0, b0 = df * 0.5, np.full_like(df, 0.5)
+    x0 = df / (df + t1 * t1)
+    rapid = x0 < (a0 + 1.0) / (a0 + b0 + 2.0)
+    a = np.where(rapid, a0, b0)
+    b = np.where(rapid, b0, a0)
+    x = np.where(rapid, x0, 1.0 - x0)
+    half = np.finfo(np.float64).eps / 2
+    c = np.full_like(x, half)
+    d = np.zeros_like(x)
+    iters = np.zeros(x.shape, np.int64)
+    active = fin.copy()
+    with np.errstate(all="ignore"):
+        for n in range(1, 600):
+            if n == 1:
+                num = np.ones_like(x)
+            else:
+                m = float((n - 1) // 2)
+                if n % 2 == 0:
+                    num = (-(a + b) * x / (a + 1.0) if m == 0 else
+                           -(a + m) * (a + b + m) * x
+                           / ((a + 2 * m) * (a + 2 * m + 1.0)))
+                else:
+                    num = m * (b - m) * x / ((a + 2 * m - 1.0) * (a + 2 * m))
+            cn = 1.0 + num / c
+            cn = np.where(np.abs(cn) < half, half, cn)
+            dn = 1.0 + num * d
+            dn = 1.0 / np.where(np.abs(dn) < half, half, dn)
+            c = np.where(active, cn, c)
+            d = np.where(active, dn, d)
+            iters += active
+            active &= np.abs(cn * dn - 1.0) >= half
+            if not active.any():
+                break
+    return int(iters.sum())
+
+
+def fisher_terms(a, b, c, d):
+    """Terms of Fisher's scan over the hypergeometric support of each 2x2
+    table (fisher_device.cuh): the data-dependent work of K4 and K6."""
+    import numpy as np
+    a, b, c, d = (np.nan_to_num(np.asarray(v, np.float64)) for v in
+                  (a, b, c, d))
+    r1, c1, n = a + b, a + c, a + b + c + d
+    return float(np.sum(np.maximum(np.minimum(r1, c1)
+                                   - np.maximum(0.0, r1 + c1 - n) + 1.0, 0)))
+
+
+def kernel_work(name, x):
+    """(bytes, operations, kind) of one call of kernel ``name`` on phase 5's
+    inputs ``x``: each input read once, each output written once, and the
+    operations these inputs need (float64 flops or int32 ops)."""
+    import numpy as np
+    f8, i4 = 8, 4
+    if name in ("membership_counts", "perm_membership"):
+        w, idx, valid = x["words"], x["path_idx"], x["path_valid"]
+        rows = np.unique(to_np(idx)).size
+        W = w.shape[1]
+        P, K = idx.shape
+        out = 2 * P * f8 if name == "membership_counts" else P * (W + 1) * i4
+        ops = P * K * W + (2 if name == "membership_counts" else 1) * P * W
+        return rows * W * i4 + P * K * i4 + P + 2 * W * i4 + out, \
+            2 * ops, "int32"
+    if name == "binary_tables":
+        S, Pmax = x["sidx"].shape
+        paths = np.unique(to_np(x["sidx"])).size
+        return (2 * paths * f8 + S * Pmax * i4
+                + S * Pmax * (1 + 2 * f8) + S * (2 + i4 + 6 * f8)), \
+            40 * S * Pmax, "float64"
+    if name == "fisher":
+        S = x["abcd"][0].shape[0]
+        return 5 * S * f8, 12 * fisher_terms(*map(to_np, x["abcd"])), \
+            "float64"
+    if name == "graph_stats":
+        G0 = to_np(x["G0"])
+        B, Pm = G0.shape
+        return (B * Pm * (2 * i4 + 1) + B * (4 * f8 + 3)), \
+            12 * fisher_terms(G0[:, 0], G0[:, 1], to_np(x["G1"])[:, 0],
+                              to_np(x["G1"])[:, 1]) + 40 * B * Pm, "float64"
+    if name == "quant_design":
+        S, N, PT = x["X_out"].shape
+        w, idx = x["words"], x["path_idx"]
+        rows = np.unique(to_np(idx)).size
+        return (rows * w.shape[1] * i4 + idx.numel() * i4
+                + x["sidx"].numel() * i4 + x["covar"].numel() * f8
+                + S * N * PT * f8 + S * N + S * (3 + x["sidx"].shape[1]) * i4
+                ), 4 * S * N * x["sidx"].shape[1], "float64"
+    if name == "ols":
+        S, N, P = x["X"].shape
+        return S * N * (P * f8 + f8 + 1) + S * i4 + 5 * S * f8, \
+            S * N * (P * (P + 1) + 2 * P + 2 * P + 6), "float64"
+    if name == "student_t":
+        S = x["t1"].shape[0]
+        return 10 * S * f8 + S, \
+            20 * cf_iterations(to_np(x["t1"]), to_np(x["df"])) + 60 * S, \
+            "float64"
+    if name == "logreg":
+        S, N, P = x["X"].shape
+        steps = float(np.asarray(x["iters"]).sum())
+        return S * N * (P * f8 + f8 + 1) + S * (i4 + 1) + 3 * S * f8, \
+            steps * N * (P * (P + 1) + 4 * P + 30), "float64"
+    if name == "perm_binary":
+        P, W = x["mem"].shape
+        K = x["masks"].shape[0]
+        S, Pmax = x["sidx"].shape
+        real = int((to_np(x["sidx"]) >= 0).sum())
+        return (P * W * i4 + P * i4 + K * W * i4 + S * Pmax * i4
+                + K * S * (2 * f8 + 1)), 2 * K * real * W, "int32"
+    if name == "perm_ols":
+        S, N, P = x["X"].shape
+        K = x["phenos"].shape[0]
+        return (S * N * (P * f8 + 1) + S * i4 + K * N * f8
+                + 2 * K * S * f8), \
+            S * N * P * (P + 1) + K * S * N * (4 * P + 3), "float64"
+    if name == "score_precompute":
+        S, N, PT = x["X"].shape
+        C1 = x["Z"].shape[1]
+        return (2 * S * N * PT * f8 + S * N + S * (i4 + 1) + N * (C1 + 1)
+                * f8 + S * PT * PT * f8 + S * (f8 + 1)), \
+            3 * S * N * (PT * (PT + 1) // 2 + PT * C1
+                         + C1 * (C1 + 1) // 2), "float64"
+    if name == "score_perm":
+        S, N, PT = x["D"].shape
+        K = x["e"].shape[0]
+        return (S * N * (PT * f8 + 1) + S * PT * PT * f8 + K * N * f8
+                + K * S * f8), K * S * (2 * N * PT + 2 * PT * PT + 2 * PT), \
+            "float64"
+    raise KeyError(name)
+
+
+def bound_of(name, x):
+    """(bound_ms, bound_by): the larger of bytes over the card's memory
+    rate and operations over its peak rate for their type."""
+    nbytes, ops, kind = kernel_work(name, x)
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops / (F64_FLOPS if kind == "float64" else INT32_OPS)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def cuda_ms(fn, iters, warmup=2):
     import torch
     for _ in range(warmup):
@@ -1185,9 +2009,9 @@ def phase_card(torch):
     smi = nvidia_smi_line()
     say(smi)
     t0 = time.perf_counter()
-    build.build_all(list(KERNELS))          # one nvcc per source, together
+    build.build_all(SOURCES)                # one nvcc per source, together
     summaries = []
-    for name in KERNELS:
+    for name in SOURCES:
         build.load(name)
         info = build.BUILD_LOG[name]
         regs = re.findall(r"Used (\d+) registers", info.ptxas)
@@ -1203,24 +2027,21 @@ def phase_card(torch):
 
 def phase_native():
     from concurrent.futures import ThreadPoolExecutor
-    import stoat_tpu.native as native
-    lib_dir = os.path.join(HERE, "build", "stoat_tpu_torch", "native")
-    os.makedirs(lib_dir, exist_ok=True)
-    lib_path = os.path.join(lib_dir, "libstoat_core.so")
-    graph_path = os.path.join(lib_dir, "libstoat_graph.so")
-    # libraries built here, never ones copied in from another machine
-    native._LIB = lib_path
-    native._GRAPH_LIB = graph_path
+    from stoat_tpu_torch import native
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=2) as pool:   # two g++ at once
         lib, glib = (f.result() for f in [pool.submit(native.get_lib),
                                           pool.submit(native.get_graph_lib)])
-    for got, path, what in ((lib, lib_path, "native core"),
-                            (glib, graph_path, "native graph core")):
+    for got, src, what in ((lib, native._SRC, "native core"),
+                           (glib, native._GRAPH_SRC, "native graph core")):
         check(got is not None, f"{what} failed to build or load")
-        check(os.path.samefile(got._name, path),
-              f"{what} loaded from {got._name}")
-    say(f"phase 2 native cores: {lib_path} and {graph_path} loaded in "
+        path = native.library_path(src, native._CORE_LIBS
+                                   if got is lib else ())
+        check(os.path.samefile(got._name, path)
+              and os.path.dirname(path) == native.BUILD_DIR,
+              f"{what} loaded from {got._name}, expected {path}")
+    say(f"phase 2 native cores: {os.path.basename(lib._name)} and "
+        f"{os.path.basename(glib._name)} in {native.BUILD_DIR} loaded in "
         f"{time.perf_counter() - t0:.1f}s")
 
 
@@ -1232,11 +2053,12 @@ def main_path_chunks(paths, device):
     it to the logistic model (float64 [N]).  (The chunk cap of ``-q`` and
     ``-b -c``, 2e9 // (N * 96) = 8,319 at N = 2,504, leaves the chunk at
     8,192.)"""
-    from stoat_tpu.io.phenotype import (parse_binary_pheno, parse_covariates,
-                                        parse_quantitative_pheno)
-    from stoat_tpu.io.snarl_file import parse_snarl_path
-    from stoat_tpu.io.vcf import VcfReader
-    from stoat_tpu.tables import pack_chromosome_chunks
+    from stoat_tpu_torch.io.phenotype import (parse_binary_pheno,
+                                              parse_covariates,
+                                              parse_quantitative_pheno)
+    from stoat_tpu_torch.io.snarl_file import parse_snarl_path
+    from stoat_tpu_torch.io.vcf import VcfReader
+    from stoat_tpu_torch.tables import pack_chromosome_chunks
     from stoat_tpu_torch.convert import (to_binary_pheno, to_device_chunk,
                                          to_quant_inputs)
     from stoat_tpu_torch.pipeline.runner import iter_chromosome_matrices
@@ -1344,7 +2166,8 @@ def phase_kernels(torch, device, chunks, err, graph):
         + f" (bound {LOGREG_REL:g}, p below {P_FLOOR:g} in units of "
         f"{P_FLOOR:g}); {ledges}; max abs err logreg={err['logreg']:.3g}")
     logit = {"X": d["X"], "y": by, "used": bused, "ncols": d["ncols"],
-             "deg": d["degenerate"], "graph": (G0, G1, mask)}
+             "deg": d["degenerate"], "filtered": d["filtered"],
+             "iters": got["iters"], "graph": (G0, G1, mask)}
     return g0p, g1p, tables, quant, logit
 
 
@@ -1447,7 +2270,7 @@ def run_captured(cli, args):
     writer received them, at full precision: {(chrom, snarl): (filtered,
     allele_paths, (p, beta, se, r2))}, r2 NaN where the path has none."""
     import numpy as np
-    from stoat_tpu import writer as W
+    from stoat_tpu_torch import writer as W
     real = W.write_quant_rows_batch
     got = {}
 
@@ -1597,19 +2420,18 @@ def phase_main_regression(torch, paths, work, n_chroms, mode, reference):
         f" filter and ALLELE_PATHS of all {len(table)} snarls equal the "
         f"numpy reference ({n_filtered} filtered); {', '.join(names)} of "
         f"{len(stats)} sampled snarls ({n_na} NA) within {worst:.3g} of "
-        f"tests/reference_impl.py (bound {REF_REL:g}); max_memory_allocated "
+        f"the numpy references (bound {REF_REL:g}); max_memory_allocated "
         f"{memory_note(peak, held)}")
     return launches, wall_cuda
 
 
 def graph_reference_rows(tsv, n_sample=GRAPH_REF_ROWS, seed=0):
     """P_FISHER and P_CHI2 of ``n_sample`` random tested rows of a graph
-    TSV against tests/reference_impl.py (scipy) on their GROUP_PATHS
+    TSV against chi2_p and fisher_p (scipy) on their GROUP_PATHS
     counts, formatted as the writer formats them.  Returns (rows checked,
     rows whose string flipped at a rounding boundary)."""
     import numpy as np
-    from reference_impl import chi2_p, fisher_p
-    from stoat_tpu.writer import format_p
+    from stoat_tpu_torch.writer import format_p
     with open(tsv) as fh:
         rows = [line.rstrip("\n").split("\t") for line in fh][1:]
     tested = [r for r in rows if r[7] != "NA"]
@@ -1744,14 +2566,21 @@ def device_ms(torch, calls):
            else "self_cuda_time_total")
     out = {}
     for name in calls:
+        # the whole name: "ols_kernel" must not match perm_ols_kernel
+        pattern = re.compile(rf"(?<![A-Za-z0-9_]){name}_kernel\b")
         us = sum(getattr(e, key) for e in averages
                  if e.device_type == DeviceType.CUDA
-                 and f"{name}_kernel" in e.key)
+                 and pattern.search(e.key))
         out[name] = us / 1e3 / reps if us else None
     return out
 
 
-def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, smi):
+def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, smi):
+    """Each kernel's ms per call and its plain version's on the card (CUDA
+    events), its device ms (torch.profiler) and its bound, at the main
+    paths' shapes: the first chunk of each path, K = 1 + PERM_FULL rows
+    for the permutation kernels."""
+    from stoat_tpu_torch.pipeline import permutation as pm
     from stoat_tpu_torch.pipeline.binary import (binary_tables,
                                                  binary_tables_plain)
     from stoat_tpu_torch.pipeline.packed import (membership_counts,
@@ -1781,6 +2610,12 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, smi):
     counts = logit["graph"]
     fit = (logit["X"], logit["y"], logit["used"], logit["ncols"],
            logit["deg"])
+    m = perm
+    member = args[:4]
+    pbin = (m["mem"], m["g_all"], m["masks"], sidx, *THRESHOLDS)
+    pols = (m["X"], m["used"], m["ncols"], m["phenos"])
+    spre = (m["bX"], m["bused"], m["bncols"], m["bad"], m["Z"], m["w"])
+    sperm = (m["D"], m["bused"], m["Vinv"], m["e"])
     calls = {
         "membership_counts": lambda: membership_counts(*args),
         "binary_tables": lambda: binary_tables(g0p, g1p, sidx, *thr),
@@ -1790,6 +2625,11 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, smi):
         "student_t": lambda: student_t_pvalues(*tail),
         "graph_stats": lambda: graph_stats(*counts),
         "logreg": lambda: logistic_regression(*fit),
+        "perm_membership": lambda: pm.perm_membership(*member),
+        "perm_binary": lambda: pm.perm_binary_stats(*pbin),
+        "perm_ols": lambda: pm.perm_ols_stats(*pols),
+        "score_precompute": lambda: pm.score_precompute(*spre),
+        "score_perm": lambda: pm.score_perm_stats(*sperm),
     }
     times = {
         "membership_counts": (
@@ -1817,18 +2657,70 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, smi):
         "logreg": (
             cuda_ms(calls["logreg"], 5),
             cuda_ms(lambda: logistic_regression_plain(*fit), 3, warmup=1)),
+        "perm_membership": (
+            cuda_ms(calls["perm_membership"], 50),
+            cuda_ms(lambda: pm.perm_membership_plain(*member), 10)),
+        # the plain permutation versions loop over the rows in Python:
+        # one call each, after the kernels' warm-up
+        "perm_binary": (
+            cuda_ms(calls["perm_binary"], 5),
+            cuda_ms(lambda: pm.perm_binary_stats_plain(*pbin), 1, warmup=0)),
+        "perm_ols": (
+            cuda_ms(calls["perm_ols"], 3, warmup=1),
+            cuda_ms(lambda: pm.perm_ols_stats_plain(*pols), 1, warmup=0)),
+        "score_precompute": (
+            cuda_ms(calls["score_precompute"], 10),
+            cuda_ms(lambda: pm.score_precompute_plain(*spre), 3, warmup=1)),
+        "score_perm": (
+            cuda_ms(calls["score_perm"], 3, warmup=1),
+            cuda_ms(lambda: pm.score_perm_stats_plain(*sperm), 1, warmup=0)),
     }
     tail_ms = cuda_ms(lambda: finish_chi2_pvalues(
         tables["chi2_stat"], tables["chi2_df"], tables["chi2_invalid"],
         tables["chi2_zexp"]), 20)
     dev = device_ms(torch, calls)
+    # perm_ols at the `-q` design (PT = 5) too; the row above is `-q -c`'s
+    pols5 = (m["bX"], m["bused"], m["bncols"], m["phenos_q"])
+    q5 = "perm_ols (PT = 5)"
+    times[q5] = (
+        cuda_ms(lambda: pm.perm_ols_stats(*pols5), 3, warmup=1),
+        cuda_ms(lambda: pm.perm_ols_stats_plain(*pols5), 1, warmup=0))
+    dev[q5] = device_ms(torch, {"perm_ols": lambda: pm.perm_ols_stats(
+        *pols5)})["perm_ols"]
+    work = {
+        "membership_counts": {"words": chunk.words,
+                              "path_idx": chunk.path_idx,
+                              "path_valid": chunk.path_valid},
+        "binary_tables": {"sidx": sidx},
+        "fisher": {"abcd": abcd},
+        "quant_design": {"X_out": q["X"], "words": q["chunk"].words,
+                         "path_idx": q["chunk"].path_idx,
+                         "sidx": q["chunk"].snarl_path_idx,
+                         "covar": q["covar"]},
+        "ols": {"X": q["X"]},
+        "student_t": {"t1": q["stats"][0], "df": q["stats"][1]},
+        "graph_stats": {"G0": counts[0], "G1": counts[1]},
+        "logreg": {"X": logit["X"], "iters": logit["iters"]},
+        "perm_membership": {"words": chunk.words,
+                            "path_idx": chunk.path_idx,
+                            "path_valid": chunk.path_valid},
+        "perm_binary": {"mem": m["mem"], "masks": m["masks"], "sidx": sidx},
+        "perm_ols": {"X": m["X"], "phenos": m["phenos"]},
+        "score_precompute": {"X": m["bX"], "Z": m["Z"]},
+        "score_perm": {"D": m["D"], "e": m["e"]},
+    }
+    bounds = {name: bound_of(name, work[name]) for name in calls}
+    bounds[q5] = bound_of("perm_ols", {"X": m["bX"], "phenos": pols5[3]})
     say(f"phase 5 times on {smi} (ms per chunk call, kernel / plain; "
-        f"device ms per call from torch.profiler): " + "; ".join(
+        f"device ms per call from torch.profiler; bound ms and what sets "
+        f"it): " + "; ".join(
             f"{k} {a:.4f} / {b:.4f} (device "
-            f"{'not measured' if dev[k] is None else f'{dev[k]:.4f}'})"
+            f"{'not measured' if dev[k] is None else f'{dev[k]:.4f}'}, bound "
+            f"{bounds[k][0]:.4f} {bounds[k][1]})"
             for k, (a, b) in times.items())
-        + f"; chi2 tail (torch.special, K5) {tail_ms:.4f}")
-    return times, dev
+        + f"; chi2 tail (torch.special, K5) {tail_ms:.4f}; permutation "
+        f"kernels at K = {PERM_FULL + 1} rows")
+    return times, dev, bounds
 
 
 PROFILE_TITLES = {"b": "vcf -b", "q_c": "vcf -q -c -C AGE,SEX",
@@ -1841,12 +2733,13 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
     AGE,SEX`).  The stages run once serially (the runner overlaps ingest,
     dispatch and writing on three threads), then torch.profiler traces one
     whole CUDA CLI run (trace_cli)."""
-    from stoat_tpu import writer as W
-    from stoat_tpu.io.phenotype import (parse_binary_pheno, parse_covariates,
-                                        parse_quantitative_pheno)
-    from stoat_tpu.io.snarl_file import parse_snarl_path
-    from stoat_tpu.io.vcf import VcfReader
-    from stoat_tpu.tables import pack_chromosome_chunks
+    from stoat_tpu_torch import writer as W
+    from stoat_tpu_torch.io.phenotype import (parse_binary_pheno,
+                                              parse_covariates,
+                                              parse_quantitative_pheno)
+    from stoat_tpu_torch.io.snarl_file import parse_snarl_path
+    from stoat_tpu_torch.io.vcf import VcfReader
+    from stoat_tpu_torch.tables import pack_chromosome_chunks
     from stoat_tpu_torch.convert import (chunk_words, pheno_masks,
                                          to_binary_pheno, to_device_chunk,
                                          to_quant_inputs, upload_words)
@@ -2006,9 +2899,10 @@ def profile_graph(torch, device, graph, work, out_dir):
     counts' upload, K6 and its tails, the host copy, the native splice and
     write), then torch.profiler traces one whole CUDA CLI run."""
     import numpy as np
-    from stoat_tpu import writer as W
-    from stoat_tpu.io.phenotype import parse_binary_pheno
-    from stoat_tpu.native import graph_assoc_native, graph_format_rows_native
+    from stoat_tpu_torch import writer as W
+    from stoat_tpu_torch.io.phenotype import parse_binary_pheno
+    from stoat_tpu_torch.native import (graph_assoc_native,
+                                        graph_format_rows_native)
     from stoat_tpu_torch.convert import to_graph_counts
     from stoat_tpu_torch.graph.association import graph_stats
     from stoat_tpu_torch.pipeline.fetch import fetch_async
@@ -2099,11 +2993,12 @@ def run(args):
         err = {name: 0.0 for name in KERNELS}
         g0p, g1p, tables, quant, logit = phase_kernels(torch, device, chunks,
                                                        err, graph)
+        perm = phase_perm_kernels(torch, device, chunks, quant, logit, err)
         launches = phase_main(torch, paths, work, N_CHROMS, gen_s)
         t0 = time.perf_counter()
-        from stoat_tpu.io.phenotype import (parse_binary_pheno,
-                                            parse_covariates,
-                                            parse_quantitative_pheno)
+        from stoat_tpu_torch.io.phenotype import (parse_binary_pheno,
+                                                  parse_covariates,
+                                                  parse_quantitative_pheno)
         samples = list(paths["samples"])
         reference = quant_reference(
             paths, parse_quantitative_pheno(paths["quantitative"], samples),
@@ -2119,8 +3014,37 @@ def run(args):
                 launches[name] = launches.get(name, 0) + r_launches[name]
         g_launches, _ = phase_graph(torch, graph, twin, work)
         launches["graph_stats"] = g_launches["graph_stats"]
-        times, dev = phase_times(torch, chunks[0], g0p, g1p, tables, quant,
-                                 logit, smi)
+        t0 = time.perf_counter()
+        sub = make_fixture(os.path.join(work, "sub"), n_samples=N_SAMPLES,
+                           n_snarls=SUB_SNARLS, seed=1, n_chroms=N_CHROMS)
+        sub["n_samples"], sub["n_snarls"] = N_SAMPLES, SUB_SNARLS
+        say(f"phase 4 permutations: sub-cohort of {N_SAMPLES} samples x "
+            f"{SUB_SNARLS} snarls generated in "
+            f"{time.perf_counter() - t0:.1f}s for the CUDA-against-CPU "
+            f"comparison at K = {PERM_SUB}; full size at K = {PERM_FULL}")
+        perm_walls, cpu_walls = {}, {}
+        for mode in ("b", "q", "q_c", "b_c"):
+            p_launches, perm_walls[mode], cpu_walls[mode], line = \
+                phase_perm_main(torch, paths, sub, work, N_CHROMS, mode)
+            say(line)
+            for name, n in p_launches.items():
+                launches[name] = launches.get(name, 0) + n
+        # the two quantitative passes again, in the same order: is a wall
+        # the mode's own or the first run's?
+        again = {}
+        for mode in ("q", "q_c"):
+            _, again[mode], _, line = phase_perm_main(
+                torch, paths, None, work, N_CHROMS, mode)
+            say(f"{line} (second run)")
+        times, dev, bounds = phase_times(torch, chunks[0], g0p, g1p, tables,
+                                         quant, logit, perm, smi)
+        say("phase 5 permutation pass walls (s, K = "
+            f"{PERM_FULL}, {paths['n_snarls']} snarls): " + ", ".join(
+                f"{PERM_TITLES[m]} {w:.3f} "
+                f"({PERM_FULL * paths['n_snarls'] / w:.4g} permuted "
+                f"snarl-tests/s)" for m, w in perm_walls.items())
+            + "; second runs: " + ", ".join(
+                f"{PERM_TITLES[m]} {w:.3f}" for m, w in again.items()))
         if args.profile:
             for mode in ("b", "q_c", "b_c"):
                 say(profile_main_path(torch, device, paths, work,
@@ -2128,11 +3052,13 @@ def run(args):
             say(profile_graph(torch, device, graph, work, args.profile))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    # library_ms: no single PyTorch call computes any of these functions
     kernels_json = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": times[name][0], "plain_ms": times[name][1],
-         "device_ms": dev[name]}
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "library_ms": None, "device_ms": dev[name]}
         for name, (src, rep) in KERNELS.items()]
     count = torch.cuda.device_count()
     check(count == 1, f"{count} devices visible, the run used 1")

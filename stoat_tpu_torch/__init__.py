@@ -1,12 +1,14 @@
 """stoat_tpu_torch: the PyTorch/CUDA port of stoat-tpu.
 
 A second package beside ``stoat_tpu`` (the JAX reference, unchanged).  It
-imports ``torch`` and never ``jax``.  The host layers that import no JAX
-are reused from ``stoat_tpu``: the parsers (``io``), the edge matrix and
-table packing (``matrix``, ``tables``), the native C++ core (``native``),
-the writers and the graph decomposition.  What ran as jitted XLA programs
-on the TPU runs here as hand-written CUDA kernels for Hopper (sm_90a) on a
-CUDA device, or as their plain PyTorch versions on the CPU:
+imports ``torch`` and nothing of ``jax`` or ``stoat_tpu``: its host layers
+are its own copies of the JAX package's host modules, under the same
+names: the parsers (``io``), the edge matrix and table packing
+(``matrix``, ``tables``), the native C++ cores (``native``, built into
+build/stoat_tpu_torch/native/), the writers, the graph readers and the
+decomposition (``graph``).  What ran as jitted XLA programs on the TPU
+runs here as hand-written CUDA kernels for Hopper (sm_90a) on a CUDA
+device, or as their plain PyTorch versions on the CPU:
 
 - ``pipeline/packed.py``: K1+K2, gather-AND membership + popcount counts
   (csrc/membership_counts.cu);
@@ -18,13 +20,20 @@ CUDA device, or as their plain PyTorch versions on the CPU:
   from the packed words (csrc/quant_design.cu);
 - ``stats/linreg.py``: K9, masked OLS with the LDL^T rank probe and the
   Jacobi pseudo-inverse (csrc/ols.cu), and K10, the Student-t tail and
-  the NA masking (csrc/student_t.cu).
+  the NA masking (csrc/student_t.cu);
+- ``graph/association.py``: K6, graph mode's statistics
+  (csrc/graph_stats.cu);
+- ``stats/logreg.py``: K11, IRLS logistic regression (csrc/logreg.cu);
+- ``pipeline/permutation.py``: K15 and K16, the permutation test's
+  membership, tables and statistics (csrc/perm_binary.cu), OLS t over the
+  permuted phenotypes (csrc/perm_ols.cu) and the covariate-adjusted
+  score test (csrc/score_test.cu).
 
-The slices ported so far are ``stoat vcf -b`` (a binary trait, no
-covariates) and ``stoat vcf -q`` (a quantitative trait, with or without
-covariates), on one device: ``python -m stoat_tpu_torch vcf -s SNARLS -v
-VCF -b PHENO | -q PHENO [-c COVAR -C NAMES] -o OUT --device cuda`` writes
-the same ``binary_table_vcf.tsv`` or ``quantitative_table_vcf.tsv`` as
+The slices ported so far, on one device: ``stoat vcf -b`` (with or
+without ``-c``), ``stoat vcf -q`` (with or without ``-c``), each with
+``--permutations N``, and ``stoat graph``: ``python -m stoat_tpu_torch
+vcf -s SNARLS -v VCF -b PHENO | -q PHENO [-c COVAR -C NAMES]
+[--permutations N] -o OUT --device cuda`` writes the same tables as
 ``python -m stoat_tpu vcf``.  ROADMAP.md lists what is still to port.
 """
 

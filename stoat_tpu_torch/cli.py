@@ -1,18 +1,20 @@
 """Command line of the PyTorch/CUDA port: ``stoat vcf`` (binary or
-quantitative trait) and ``stoat graph``.
+quantitative trait, with the permutation test) and ``stoat graph``.
 
-``vcf`` follows stoat_tpu/cli.py main_vcf (:57-300) for the modes the port
-runs so far, on one device: a binary phenotype (``-b``, chi-squared +
-Fisher; with ``-c FILE -C NAME[,NAME...]``, IRLS logistic regression,
-whose model leaves the covariates out as the reference does) and a
-quantitative phenotype (``-q``, OLS) with or without covariates.  The
-snarl paths come from ``-s`` or from the decomposition of ``-p``/``-d``
-(stoat_tpu.graph, reused).  ``graph`` follows main_graph (:383-411):
-walk-set partitions of the graph's haplotype paths, tested against a
-binary phenotype.  ``--device`` picks the device (default cuda); a CUDA
-device that is not there is an error, never a quiet run on the CPU.
-Every other mode, subcommand and flag of stoat_tpu exits non-zero and
-names ROADMAP.md, where its port is queued.
+``vcf`` follows stoat_tpu/cli.py main_vcf (:57-335) for the modes the port
+runs, on one device: a binary phenotype (``-b``, chi-squared + Fisher;
+with ``-c FILE -C NAME[,NAME...]``, IRLS logistic regression, whose model
+leaves the covariates out as the reference does) and a quantitative
+phenotype (``-q``, OLS) with or without covariates.  ``--permutations N
+[--perm-seed S]`` then runs the Westfall–Young min-P permutation test
+(pipeline/permutation.py) into ``binary_permutation_vcf.tsv`` or
+``quantitative_permutation_vcf.tsv``.  The snarl paths come from ``-s`` or
+from the decomposition of ``-p``/``-d`` (graph/decompose.py).  ``graph``
+follows main_graph (:383-411): walk-set partitions of the graph's
+haplotype paths, tested against a binary phenotype.  ``--device`` picks
+the device (default cuda); a CUDA device that is not there is an error,
+never a quiet run on the CPU.  Every other mode, subcommand and flag of
+stoat_tpu exits non-zero and names ROADMAP.md, where its port is queued.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import sys
 import time
 from typing import List, Optional
 
-from stoat_tpu.logsetup import TRACE
+from stoat_tpu_torch.logsetup import TRACE
 
 __version__ = "0.3.0"
 
@@ -81,6 +83,14 @@ def main_vcf(argv: List[str]) -> int:
     ap.add_argument("-q", "--quantitative", metavar="FILE")
     ap.add_argument("-c", "--covariate", metavar="FILE")
     ap.add_argument("-C", "--covar-name", metavar="NAME")
+    ap.add_argument("--permutations", type=int, default=0, metavar="N",
+                    help="run an N-permutation Westfall-Young min-P test "
+                         "after the GWAS (empirical + FWER p-values into "
+                         "{binary,quantitative}_permutation_vcf.tsv; chi2 "
+                         "for -b, OLS t for -q, and with -c a "
+                         "covariate-adjusted score test for -b / "
+                         "Freedman-Lane for -q)")
+    ap.add_argument("--perm-seed", type=int, default=0)
     ap.add_argument("--resume", action="store_true",
                     help="resume an interrupted run: chromosomes already "
                          "checkpointed in <output>.progress are skipped")
@@ -137,9 +147,10 @@ def main_vcf(argv: List[str]) -> int:
     os.makedirs(args.output, exist_ok=True)
     t_start = time.time()
 
-    from stoat_tpu.io import (parse_binary_pheno, parse_covariates,
-                              parse_quantitative_pheno, parse_snarl_path)
-    from stoat_tpu.io.vcf import VcfReader
+    from stoat_tpu_torch.io import (parse_binary_pheno, parse_covariates,
+                                    parse_quantitative_pheno,
+                                    parse_snarl_path)
+    from stoat_tpu_torch.io.vcf import VcfReader
 
     header_reader = VcfReader(args.vcf)
     list_samples = header_reader.samples
@@ -164,7 +175,7 @@ def main_vcf(argv: List[str]) -> int:
     else:
         logger.info("Starting snarl decomposition... ")
         t0 = time.time()
-        from stoat_tpu.graph import decompose_to_snarl_file
+        from stoat_tpu_torch.graph.decompose import decompose_to_snarl_file
         # stoat_tpu's defaults: all chromosomes, children 50, path length
         # 10000, cycle 1 (the flags that change them are not ported)
         snarls_chr = decompose_to_snarl_file(args.graph, args.dist,
@@ -183,6 +194,31 @@ def main_vcf(argv: List[str]) -> int:
         sample_names=list_samples,
         resume=args.resume,
     )
+    if args.permutations > 0:
+        # stoat_tpu/cli.py:302-335
+        from stoat_tpu_torch.pipeline.permutation import run_permutation_test
+        binary = mode != "quantitative"
+        if covariate is not None and binary:
+            logger.info(
+                "--permutations: binary + covariates runs the "
+                "covariate-ADJUSTED score test (reduced-model residual "
+                "permutation) — P_ASY is the adjusted score-test p, not "
+                "the covariate-free Wald p of the main table "
+                "(the reference's logistic ignores covariates, "
+                "stats_test.cpp:59-62).")
+        run_permutation_test(
+            args.vcf, snarls_chr,
+            output_tsv=(os.path.join(args.output,
+                                     "binary_permutation_vcf.tsv")
+                        if binary else None),
+            pheno_bin=phenotype if binary else None,
+            quantitative_phenotype=None if binary else phenotype,
+            output_tsv_quant=(None if binary else os.path.join(
+                args.output, "quantitative_permutation_vcf.tsv")),
+            n_perms=args.permutations, seed=args.perm_seed,
+            min_individuals=args.min_individuals,
+            min_haplotypes=args.min_haplotypes,
+            maf_threshold=args.maf, covariate=covariate, device=device)
     t_end = time.time()
     logger.info("GWAS time analysis : %.3f s", t_end - t_gwas)
     logger.info("Total time : %.3f s", t_end - t_start)

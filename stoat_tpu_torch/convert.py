@@ -1,16 +1,16 @@
-"""Turn the reused host layer's numpy state into the port's tensors.
+"""Turn the host layer's numpy state into the port's tensors.
 
-``stoat_tpu.tables.PackedChromosome`` (a chunk of one chromosome's snarls
-resolved against its edge matrix), the parsed phenotypes and the native
-graph core's partition counts are numpy; the device stages take
-tensors.  Words travel as an int32 view of the uint32 words, because
-PyTorch on the CPU has no uint32 shifts or ``index_select``; the bits are
-unchanged.  On a CUDA device each array is
+``tables.PackedChromosome`` (a chunk of one chromosome's snarls resolved
+against its edge matrix), the parsed phenotypes, the permutation test's
+masks and phenotype rows and the native graph core's partition counts are
+numpy; the device stages take tensors.  Words travel as an int32 view of
+the uint32 words, because PyTorch on the CPU has no uint32 shifts or
+``index_select``; the bits are unchanged.  On a CUDA device each array is
 staged in pinned host memory and copied without blocking.
 
 The CPU tests feed the same numpy arrays to both packages through
-:func:`to_device_chunk`, :func:`to_quant_inputs` and
-:func:`to_graph_counts`.
+:func:`to_device_chunk`, :func:`to_quant_inputs`, :func:`to_perm_inputs`
+and :func:`to_graph_counts`.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ from stoat_tpu_torch.pipeline.packed import (pack_hap_mask_words,
 
 __all__ = ["DeviceChunk", "upload", "upload_words", "chunk_words",
            "pheno_masks", "to_device_chunk", "to_quant_inputs",
-           "to_binary_pheno", "to_graph_counts"]
+           "to_binary_pheno", "PermInputs", "to_perm_inputs",
+           "to_graph_counts"]
 
 
 @dataclass
@@ -135,6 +136,38 @@ def to_binary_pheno(binary_phenotype: np.ndarray,
     """The parsed binary phenotype (bool [N], True = case) as the float64
     [N] response of the logistic model, on ``device``."""
     return upload(np.asarray(binary_phenotype).astype(np.float64), device)
+
+
+@dataclass
+class PermInputs:
+    """The permutation test's phenotype side, on one device; each field is
+    None when the test does not use it."""
+
+    masks: Optional[torch.Tensor] = None   # int32 [K, W] case masks (-b)
+    phenos: Optional[torch.Tensor] = None  # float64 [K, N] phenotypes (-q)
+    Z: Optional[torch.Tensor] = None       # float64 [N, 1 + C] (-b -c)
+    w: Optional[torch.Tensor] = None       # float64 [N] working weights
+    e: Optional[torch.Tensor] = None       # float64 [K, N] residual rows
+
+
+def to_perm_inputs(device: torch.device,
+                   masks: Optional[np.ndarray] = None,
+                   phenos: Optional[np.ndarray] = None,
+                   Z: Optional[np.ndarray] = None,
+                   w: Optional[np.ndarray] = None,
+                   e: Optional[np.ndarray] = None) -> PermInputs:
+    """:class:`PermInputs` on ``device`` from the numpy rows the host
+    builds (pipeline/permutation.py): the uint32 packed case masks as an
+    int32 view, like the words, and the rest as float64."""
+    device = torch.device(device)
+
+    def f64(a):
+        return None if a is None else upload(np.asarray(a, np.float64),
+                                             device)
+    return PermInputs(
+        masks=None if masks is None else upload(
+            np.ascontiguousarray(masks, np.uint32).view(np.int32), device),
+        phenos=f64(phenos), Z=f64(Z), w=f64(w), e=f64(e))
 
 
 def to_graph_counts(kinds: np.ndarray, part_offs: np.ndarray,

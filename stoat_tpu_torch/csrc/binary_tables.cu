@@ -29,7 +29,8 @@
 //
 // Design: one thread per snarl, looping over Pmax, so that the argsort and
 // the row reductions of the JAX version become running sums in registers
-// and nothing but the outputs touches device memory.
+// and nothing but the outputs touches device memory.  The table code is
+// binary_tables_device.cuh, which perm_binary.cu (K15) runs too.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC
@@ -37,6 +38,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "binary_tables_device.cuh"
 
 namespace {
 
@@ -65,103 +68,31 @@ __global__ void binary_tables_kernel(
   double* g0_row = g0_out + s * Pmax;
   double* g1_row = g1_out + s * Pmax;
   uint8_t* keep_row = keep + s * Pmax;
-
-  double total_sum = 0.0;
-  double row0 = 0.0;  // 2xN row sums over kept columns
-  double row1 = 0.0;
-  double total_kept = 0.0;
-  int k = 0;
-  int maf_count = 0;
-  double a = 0.0, b = 0.0, c = 0.0, d = 0.0;
-  for (int64_t j = 0; j < Pmax; ++j) {
+  auto column = [&](int64_t j, double& x0, double& x1) {
     const int32_t pi = row[j];
-    const double x0 = pi >= 0 ? g0_path[pi] : 0.0;
-    const double x1 = pi >= 0 ? g1_path[pi] : 0.0;
+    x0 = pi >= 0 ? g0_path[pi] : 0.0;
+    x1 = pi >= 0 ? g1_path[pi] : 0.0;
+    return pi >= 0;
+  };
+  for (int64_t j = 0; j < Pmax; ++j) {
+    double x0, x1;
+    const bool real = column(j, x0, x1);
     g0_row[j] = x0;
     g1_row[j] = x1;
-    const double col = x0 + x1;
-    total_sum += col;
-    const bool kept = pi >= 0 && col != 0.0;
-    keep_row[j] = kept ? 1 : 0;
-    if (!kept) continue;
-    const double freq1 = x1 / col;
-    const double other = 1.0 - freq1;
-    const double maf = freq1 < other ? freq1 : other;
-    if (maf > maf_threshold) ++maf_count;
-    if (k == 0) {
-      a = x0;
-      c = x1;
-    } else if (k == 1) {
-      b = x0;
-      d = x1;
-    }
-    ++k;
-    row0 += x0;
-    row1 += x1;
-    total_kept += col;
+    keep_row[j] = real && x0 + x1 != 0.0 ? 1 : 0;
   }
-  filtered[s] = (floor(total_sum / 2.0) < min_individuals ||
-                 total_sum < min_haplotypes || k < 2 || maf_count < 2)
-                    ? 1 : 0;
-  k_out[s] = k;
-  a_out[s] = a;
-  b_out[s] = b;
-  c_out[s] = c;
-  d_out[s] = d;
-
-  if (k == 2) {
-    // chi2.py:46-72
-    const double r1 = a + b;
-    const double r2 = c + d;
-    const double c1 = a + c;
-    const double c2 = b + d;
-    const double total = r1 + r2;
-    const bool invalid = r1 == 0.0 || r2 == 0.0 || c1 == 0.0 || c2 == 0.0;
-    const double safe_total = invalid ? 1.0 : total;
-    double ea = r1 * c1 / safe_total;
-    double eb = r1 * c2 / safe_total;
-    double ec = c1 * r2 / safe_total;
-    double ed = c2 * r2 / safe_total;
-    const bool zexp = ea == 0.0 || eb == 0.0 || ec == 0.0 || ed == 0.0;
-    if (zexp) {
-      ea = 1.0;
-      eb = 1.0;
-      ec = 1.0;
-      ed = 1.0;
-    }
-    const double da = a - ea;
-    const double db = b - eb;
-    const double dc = c - ec;
-    const double dd = d - ed;
-    stat_out[s] = da * da / ea + db * db / eb + dc * dc / ec + dd * dd / ed;
-    df_out[s] = 1.0;
-    invalid_out[s] = invalid ? 1 : 0;
-    zexp_out[s] = zexp ? 1 : 0;
-    return;
-  }
-
-  // chi2.py:95-118 over the kept columns; a column that is not kept adds
-  // 0.0 + 0.0 in the JAX sum, which leaves every partial sum unchanged.
-  const bool invalid = total_kept == 0.0 || row0 == 0.0 || row1 == 0.0;
-  const double safe_total = total_kept == 0.0 ? 1.0 : total_kept;
-  double stat = 0.0;
-  for (int64_t j = 0; j < Pmax; ++j) {
-    if (!keep_row[j]) continue;
-    const double x0 = g0_row[j];
-    const double x1 = g1_row[j];
-    const double col = x0 + x1;
-    double e0 = row0 * col / safe_total;
-    double e1 = row1 * col / safe_total;
-    if (!(e0 > 0.0)) e0 = 1.0;
-    if (!(e1 > 0.0)) e1 = 1.0;
-    const double d0 = x0 - e0;
-    const double d1 = x1 - e1;
-    stat += d0 * d0 / e0 + d1 * d1 / e1;
-  }
-  stat_out[s] = stat;
-  df_out[s] = double(k - 1 > 1 ? k - 1 : 1);
-  invalid_out[s] = invalid ? 1 : 0;
-  zexp_out[s] = 0;
+  const stoat::BinaryTable t = stoat::binary_table(
+      column, Pmax, min_individuals, min_haplotypes, maf_threshold);
+  filtered[s] = t.filtered ? 1 : 0;
+  k_out[s] = t.k;
+  a_out[s] = t.a;
+  b_out[s] = t.b;
+  c_out[s] = t.c;
+  d_out[s] = t.d;
+  stat_out[s] = t.stat;
+  df_out[s] = t.df;
+  invalid_out[s] = t.invalid ? 1 : 0;
+  zexp_out[s] = t.zexp ? 1 : 0;
 }
 
 }  // namespace

@@ -10,6 +10,10 @@
 //   p        = t1 finite ? I_x(df/2, 1/2) with x = df / (df + t1^2) : 1.0
 //   outputs  = degenerate ? NaN : (p, beta1, se1, r2)
 //
+// Given no masking arrays (null pointers), it writes p alone: the
+// permutation test's finish_linear_pvalues over its [K * S] statistics
+// (stoat_tpu/pipeline/permutation.py:115, stats/linreg.py linear_pvalues).
+//
 // I_x(a, b) is the Lentz-Thompson-Barnett continued fraction (DLMF
 // 8.17.22), at most 599 iterations, on (a, b, x) when x < (a+1)/(a+b+2)
 // and on (b, a, 1-x) with 1 - result otherwise, times the prefactor
@@ -129,6 +133,12 @@ __global__ void student_t_kernel(
     const double ta = fabs(t);
     const double x = flush(nu / (nu + ta * ta));
     p = flush(betainc(nu * 0.5, 0.5, x));
+  }
+  // without the masking arrays (the permutation test's flattened [K * S]
+  // t statistics) only p is written
+  if (degenerate == nullptr) {
+    p_out[i] = p;
+    return;
   }
   const bool deg = degenerate[i] != 0;
   p_out[i] = deg ? NAN : p;

@@ -1,11 +1,11 @@
 """Graph-mode association (``stoat graph``) on one device.
 
-The port of the device half of stoat_tpu/graph/association.py.  The host
-layers are reused unchanged: the native graph core (graph_core.cpp: GFA
-load or the in-memory feed of .hg/.pg/.gbz, snarl finding, walk-set
-partitioning, the tree walk and the row formatter), the Python
-partitioner and snarl helpers of the JAX package's module, the parsers
-and the writer.  What runs here is K6, ``_graph_stats_fused`` (:496-513):
+The port of stoat_tpu/graph/association.py.  The host layers are the
+port's copies: the native graph core (native/graph_core.cpp: GFA load or
+the in-memory feed of .hg/.pg/.gbz, snarl finding, walk-set partitioning,
+the tree walk and the row formatter), the Python partitioner and snarl
+helpers (graph/partition.py), the parsers and the writer.  What runs on
+the device is K6, ``_graph_stats_fused`` (:496-513):
 chi-squared 2x2, Fisher and chi-squared 2xN on every tested snarl's
 partition counts, one row per snarl, then the rows' splice and write.
 
@@ -30,18 +30,19 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from stoat_tpu import writer as W
-from stoat_tpu.graph.association import (PathPartitioner, _NativePartitions,
-                                         _is_regular_snarl,
-                                         _snarl_min_max_len,
-                                         _write_fasta_partitions)
-from stoat_tpu.graph.gfa import GfaGraph
-from stoat_tpu.graph.snarls import Snarl, SnarlForest, find_snarls
-from stoat_tpu.io.phenotype import parse_binary_pheno
-from stoat_tpu.logsetup import TRACE
+from stoat_tpu_torch import writer as W
 from stoat_tpu_torch.convert import to_graph_counts
 from stoat_tpu_torch.device import kernels_enabled
+from stoat_tpu_torch.graph.gfa import GfaGraph
+from stoat_tpu_torch.graph.partition import (_NativePartitions,
+                                             PathPartitioner,
+                                             _is_regular_snarl,
+                                             _snarl_min_max_len,
+                                             _write_fasta_partitions)
+from stoat_tpu_torch.graph.snarls import Snarl, SnarlForest, find_snarls
+from stoat_tpu_torch.io.phenotype import parse_binary_pheno
 from stoat_tpu_torch.kernels import I64, VOIDP, check_tensor, launch
+from stoat_tpu_torch.logsetup import TRACE
 from stoat_tpu_torch.pipeline.fetch import fetch_async
 from stoat_tpu_torch.stats.chi2 import (chi2_2x2_stat, chi2_2xn_stat,
                                         finish_chi2_pvalues)
@@ -131,7 +132,7 @@ def test_snarls(g: GfaGraph, forest: SnarlForest,
     Returns the number of snarls written.  A copy of stoat_tpu's
     test_snarls (:263-430); only its statistics go through
     :func:`graph_stats`."""
-    from stoat_tpu.graph.decompose import _reference_offsets
+    from stoat_tpu_torch.graph.decompose import _reference_offsets
 
     if output_format == "tsv":
         W.write_binary_header(out_fh)
@@ -269,7 +270,7 @@ def _batch_test_and_write(blob, kinds, part_offs, g0, g1, out_fh,
                           device) -> None:
     """K6 over the native prepare's partition counts, then the rows'
     splice and write (stoat_tpu's :516-575, byte-identical)."""
-    from stoat_tpu.native import graph_format_rows_native
+    from stoat_tpu_torch.native import graph_format_rows_native
 
     n_rows = len(kinds)
     p22, pf, pn, k_arr = _device_pvalues(kinds, part_offs, g0, g1, device)
@@ -304,7 +305,8 @@ def _run_graph_association_native(graph_path: str, fmt: str,
     does the snarl finding, partitioning and tree walk; TSV rows get K6 on
     ``device``; FASTA text comes back complete from the native walk.
     Returns None when the native core is unavailable."""
-    from stoat_tpu.native import graph_assoc_mem_native, graph_assoc_native
+    from stoat_tpu_torch.native import (graph_assoc_mem_native,
+                                        graph_assoc_native)
 
     samples: List[str] = []
     pheno, samples = parse_binary_pheno(binary_path, samples)
@@ -315,7 +317,7 @@ def _run_graph_association_native(graph_path: str, fmt: str,
                                  allele_size_limit,
                                  output_format=output_format)
     elif fmt in ("hg", "pg", "gbz"):
-        from stoat_tpu.graph.formats import load_graph
+        from stoat_tpu_torch.graph.formats import load_graph
         g = load_graph(graph_path, refs)
         got = graph_assoc_mem_native(g, refs, samples,
                                      pheno.astype(np.uint8), test_method,
@@ -348,7 +350,8 @@ def run_graph_association(graph_path: str, dist_path: str, binary_path: str,
     """``stoat graph`` on ``device`` (stoat_tpu's :629-689, graph.cpp:
     52-290): writes ``binary_table_graph.tsv`` or ``binary_output.fasta``
     in ``output_dir``; returns the exit code."""
-    from stoat_tpu.graph.formats import load_graph, sniff_graph_format
+    from stoat_tpu_torch.graph.formats import (load_graph,
+                                               sniff_graph_format)
     if dist_path:
         logger.warning(
             "-d/--dist: the SnarlDistanceIndex file %s is accepted for "

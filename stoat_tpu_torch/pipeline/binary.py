@@ -190,7 +190,7 @@ def binary_analyze_chromosome(packed, binary_phenotype: np.ndarray,
                               maf_threshold: float, device,
                               words: Optional[torch.Tensor] = None,
                               pheno=None) -> HostResult:
-    """Run one packed chunk (a ``stoat_tpu.tables.PackedChromosome``)
+    """Run one packed chunk (a ``tables.PackedChromosome``)
     through the binary pipeline on ``device``.
 
     ``words``/``pheno`` let the caller upload the chromosome's words and

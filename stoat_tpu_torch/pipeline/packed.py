@@ -10,9 +10,9 @@ mask.  This is stoat_tpu/pipeline/packed.py, whose layout it keeps.  On
 the card the quantitative path never materialises the membership: K1 and
 K7 are fused into csrc/quant_design.cu (pipeline/quantitative.py).
 
-The numpy host helpers are copies of stoat_tpu/pipeline/packed.py:60-148.
-The port calls them instead of the ``PackedChromosome`` and
-``PackedEdgeMatrix`` methods that reach the JAX package lazily.
+The numpy host helpers are copies of stoat_tpu/pipeline/packed.py:60-148;
+the port's ``tables.py`` and ``matrix.py`` call them where the JAX
+package's call its own module.
 
 On the device the port holds words as an int32 view of the uint32 words:
 PyTorch on the CPU has no uint32 shifts or ``index_select``.  The bits are

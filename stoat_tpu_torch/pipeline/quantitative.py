@@ -217,7 +217,7 @@ def quantitative_analyze_chromosome(packed, pheno: torch.Tensor,
                                     min_haplotypes: int,
                                     maf_threshold: float, device,
                                     words=None) -> HostResult:
-    """Run one packed chunk (a ``stoat_tpu.tables.PackedChromosome``)
+    """Run one packed chunk (a ``tables.PackedChromosome``)
     through the quantitative pipeline on ``device``: design, OLS of
     y = pheno * used, p-values and NA masking.
 

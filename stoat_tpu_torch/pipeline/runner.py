@@ -32,17 +32,18 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from stoat_tpu import writer as W
-from stoat_tpu.io.snarl_file import SnarlData
-from stoat_tpu.io.vcf import VcfReader
-from stoat_tpu.matrix import EdgeHaplotypeMatrix
-from stoat_tpu.tables import pack_chromosome_chunks, tokenize_chromosome
+from stoat_tpu_torch import writer as W
 from stoat_tpu_torch.convert import (chunk_words, pheno_masks,
                                      to_binary_pheno, to_quant_inputs,
                                      upload_words)
+from stoat_tpu_torch.io.snarl_file import SnarlData
+from stoat_tpu_torch.io.vcf import VcfReader
+from stoat_tpu_torch.matrix import EdgeHaplotypeMatrix
 from stoat_tpu_torch.pipeline.binary import binary_analyze_chromosome
 from stoat_tpu_torch.pipeline.quantitative import (
     binary_covar_analyze_chromosome, quantitative_analyze_chromosome)
+from stoat_tpu_torch.tables import (pack_chromosome_chunks,
+                                    tokenize_chromosome)
 
 logger = logging.getLogger("stoat")
 
@@ -64,8 +65,8 @@ def iter_chromosome_matrices(vcf_path: str, n_haplotypes: int,
     to the pure-Python reader when the toolchain is unavailable."""
     yielded_any = False
     try:
-        from stoat_tpu.matrix import PackedEdgeMatrix
-        from stoat_tpu.native import NativeVcfMatrixReader
+        from stoat_tpu_torch.matrix import PackedEdgeMatrix
+        from stoat_tpu_torch.native import NativeVcfMatrixReader
         reader = NativeVcfMatrixReader(vcf_path)
         try:
             for chrom, words, n_haps, edges in reader.chunks_packed():

@@ -29,9 +29,11 @@ from stoat_tpu_torch.kernels import I64, VOIDP, check_tensor, launch
 from stoat_tpu_torch.stats.linalg import ldlt_factor, ldlt_solve, sym_pinv
 from stoat_tpu_torch.stats.special import student_t_sf2_plain
 
-__all__ = ["LDLT_TOL", "PINV_TOL", "linear_regression_stats",
+__all__ = ["LDLT_TOL", "PINV_TOL", "normal_inverse_plain",
+           "ols_from_inverse_plain", "linear_regression_stats",
            "linear_regression_stats_plain", "finish_linear_pvalues",
-           "STUDENT_T_KEYS", "student_t_pvalues", "student_t_pvalues_plain"]
+           "linear_pvalues", "STUDENT_T_KEYS", "student_t_pvalues",
+           "student_t_pvalues_plain"]
 
 LDLT_TOL = 1e-10  # stats_test.cpp:401
 PINV_TOL = 1e-6   # stats_test.cpp:386
@@ -40,16 +42,15 @@ Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
 
 
-def linear_regression_stats_plain(X: torch.Tensor, y: torch.Tensor,
-                                  row_mask: torch.Tensor,
-                                  ncols: torch.Tensor) -> Stats:
-    """Plain PyTorch version of :func:`linear_regression_stats`."""
+def normal_inverse_plain(X: torch.Tensor,
+                         ncols: torch.Tensor) -> torch.Tensor:
+    """(X^T X)^-1 [B, P, P], the padded columns' diagonal set to 1, by
+    LDL^T against the identity, or the Jacobi pseudo-inverse of the snarls
+    with a real pivot below LDLT_TOL or not finite (csrc/ols_device.cuh)."""
     B, N, P = X.shape
     real = torch.arange(P, device=X.device)[None, :] < ncols[:, None]
     XtX = torch.einsum("bnp,bnq->bpq", X, X)
     XtX = XtX + torch.diag_embed(torch.where(real, 0.0, 1.0))
-    Xty = torch.einsum("bnp,bn->bp", X, y)
-
     L, D = ldlt_factor(XtX)
     bad = (real & ((D.abs() < LDLT_TOL) | ~torch.isfinite(D))).any(dim=-1)
     eye = torch.eye(P, dtype=X.dtype, device=X.device).expand(B, P, P)
@@ -60,7 +61,16 @@ def linear_regression_stats_plain(X: torch.Tensor, y: torch.Tensor,
         rows = bad.nonzero().squeeze(-1)
         inv = inv.clone()
         inv[rows] = sym_pinv(XtX[rows], tol=PINV_TOL)
+    return inv
 
+
+def ols_from_inverse_plain(X: torch.Tensor, y: torch.Tensor,
+                           row_mask: torch.Tensor, ncols: torch.Tensor,
+                           inv: torch.Tensor) -> Stats:
+    """The statistics of :func:`linear_regression_stats` given the
+    inverse of :func:`normal_inverse_plain`: the part that depends on y."""
+    B, N, P = X.shape
+    Xty = torch.einsum("bnp,bn->bp", X, y)
     beta = torch.zeros(B, P, dtype=X.dtype, device=X.device)
     for m in range(P):
         beta = beta + inv[:, :, m] * Xty[:, m, None]
@@ -82,6 +92,14 @@ def linear_regression_stats_plain(X: torch.Tensor, y: torch.Tensor,
     beta1 = beta[:, 1]
     se1 = torch.sqrt(inv[:, 1, 1] * mse)
     return beta1 / se1, df_res, beta1, se1, r2
+
+
+def linear_regression_stats_plain(X: torch.Tensor, y: torch.Tensor,
+                                  row_mask: torch.Tensor,
+                                  ncols: torch.Tensor) -> Stats:
+    """Plain PyTorch version of :func:`linear_regression_stats`."""
+    return ols_from_inverse_plain(X, y, row_mask, ncols,
+                                  normal_inverse_plain(X, ncols))
 
 
 def _ols_cuda(X, y, row_mask, ncols) -> Stats:
@@ -128,6 +146,25 @@ def finish_linear_pvalues(t1: torch.Tensor,
     (stats_test.cpp:479-485, stoat_tpu/stats/linreg.py:206-209)."""
     p = student_t_sf2_plain(t1.abs(), df_res)
     return torch.where(torch.isfinite(t1), p, 1.0)
+
+
+def linear_pvalues(t1: torch.Tensor, df_res: torch.Tensor) -> torch.Tensor:
+    """:func:`finish_linear_pvalues` of statistics of any shape, with no
+    NA masking (the permutation test's [K, S]).
+
+    CUDA tensors run csrc/student_t.cu over the flattened statistics,
+    writing p alone; CPU tensors run the plain version."""
+    if not kernels_enabled(t1.device):
+        return finish_linear_pvalues(t1, df_res)
+    device = t1.device
+    n = t1.numel()
+    check_tensor(t1, "t1", torch.float64, tuple(t1.shape), device)
+    check_tensor(df_res, "df_res", torch.float64, tuple(t1.shape), device)
+    p = torch.empty_like(t1)
+    launch("student_t", [VOIDP] * 10 + [I64],
+           [t1.data_ptr(), df_res.data_ptr(), None, None, None, None,
+            p.data_ptr(), None, None, None, n], device)
+    return p
 
 
 STUDENT_T_KEYS = ("p", "beta", "se", "r2")

@@ -1,11 +1,14 @@
-"""Hygiene of the port: it never imports jax (or triton), and it never runs
-on the CPU when a CUDA device was asked for.
+"""Hygiene of the port: it never imports jax, triton or the JAX package
+(``stoat_tpu``), it owns its native cores, and it never runs on the CPU
+when a CUDA device was asked for.
 
 The import checks run in a fresh interpreter, because this test process
-has jax loaded for the parity tests.  Whether a CUDA card is present is
-decided inside each test, never at import time.
+has jax and stoat_tpu loaded for the parity tests.  Whether a CUDA card is
+present is decided inside each test, never at import time.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -32,14 +35,23 @@ def _run(script: str, tmp_path) -> subprocess.CompletedProcess:
 
 def test_port_runs_without_jax_or_triton(tmp_path):
     """Importing the port, its CLI, its runner, graph mode and every kernel
-    module, and whole CPU runs of ``vcf -b``, ``vcf -b -c``, ``vcf -q -c``
-    and ``graph``, leave jax and triton out of sys.modules and need no
-    CUDA toolkit (nothing is built)."""
+    module, and whole CPU runs of ``vcf -b``, ``vcf -b -c``, ``vcf -q`` and
+    ``vcf -q -c`` (each alone and with ``--permutations 20``), of the
+    ``-p/-d`` decomposition route and of ``graph``, then importing
+    chip_smoke.py, leave jax, jaxlib, triton and every stoat_tpu module out
+    of sys.modules and need no CUDA toolkit (no kernel is built).  The
+    decomposition inputs are written here: the module that writes them
+    imports stoat_tpu."""
+    from test_cli_decompose import build_fixture
+    deco = tmp_path / "deco"
+    deco.mkdir()
+    gfa, dist, dvcf, dpheno = build_fixture(deco)
     res = _run(f"""
         import os, sys
         import stoat_tpu_torch
         import stoat_tpu_torch.cli
         import stoat_tpu_torch.graph
+        import stoat_tpu_torch.pipeline.permutation
         import stoat_tpu_torch.pipeline.runner
         import stoat_tpu_torch.pipeline.quantitative
         import stoat_tpu_torch.stats.linalg
@@ -52,17 +64,30 @@ def test_port_runs_without_jax_or_triton(tmp_path):
                          n_snarls=12, seed=4)
         out = {str(tmp_path / 'out')!r}
         covar = ["-c", p["covariate"], "-C", "AGE,SEX"]
-        for pheno, table in ((["-b", p["binary"]], "binary"),
-                             (["-b", p["binary"], *covar], "binary"),
-                             (["-q", p["quantitative"], *covar],
-                              "quantitative")):
-            rc = stoat_tpu_torch.cli.main(
-                ["vcf", "-s", p["snarl"], "-v", p["vcf"], *pheno,
-                 "-o", out, "--device", "cpu"])
-            assert rc == 0, rc
-            with open(os.path.join(out, table + "_table_vcf.tsv")) as fh:
-                assert fh.readline().startswith("#CHR")
-                assert fh.readline()
+        runs = ((["-b", p["binary"]], "binary"),
+                (["-b", p["binary"], *covar], "binary"),
+                (["-q", p["quantitative"]], "quantitative"),
+                (["-q", p["quantitative"], *covar], "quantitative"))
+        for perms in ([], ["--permutations", "20", "--perm-seed", "3"]):
+            for pheno, table in runs:
+                rc = stoat_tpu_torch.cli.main(
+                    ["vcf", "-s", p["snarl"], "-v", p["vcf"], *pheno,
+                     "-o", out, "--device", "cpu", *perms])
+                assert rc == 0, rc
+                names = [table + "_table_vcf.tsv"]
+                if perms:
+                    names.append(table + "_permutation_vcf.tsv")
+                for name in names:
+                    with open(os.path.join(out, name)) as fh:
+                        assert fh.readline().startswith("#CHR")
+                        assert fh.readline()
+                    os.remove(os.path.join(out, name))
+        rc = stoat_tpu_torch.cli.main(
+            ["vcf", "-p", {gfa!r}, "-d", {dist!r}, "-v", {dvcf!r}, "-b",
+             {dpheno!r}, "-o", out, "--device", "cpu"])
+        assert rc == 0, rc
+        with open(os.path.join(out, "binary_table_vcf.tsv")) as fh:
+            assert len(fh.readlines()) > 1
         import importlib.util
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", os.path.join({REPO!r}, "chip_smoke.py"))
@@ -77,12 +102,76 @@ def test_port_runs_without_jax_or_triton(tmp_path):
             assert len(fh.readlines()) > 20
         assert not build.BUILD_LOG, build.BUILD_LOG
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "triton",
+                                            "stoat_tpu"))
         assert not bad, bad
         print("OK")
     """, tmp_path)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("OK")
+
+
+def test_port_never_imports_stoat_tpu():
+    """No module of the port, not chip_smoke.py and no script under
+    tools/ names the JAX package in an import statement (stoat_tpu_torch
+    is the port itself)."""
+    files = sorted(glob.glob(os.path.join(REPO, "stoat_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += sorted(glob.glob(os.path.join(REPO, "tools", "*.py")))
+    assert len(files) > 30
+    found = []
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                      for n in names if n.split(".")[0] == "stoat_tpu"]
+    assert not found, found
+
+
+def test_native_libraries_build_under_the_build_dir():
+    """The port's native cores load from build/stoat_tpu_torch/native/,
+    under a name keyed by the source, the flags and the host CPU."""
+    from stoat_tpu_torch import native
+    build_dir = os.path.join(REPO, "build", "stoat_tpu_torch", "native")
+    assert native.BUILD_DIR == build_dir
+    for src, libs, get in ((native._SRC, native._CORE_LIBS, native.get_lib),
+                           (native._GRAPH_SRC, (), native.get_graph_lib)):
+        assert os.path.dirname(src) == os.path.join(REPO, "stoat_tpu_torch",
+                                                    "native")
+        path = native.library_path(src, libs)
+        assert os.path.dirname(path) == build_dir
+        lib = get()
+        assert lib is not None and os.path.samefile(lib._name, path)
+    assert "-march=native" in native.CXX_FLAGS
+
+
+def test_native_key_change_forces_rebuild(monkeypatch):
+    """A library built for another host (another key) is never loaded:
+    with the key changed, the core is built again, under the new name."""
+    from stoat_tpu_torch import native
+    before = native.library_path(native._SRC, native._CORE_LIBS)
+    built = []
+
+    def fake_compile(src, lib, extra=()):
+        built.append((src, lib))
+        return False                      # nothing is written
+
+    monkeypatch.setattr(native, "host_key", lambda: "another host")
+    monkeypatch.setattr(native, "_compile", fake_compile)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    after = native.library_path(native._SRC, native._CORE_LIBS)
+    assert after != before and os.path.dirname(after) == native.BUILD_DIR
+    assert native.get_lib() is None
+    assert built == [(native._SRC, after)]
 
 
 def test_cuda_device_never_falls_back_to_cpu(tmp_path):
@@ -164,5 +253,8 @@ def test_launch_counts_reset():
     kernels.reset_launch_counts()
     assert set(kernels.LAUNCHES) == {"membership_counts", "binary_tables",
                                      "fisher", "quant_design", "ols",
-                                     "student_t", "graph_stats", "logreg"}
+                                     "student_t", "graph_stats", "logreg",
+                                     "perm_membership", "perm_binary",
+                                     "perm_ols", "score_precompute",
+                                     "score_perm"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())
