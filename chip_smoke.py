@@ -6,7 +6,7 @@ g++:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels (thirteen entry points in eleven
+It builds the port's CUDA kernels (fourteen entry points in twelve
 sources, one nvcc per source, all at once) and the native VCF and graph
 cores from the sources in the checkout, then runs five phases, each
 printing lines and each fatal on failure:
@@ -20,7 +20,9 @@ printing lines and each fatal on failure:
      and of ``vcf -b -c``, the main graph's partition counts, and the
      permutation kernels on the first chunk with 16 permutations and
      again with the main path's 1,001 rows, perm_ols at both the ``-q``
-     and the ``-q -c`` design) and on edge cases (tolerances printed);
+     and the ``-q -c`` design; quant_design with ``all_rows``, eqtl_ols on
+     the first chunk's (snarl, gene) pairs and the mixed model's chain
+     of rotation, OLS and tail) and on edge cases (tolerances printed);
   4. main paths: the port's CLI with ``--device cuda``: ``vcf -b``, ``vcf
      -q``, ``vcf -q -c -C AGE,SEX`` and ``vcf -b -c -C AGE,SEX`` on a
      generated cohort of 2,504 samples (the 1000 Genomes phase-3 size)
@@ -34,12 +36,19 @@ printing lines and each fatal on failure:
      with ``--permutations 1000`` at full size (every kernel on every
      chunk, P_EMP and P_FWER recounted in numpy from the captured
      p-values), and CUDA against CPU with 50 permutations on a sub-cohort
-     of 2,048 snarls, then the two quantitative passes once more;
+     of 2,048 snarls, then the two quantitative passes once more; then the
+     dual run ``vcf -b -q`` (alone, equal to the single runs, and with
+     ``--permutations 1000``), eQTL ``vcf -e -G -c -C AGE,SEX`` on a gene
+     set written here (one gene per 150 kb, a 1 Mb window) and the mixed
+     model ``vcf -q -k --lmm -c -C AGE,SEX`` on a rank-200 kinship and a
+     phenotype y = g + e written here, each against its numpy reference
+     at full size and CUDA against CPU on the sub-cohort;
   5. each kernel's time and its plain version's, on the card, at the main
      paths' shapes (CUDA events, after a warm-up, and profiler device
      time), its bound (bytes over the card's memory rate or operations
-     over its peak rate, whichever is larger), and the wall of each
-     permutation pass.
+     over its peak rate, whichever is larger), the wall of each
+     permutation pass, and the mixed model's rotation (one float64 GEMM)
+     beside its bound.
 
 The last two lines of standard output are a JSON object of the kernels and
 the contract line {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -55,6 +64,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import math
 import os
 import re
 import shutil
@@ -121,6 +131,8 @@ KERNELS = {
                          "stoat_tpu/pipeline/permutation.py:194"),
     "score_perm": ("stoat_tpu_torch/csrc/score_test.cu",
                    "stoat_tpu/pipeline/permutation.py:201"),
+    "eqtl_ols": ("stoat_tpu_torch/csrc/eqtl_ols.cu",
+                 "stoat_tpu/pipeline/quantitative.py:599"),
 }
 # the kernel sources (one nvcc each), by their build names
 SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
@@ -130,6 +142,18 @@ BC_KERNELS = ("quant_design", "logreg")
 GRAPH_KERNELS = ("graph_stats",)
 PERM_KERNELS = ("perm_membership", "perm_binary", "perm_ols",
                 "score_precompute", "score_perm")
+# the dual run: K1 once (perm_membership), then the binary and the
+# quantitative kernels on its words
+DUAL_KERNELS = ("perm_membership", "membership_counts", "binary_tables",
+                "fisher", "quant_design", "ols", "student_t")
+EQTL_KERNELS = ("quant_design", "eqtl_ols", "student_t")
+LMM_KERNELS = ("quant_design", "ols", "student_t")
+# eQTL: one gene every 150 kb, 30 kb long (GTEx v8: ~20k genes over
+# 3.1 Gb), in GTEx's +-1 Mb cis window (the CLI's default -w)
+GENE_STEP = 150000
+GENE_LEN = 30000
+# the mixed model: tests/test_lmm.py:26's random kinship of rank 200
+KIN_RANK = 200
 # permutations: phase 3 checks the kernels with PERM_K; phase 4 runs each
 # mode's CLI with PERM_FULL (users run 1,000) at full size, and CUDA
 # against CPU with PERM_SUB on a sub-cohort of SUB_SNARLS snarls (the plain
@@ -315,12 +339,31 @@ def combine_identical_columns(df):
 def ols_reference(df, y, covar):
     """OLS reporting the first variant column (stats_test.cpp:423-506)."""
     import numpy as np
-    import scipy.stats
     n = df.shape[0]
     parts = [np.ones((n, 1)), df]
     if covar is not None and covar.shape[1] > 0:
         parts.append(covar)
-    X = np.concatenate(parts, axis=1)
+    return ols_of(np.concatenate(parts, axis=1), y)
+
+
+def gls_reference(df_all, covar, rot, y_rot):
+    """The mixed model's test of one snarl (stoat_tpu/stats/lmm.py): the
+    design [1 | dosage fractions, 0 on uncalled rows | covariates] over
+    every sample, rotated by ``rot``, against ``y_rot``."""
+    import numpy as np
+    n = df_all.shape[0]
+    parts = [np.ones((n, 1)), df_all]
+    if covar is not None and covar.shape[1] > 0:
+        parts.append(covar)
+    return ols_of(rot @ np.concatenate(parts, axis=1), y_rot)
+
+
+def ols_of(X, y):
+    """(p, beta, se, r2) of the first variant column of the OLS of y on
+    the full design X."""
+    import numpy as np
+    import scipy.stats
+    n = X.shape[0]
     XtXinv = np.linalg.inv(X.T @ X)
     beta = XtXinv @ (X.T @ y)
     resid = y - X @ beta
@@ -430,22 +473,33 @@ def reference_rows(paths, min_individuals=3, min_haplotypes=5, maf=0.05):
 
 
 def quant_reference(paths, pheno, covar, case, n_sample=512, seed=0,
-                    thresholds=THRESHOLDS):
-    """What ``vcf -q`` and ``vcf -b -c`` must compute for a
-    ``make_fixture`` cohort, from the VCF text, the phenotypes and the
-    covariates alone, in numpy.
+                    thresholds=THRESHOLDS, genes=None, lmm=None):
+    """What ``vcf -q`` and ``vcf -b -c`` (and eQTL and the mixed model)
+    must compute for a ``make_fixture`` cohort, from the VCF text, the
+    phenotypes and the covariates alone, in numpy.
 
-    Returns ``(table, stats)``: ``table`` maps (chrom, snarl) to
-    (filtered, allele_paths) for every snarl, in file order (the two
-    modes filter alike); ``stats`` maps (chrom, snarl) of up to
-    ``n_sample`` random unfiltered snarls to ((p, beta, se, r2) of OLS
-    without covariates, the same with them, (p, beta, se) of the logistic
-    model of the bool phenotype ``case``), from the references above
-    (NaN for a degenerate snarl, whose merged columns all drop, and for a
-    logistic fit that never converges).  A haplotype carries path i
-    exactly when its allele is i (reference_rows)."""
+    Returns ``(table, stats, eqtl, gls)``: ``table`` maps (chrom, snarl)
+    to (filtered, allele_paths) for every snarl, in file order (the modes
+    filter alike); ``stats`` maps (chrom, snarl) of up to ``n_sample``
+    random unfiltered snarls to ((p, beta, se, r2) of OLS without
+    covariates, the same with them, (p, beta, se) of the logistic model of
+    the bool phenotype ``case``), from the references above (NaN for a
+    degenerate snarl, whose merged columns all drop, and for a logistic
+    fit that never converges).  With ``genes`` ({chrom: [(name, start,
+    end, expression [N])]}), ``eqtl`` maps (chrom, snarl, gene) of the
+    sampled snarls and every gene of the 1 Mb window to the OLS of the
+    gene's expression with the covariates; with ``lmm`` ((rot, y_rot) of
+    the null model), ``gls`` maps the sampled snarls to gls_reference.
+    A haplotype carries path i exactly when its allele is i
+    (reference_rows)."""
     import numpy as np
     N = pheno.shape[0]
+    span = {}
+    with open(paths["snarl"]) as fh:
+        next(fh)
+        for line in fh:
+            c = line.split("\t", 5)
+            span[(c[0], c[4])] = (int(c[1]), int(c[2]))
     sample_of = np.arange(2 * N) // 2
     records = []
     with open(paths["vcf"], "rb") as fh:
@@ -455,7 +509,8 @@ def quant_reference(paths, pheno, covar, case, n_sample=512, seed=0,
     rng = np.random.default_rng(seed)
     chosen = set(rng.choice(len(records), min(len(records), n_sample + 64),
                             replace=False).tolist())
-    table, stats = {}, {}
+    table, stats, eqtl, gls = {}, {}, {}, {}
+    nan4 = (np.nan,) * 4
     for r, line in enumerate(records):
         f = line.rstrip(b"\n").split(b"\t", 9)
         at = f[7].split(b";")[0]
@@ -478,14 +533,28 @@ def quant_reference(paths, pheno, covar, case, n_sample=512, seed=0,
         if filtered or r not in chosen or len(stats) >= n_sample:
             continue
         merged = combine_identical_columns(df)[:, :-1]
+        start, end = span[key]
+        lo, hi = max(start - 1000000, 0), end + 1000000
+        window = [g for g in (genes or {}).get(key[0], [])
+                  if not (g[2] < lo or g[1] > hi)]
         if merged.shape[1] == 0:
-            stats[key] = ((np.nan,) * 4, (np.nan,) * 4, (np.nan,) * 3)
+            stats[key] = (nan4, nan4, (np.nan,) * 3)
+            eqtl.update({(*key, g[0]): nan4 for g in window})
+            if lmm is not None:
+                gls[key] = nan4
             continue
         logit = irls_reference(merged, case[used].astype(float))
         stats[key] = (ols_reference(merged, pheno[used], None),
                       ols_reference(merged, pheno[used], covar[used]),
                       (np.nan,) * 3 if logit is None else logit)
-    return table, stats
+        for g in window:
+            eqtl[(*key, g[0])] = ols_reference(merged, g[3][used],
+                                               covar[used])
+        if lmm is not None:
+            full = np.zeros((N, merged.shape[1]))
+            full[used] = merged
+            gls[key] = gls_reference(full, covar, *lmm)
+    return table, stats, eqtl, gls
 
 
 def write_graph(out_dir, n_snarls, n_samples=GRAPH_SAMPLES, seed=0):
@@ -585,6 +654,76 @@ def write_graph(out_dir, n_snarls, n_samples=GRAPH_SAMPLES, seed=0):
             fh.write(f"S{s:03d}\tS{s:03d}\t{2 if case[s] else 1}\n")
     return {"gfa": gfa, "pheno": pheno, "n_snarls": n_snarls,
             "n_samples": n_samples}
+
+
+def write_genes(paths, seed=0):
+    """An eQTL gene set for a ``make_fixture`` cohort, from a seed: along
+    each chromosome of the snarl file, a gene every GENE_STEP bases from 0
+    to its last snarl's end, GENE_LEN long, with expression N(0, 1) per
+    sample.  Writes the gene position and expression files beside the
+    cohort (their paths as ``genes`` and ``qtl_smoke`` in ``paths``) and
+    returns {chrom: [(name, start, end, expression [N])]} in file order."""
+    import numpy as np
+    ends = {}
+    with open(paths["snarl"]) as fh:
+        next(fh)
+        for line in fh:
+            c = line.split("\t", 3)
+            ends[c[0]] = max(ends.get(c[0], 0), int(c[2]))
+    rows = [(f"g{c}_{i}", c, lo, lo + GENE_LEN) for c, end in ends.items()
+            for i, lo in enumerate(range(0, end + 1, GENE_STEP))]
+    samples = paths["samples"]
+    expr = np.random.default_rng(seed).standard_normal((len(rows),
+                                                        len(samples)))
+    base = os.path.dirname(paths["snarl"])
+    paths["genes"] = os.path.join(base, "smoke_genes.tsv")
+    paths["qtl_smoke"] = os.path.join(base, "smoke_expression.tsv")
+    with open(paths["genes"], "w") as fh:
+        fh.write("gene_name\tchr\tstart\tend\n")
+        fh.writelines(f"{g}\t{c}\t{lo}\t{hi}\n" for g, c, lo, hi in rows)
+    out = {}
+    with open(paths["qtl_smoke"], "w") as fh:
+        fh.write("gene\t" + "\t".join(samples) + "\n")
+        for (g, c, lo, hi), e in zip(rows, expr):
+            text = [f"{v:.6f}" for v in e]
+            fh.write(g + "\t" + "\t".join(text) + "\n")
+            # the values as the CLI parses them
+            out.setdefault(c, []).append((g, lo, hi, np.array(text, float)))
+    return out
+
+
+def random_kinship(n, rng, rank=None):
+    """tests/test_lmm.py:26's random kinship (a copy: that module imports
+    the JAX package), and the factor A with K = A A^T."""
+    import numpy as np
+    G = rng.normal(size=(n, rank or n))
+    K = G @ G.T / (rank or n)
+    d = np.sqrt(np.diag(K))
+    return K / np.outer(d, d), G / np.sqrt(rank or n) / d[:, None]
+
+
+def write_kinship(paths, seed=0, rank=KIN_RANK):
+    """The mixed model's inputs for a ``make_fixture`` cohort, from a
+    seed: the kinship K = random_kinship(N, rng, rank) as the tab-separated
+    matrix the CLI reads (``kinship`` in ``paths``), and a phenotype y =
+    g + e with g ~ N(0, K) and e ~ N(0, I), so that REML lands near
+    h2 = 0.5 (``lmm_pheno``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    samples = paths["samples"]
+    K, A = random_kinship(len(samples), rng, rank)
+    y = 5.0 + A @ rng.standard_normal(A.shape[1]) \
+        + rng.standard_normal(len(samples))
+    base = os.path.dirname(paths["snarl"])
+    paths["kinship"] = os.path.join(base, "smoke_kinship.tsv")
+    paths["lmm_pheno"] = os.path.join(base, "smoke_lmm.pheno.tsv")
+    with open(paths["kinship"], "w") as fh:
+        fh.write("id\t" + "\t".join(samples) + "\n")
+        for s, row in zip(samples, K):
+            fh.write(s + "\t" + "\t".join(f"{v:.8f}" for v in row) + "\n")
+    with open(paths["lmm_pheno"], "w") as fh:
+        fh.write("FID\tIID\tPHENO\n")
+        fh.writelines(f"{s}\t{s}\t{v:.6f}\n" for s, v in zip(samples, y))
 
 
 # ---------------------------------------------------------------- kernels
@@ -812,18 +951,23 @@ def design_equal(got, want, what):
     return max_abs_err(to_np(got["X"]), to_np(want["X"]))
 
 
-def compare_quant_design(chunk, covar, n_haplotypes, err):
-    """Q1 kernel vs its plain version on the card and on the CPU."""
+def compare_quant_design(chunk, covar, n_haplotypes, err, all_rows=False):
+    """Q1 kernel vs its plain version on the card and on the CPU (with
+    ``all_rows``, the mixed model's designs)."""
     from stoat_tpu_torch.convert import DeviceChunk
     from stoat_tpu_torch.pipeline.quantitative import (quant_design,
                                                        quant_design_plain)
-    got = quant_design(chunk, covar, *THRESHOLDS, n_haplotypes)
+    got = quant_design(chunk, covar, *THRESHOLDS, n_haplotypes,
+                       all_rows=all_rows)
+    what = f"all_rows={all_rows}"
     e = design_equal(got, quant_design_plain(chunk, covar, *THRESHOLDS,
-                                             n_haplotypes), "card")
+                                             n_haplotypes, all_rows),
+                     f"card, {what}")
     host = DeviceChunk(chunk.words.cpu(), chunk.path_idx.cpu(),
                        chunk.path_valid.cpu(), chunk.snarl_path_idx.cpu())
     e = max(e, design_equal(got, quant_design_plain(
-        host, covar.cpu(), *THRESHOLDS, n_haplotypes), "CPU"))
+        host, covar.cpu(), *THRESHOLDS, n_haplotypes, all_rows),
+        f"CPU, {what}"))
     err["quant_design"] = max(err["quant_design"], e)
     return got
 
@@ -839,15 +983,26 @@ def compare_ols(X, y, mask, ncols, err, bound, what, noise_rows=(),
     phenotype (tss = 0): there r2 must not be finite in either, and beta1
     and se1 are rounding noise (below 1e-9) whose ratio t1 no summation
     order reproduces."""
-    import numpy as np
     from stoat_tpu_torch.stats.linreg import (linear_regression_stats,
                                               linear_regression_stats_plain)
     got = linear_regression_stats(X, y, mask, ncols)
     plain = linear_regression_stats_plain(X, y, mask, ncols)
-    groups = np.zeros(X.shape[0], np.int8)     # 0 normal, 1 pinv, 2 noise
+    return got, hold_ols_stats(got, plain, "ols", err, bound, what,
+                               noise_rows, pinv, pinv_bound)
+
+
+def hold_ols_stats(got, plain, key, err, bound, what, noise_rows=(),
+                   pinv=(), pinv_bound=None):
+    """Hold OLS statistics (t1, df_res, beta1, se1, r2) of kernel ``key``
+    to its plain version's, row by row as compare_ols states; df_res
+    exactly.  Returns each statistic's largest error."""
+    import numpy as np
+    groups = np.zeros(len(to_np(got[0])), np.int8)  # 0 normal, 1 pinv, 2 noise
     groups[list(pinv)] = 1
     groups[list(noise_rows)] = 2
     se_plain = to_np(plain[3])
+    check(np.array_equal(to_np(got[1]), to_np(plain[1])),
+          f"{key} ({what}): df_res differs")
     errs = {}
     for name, g, p in zip(OLS_NAMES, got, plain):
         a, b = to_np(g), to_np(p)
@@ -856,19 +1011,21 @@ def compare_ols(X, y, mask, ncols, err, bound, what, noise_rows=(),
             if not rows.any():
                 continue
             e = stat_err(name, a[rows], b[rows], se_plain[rows])
-            check(e <= limit, f"ols ({what}{', pinv rows' if group else ''}"
-                  f"): {name} error {e:.3g} > {limit:g}")
+            check(e <= limit, f"{key} ({what}"
+                  f"{', pinv rows' if group else ''}): {name} error "
+                  f"{e:.3g} > {limit:g}")
             errs[name] = max(errs.get(name, 0.0), e)
         keep = groups != 2
-        err["ols"] = max(err["ols"], max_abs_err(a[keep], b[keep]))
+        err[key] = max(err[key], max_abs_err(a[keep], b[keep]))
         for r in noise_rows:
             if name == "r2":
                 check(not np.isfinite(a[r]) and not np.isfinite(b[r]),
-                      f"ols ({what}): r2 of a constant phenotype is finite")
+                      f"{key} ({what}): r2 of a constant phenotype is "
+                      f"finite")
             if name in ("beta1", "se1"):
                 check(abs(a[r]) < 1e-9 and abs(b[r]) < 1e-9,
-                      f"ols ({what}): {name} of a constant phenotype")
-    return got, errs
+                      f"{key} ({what}): {name} of a constant phenotype")
+    return errs
 
 
 def compare_student_t(t1, df, deg, beta, se, r2, err, what):
@@ -1525,7 +1682,7 @@ def phase_perm_kernels(torch, device, chunks, quant, logit, err):
     K = 1 + PERM_FULL."""
     import numpy as np
     from stoat_tpu_torch.convert import to_perm_inputs
-    chunk, qchunk, qpheno, qcovar, H, case = chunks
+    chunk, qchunk, qpheno, qcovar, H, case = chunks[:6]
     pheno_bin = to_np(case) > 0.5
     covar = to_np(qcovar)
     W = int(chunk.words.shape[1])
@@ -1616,28 +1773,38 @@ def compare_perm_full(torch, chunk, q, lg, bad, fin, phenos_q, err):
 class PermCapture:
     """Records what run_permutation_test computes, by wrapping its
     accumulate_chunk (each chunk's [1 + K, S] p-values on the device) and
-    timing the whole pass: per chunk the observed row and each
-    permutation's minimum, and the full matrices of the first ``full``
-    chunks."""
+    timing the whole pass: per job of the pass (the binary and the
+    quantitative table of a dual run, in that order) and chunk, the
+    observed row and each permutation's minimum, and the full matrices of
+    the first ``full`` chunks."""
 
     def __init__(self, full=1):
         self.full = full
+
+    def job(self, j=0):
+        """The chunk records of the pass's job ``j``."""
+        return list(self.jobs.values())[j]
+
+    @property
+    def chunks(self):
+        return self.job(0)
 
     def __enter__(self):
         from stoat_tpu_torch.pipeline import permutation as pm
         self.pm = pm
         self.real_acc = pm.accumulate_chunk
         self.real_run = pm.run_permutation_test
-        self.chunks, self.walls = [], []
+        self.jobs, self.walls = {}, []
 
         def acc(state, chrom, snarls, p):
             S = len(snarls)
+            chunks = self.jobs.setdefault(id(state), [])
             rec = {"chrom": chrom, "snarls": [s.snarl_id_str for s in snarls],
                    "obs": to_np(p[0, :S]), "min": to_np(p[1:, :S].amin(1))
                    if S else None}
-            if len(self.chunks) < self.full:
+            if len(chunks) < self.full:
                 rec["p"] = to_np(p[:, :S])
-            self.chunks.append(rec)
+            chunks.append(rec)
             return self.real_acc(state, chrom, snarls, p)
 
         def run(*a, **k):
@@ -1671,16 +1838,16 @@ def read_perm_tsv(path):
     return out
 
 
-def recount_perm(cap, got, n_perms):
+def recount_perm(cap, got, n_perms, job=0):
     """The numpy recount of P_EMP (the fully captured chunks' snarls) and
-    P_FWER (every snarl) from the captured p-values; returns the snarls
-    checked for each."""
+    P_FWER (every snarl) of the pass's job ``job`` from the captured
+    p-values; returns the snarls checked for each."""
     import numpy as np
     from stoat_tpu_torch.writer import format_p
-    null_min = np.min(np.stack([c["min"] for c in cap.chunks
+    null_min = np.min(np.stack([c["min"] for c in cap.job(job)
                                 if c["min"] is not None]), axis=0)
     n_emp = n_fwer = 0
-    for c in cap.chunks:
+    for c in cap.job(job):
         for i, sid in enumerate(c["snarls"]):
             obs = c["obs"][i]
             asy, emp, fwer = got[(c["chrom"], sid)]
@@ -1700,20 +1867,20 @@ def recount_perm(cap, got, n_perms):
     return n_emp, n_fwer
 
 
-def perm_same_but_ties(got_a, cap_a, got_b, cap_b, n_perms):
-    """Two runs' permutation tables (CUDA and CPU) agree: the same rows
-    and NA cells; a P_ASY string may differ only at a rounding boundary,
-    where the two p-values agree to TSV_REL; a P_EMP/P_FWER count may
-    differ only inside the tie band of TIE_REL around run b's own p-values.
-    Returns the differing rows."""
+def perm_same_but_ties(got_a, cap_a, got_b, cap_b, n_perms, job=0):
+    """Two runs' permutation tables (CUDA and CPU) of the passes' job
+    ``job`` agree: the same rows and NA cells; a P_ASY string may differ
+    only at a rounding boundary, where the two p-values agree to TSV_REL;
+    a P_EMP/P_FWER count may differ only inside the tie band of TIE_REL
+    around run b's own p-values.  Returns the differing rows."""
     import numpy as np
 
     def cells(cap):
         out = {}
-        for c in cap.chunks:
+        for c in cap.job(job):
             for i, sid in enumerate(c["snarls"]):
                 out[(c["chrom"], sid)] = (c["obs"][i], c["p"][1:, i])
-        return out, np.min(np.stack([c["min"] for c in cap.chunks
+        return out, np.min(np.stack([c["min"] for c in cap.job(job)
                                      if c["min"] is not None]), axis=0)
     check(list(got_a) == list(got_b), "permutation TSVs: rows differ")
     (cells_a, _), (cells_b, null_min) = cells(cap_a), cells(cap_b)
@@ -1740,19 +1907,24 @@ def perm_same_but_ties(got_a, cap_a, got_b, cap_b, n_perms):
 
 
 def perm_cli_args(paths, out, device, mode, n_perms):
-    flag = "-b" if mode in ("b", "b_c") else "-q"
-    pheno = paths["binary"] if flag == "-b" else paths["quantitative"]
+    pheno = {"b": ["-b", paths["binary"]], "b_c": ["-b", paths["binary"]],
+             "q": ["-q", paths["quantitative"]],
+             "q_c": ["-q", paths["quantitative"]],
+             "bq": ["-b", paths["binary"], "-q", paths["quantitative"]]}[mode]
     covar = (["-c", paths["covariate"], "-C", ",".join(COVAR_NAMES)]
              if mode in ("q_c", "b_c") else [])
-    return ["vcf", "-s", paths["snarl"], "-v", paths["vcf"], flag, pheno,
+    return ["vcf", "-s", paths["snarl"], "-v", paths["vcf"], *pheno,
             *covar, "-o", out, "--device", device, "--permutations",
             str(n_perms), "--perm-seed", "0"]
 
 
-PERM_TABLES = {"b": "binary_permutation_vcf.tsv",
-               "b_c": "binary_permutation_vcf.tsv",
-               "q": "quantitative_permutation_vcf.tsv",
-               "q_c": "quantitative_permutation_vcf.tsv"}
+# each mode's permutation tables, one per job of its pass
+PERM_TABLES = {"b": ("binary_permutation_vcf.tsv",),
+               "b_c": ("binary_permutation_vcf.tsv",),
+               "q": ("quantitative_permutation_vcf.tsv",),
+               "q_c": ("quantitative_permutation_vcf.tsv",),
+               "bq": ("binary_permutation_vcf.tsv",
+                      "quantitative_permutation_vcf.tsv")}
 # each mode's kernels and their launches per chunk: the main table's, then
 # the permutation pass's
 PERM_LAUNCHES = {
@@ -1762,6 +1934,10 @@ PERM_LAUNCHES = {
     "q_c": {"quant_design": 2, "ols": 1, "student_t": 2, "perm_ols": 1},
     "b_c": {"quant_design": 2, "logreg": 1, "score_precompute": 1,
             "score_perm": 1},
+    # the dual table (K1 once), then both jobs of one pass
+    "bq": {"perm_membership": 2, "membership_counts": 1, "binary_tables": 1,
+           "fisher": 1, "quant_design": 2, "ols": 1, "student_t": 2,
+           "perm_binary": 1, "perm_ols": 1},
 }
 
 
@@ -1772,11 +1948,8 @@ def phase_perm_main(torch, paths, sub, work, n_chroms, mode):
     captured p-values; then, unless ``sub`` is None, CUDA against CPU on
     the sub-cohort with PERM_SUB permutations.  Returns (launches, pass
     wall, the sub-cohort's CPU wall, line)."""
-    import math
     from stoat_tpu_torch import cli, kernels
-    per_chrom = -(-paths["n_snarls"] // n_chroms)
-    n_chunks = sum(math.ceil(min(per_chrom, paths["n_snarls"] - c * per_chrom)
-                             / 8192) for c in range(n_chroms))
+    n_chunks = n_chunks_of(paths, n_chroms)
     out = os.path.join(work, f"perm_cuda_{mode}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1790,25 +1963,29 @@ def phase_perm_main(torch, paths, sub, work, n_chroms, mode):
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"--permutations {mode}: exit code {rc}")
-    for name, n in launches.items():
-        want = PERM_LAUNCHES[mode].get(name, 0) * n_chunks
-        check(n == want, f"--permutations {mode}: kernel {name} launched "
-              f"{n} times, expected {want} ({n_chunks} chunks)")
-    got = read_perm_tsv(os.path.join(out, PERM_TABLES[mode]))
-    check(len(got) == paths["n_snarls"], f"--permutations {mode}: "
-          f"{len(got)} rows")
-    n_emp, n_fwer = recount_perm(cap, got, PERM_FULL)
+    check_launches(launches, PERM_LAUNCHES[mode], n_chunks,
+                   f"--permutations {mode}")
+    tables = PERM_TABLES[mode]
+    check(len(cap.jobs) == len(tables), f"--permutations {mode}: "
+          f"{len(cap.jobs)} jobs in the pass")
+    counts = []
+    for j, table in enumerate(tables):
+        got = read_perm_tsv(os.path.join(out, table))
+        check(len(got) == paths["n_snarls"], f"--permutations {mode}: "
+              f"{len(got)} rows in {table}")
+        n_emp, n_fwer = recount_perm(cap, got, PERM_FULL, j)
+        n_tested = sum(1 for v in got.values() if v[0] != "NA")
+        counts.append(f"{table}: {len(got)} rows, {n_tested} tested, numpy "
+                      f"recount equal for P_EMP of {n_emp} snarls (first "
+                      f"chunk) and P_FWER of {n_fwer}")
     perm_wall = cap.walls[0]
-    tests_s = PERM_FULL * paths["n_snarls"] / perm_wall
-    n_tested = sum(1 for v in got.values() if v[0] != "NA")
+    tests_s = len(tables) * PERM_FULL * paths["n_snarls"] / perm_wall
     line = (f"phase 4 permutations: {PERM_TITLES[mode]} --permutations "
             f"{PERM_FULL} on {paths['n_samples']} samples x "
             f"{paths['n_snarls']} snarls: CLI wall {wall:.2f}s, permutation "
             f"pass {perm_wall:.2f}s = {tests_s:.4g} permuted snarl-tests/s; "
-            f"launches {launches} ({n_chunks} chunks); {len(got)} rows, "
-            f"{n_tested} tested; numpy recount equal for P_EMP of "
-            f"{n_emp} snarls (first chunk) and P_FWER of {n_fwer}; "
-            f"max_memory_allocated {memory_note(peak, held)}")
+            f"launches {launches} ({n_chunks} chunks); " + "; ".join(counts)
+            + f"; max_memory_allocated {memory_note(peak, held)}")
     if sub is None:
         return launches, perm_wall, None, line
 
@@ -1821,21 +1998,524 @@ def phase_perm_main(torch, paths, sub, work, n_chroms, mode):
             check(cli.main(perm_cli_args(sub, o, device, mode,
                                          PERM_SUB)) == 0,
                   f"sub-cohort --permutations {mode} on {device}")
-            subs[device] = (read_perm_tsv(os.path.join(o, PERM_TABLES[mode])),
-                            c, time.perf_counter() - t1)
-    diffs = perm_same_but_ties(*subs["cuda"][:2], *subs["cpu"][:2],
-                               PERM_SUB)
+            subs[device] = ([read_perm_tsv(os.path.join(o, t))
+                             for t in tables], c, time.perf_counter() - t1)
+    diffs = []
+    for j in range(len(tables)):
+        diffs += perm_same_but_ties(subs["cuda"][0][j], subs["cuda"][1],
+                                    subs["cpu"][0][j], subs["cpu"][1],
+                                    PERM_SUB, j)
     line += (f"; sub-cohort {sub['n_samples']} samples x "
              f"{sub['n_snarls']} snarls, K = {PERM_SUB}: cuda "
              f"{subs['cuda'][2]:.2f}s, cpu {subs['cpu'][2]:.2f}s, "
-             f"{len(subs['cpu'][0])} rows, {len(diffs)} differing (ties "
-             f"within {TIE_REL:g} or a P_ASY rounding boundary)"
-             f"{': ' + '; '.join(diffs[:5]) if diffs else ''}")
+             f"{len(subs['cpu'][0][0])} rows per table, {len(diffs)} "
+             f"differing (ties within {TIE_REL:g} or a P_ASY rounding "
+             f"boundary){': ' + '; '.join(diffs[:5]) if diffs else ''}")
     return launches, perm_wall, subs["cpu"][2], line
 
 
 PERM_TITLES = {"b": "vcf -b", "q": "vcf -q", "q_c": "vcf -q -c -C AGE,SEX",
-               "b_c": "vcf -b -c -C AGE,SEX"}
+               "b_c": "vcf -b -c -C AGE,SEX", "bq": "vcf -b -q"}
+
+
+# ---------------------------------------------------------------- dual, eQTL, LMM
+
+def gene_pairs(snarls, filtered, genes, window=1000000):
+    """A chunk's (snarl, gene) pairs as the runner builds them: for each
+    unfiltered snarl, in order, the genes of ``genes`` ([(name, start,
+    end, expression)]) within the window (runner.found_gene_snarl)."""
+    from stoat_tpu_torch.io.phenotype import QtlData
+    from stoat_tpu_torch.pipeline.runner import found_gene_snarl
+    qtl = [QtlData(g, e, lo, hi) for g, lo, hi, e in genes]
+    pair_snarl, pair_gene = [], []
+    for s, snarl in enumerate(snarls):
+        if filtered[s]:
+            continue
+        for g in found_gene_snarl(qtl, snarl.start_pos, snarl.end_pos,
+                                  window):
+            pair_snarl.append(s)
+            pair_gene.append(g)
+    return pair_snarl, pair_gene
+
+
+def compare_eqtl(d, pairs, expr, err, what, noise_genes=()):
+    """K13 kernel vs plain on the card: t1, beta, se and r2 within OLS_REL
+    (OLS_PINV_REL on the pairs of rank-deficient snarls), df exact; pairs
+    of the ``noise_genes`` (a constant expression: tss = 0) have r2 not
+    finite and beta, se below 1e-9 in both.  Returns the kernel's
+    statistics and the largest errors."""
+    import numpy as np
+    from stoat_tpu_torch.pipeline import quantitative as tq
+    args = (d["X"], d["used"], d["ncols"], *pairs, expr)
+    got = tq.eqtl_ols_stats(*args)
+    plain = tq.eqtl_ols_stats_plain(*args)
+    ps = to_np(tq.pair_snarls(pairs[0], int(pairs[1].shape[0])))
+    bad, _ = pinv_rows(d["X"], d["ncols"])
+    pinv = np.flatnonzero(np.isin(ps, bad)).tolist()
+    noise = np.flatnonzero(np.isin(to_np(pairs[1]), noise_genes)).tolist()
+    errs = hold_ols_stats(got, plain, "eqtl_ols", err, OLS_REL, what, noise,
+                          pinv, OLS_PINV_REL)
+    return got, errs, len(pinv)
+
+
+def eqtl_edge_cases(device, err):
+    """K13 on the rule-hitting chunk of quant_edge_chunk with covariates:
+    snarls with no pairs (every fourth), a rank-deficient design with
+    pairs (snarl 2, the pseudo-inverse), 33 genes on one snarl (more than
+    the kernel's 32 a pass) and a gene of constant expression (on
+    full-rank designs: on a rank-deficient one its beta is not noise, but
+    its rss and se are)."""
+    import numpy as np
+    chunk, H = quant_edge_chunk(device)
+    N = H // 2
+    rng = np.random.default_rng(9)
+    covar = upload_t(rng.standard_normal((N, 2)), device)
+    from stoat_tpu_torch.convert import to_eqtl_pairs
+    from stoat_tpu_torch.pipeline.quantitative import quant_design
+    d = quant_design(chunk, covar, *THRESHOLDS, H)
+    G = 34
+    expr = rng.standard_normal((G, N)) + 1.0
+    expr[G - 1] = 3.0
+    n_used = to_np(d["used"]).sum(axis=1)
+    ncols = to_np(d["ncols"])
+    bad, _ = pinv_rows(d["X"], d["ncols"])
+    pair_snarl, pair_gene = [], []
+    for s in range(int(d["X"].shape[0])):
+        if s % 4 == 1 or n_used[s] <= ncols[s] + 1:
+            continue
+        genes = range(G - 1) if s in (2, 6) else \
+            sorted(rng.choice(G - 1, 5, replace=False).tolist())
+        if s % 4 == 0 and s not in bad:
+            genes = [*genes, G - 1]
+        for g in genes:
+            pair_snarl.append(s)
+            pair_gene.append(int(g))
+    check(2 in pair_snarl, "eqtl edge case: snarl 2 has no pairs")
+    pairs = to_eqtl_pairs(pair_snarl, pair_gene, int(d["X"].shape[0]),
+                          device)
+    _, errs, n_pinv = compare_eqtl(d, pairs, upload_t(expr, device), err,
+                                   "edge chunk", noise_genes=(G - 1,))
+    check(n_pinv >= G - 1, f"eqtl edge case: {n_pinv} pseudo-inverse pairs")
+    return (f"eqtl_ols edge cases ok ({len(pair_snarl)} pairs, every fourth "
+            f"snarl none, {n_pinv} on rank-deficient designs, {G} genes on "
+            f"snarls 2 and 6, a constant expression; max err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + ")")
+
+
+def compare_lmm_chain(d, rot, y_rot, err, what):
+    """The mixed model's chain (K14's rotation as one GEMM, Q2, Q3)
+    against its plain version (torch.einsum "mn,snp->smp" as stoat_tpu
+    writes it, linear_regression_stats_plain, student_t_pvalues_plain):
+    the rotated designs within 1e-12 of each design's largest entry, the
+    statistics as compare_ols holds them.  Returns a description and the
+    largest errors."""
+    import numpy as np
+    import torch
+    from stoat_tpu_torch.stats.linreg import linear_regression_stats_plain
+    from stoat_tpu_torch.stats.lmm import lmm_regression_batch, lmm_rotate
+    Xr = lmm_rotate(rot, d["X"])
+    Xp = torch.einsum("mn,snp->smp", rot, d["X"])
+    scale = Xp.abs().amax(dim=(1, 2), keepdim=True).clamp(min=1e-300)
+    e_rot = float(((Xr - Xp).abs() / scale).max())
+    check(e_rot <= 1e-12, f"lmm rotation ({what}): {e_rot:.3g} against "
+          f"torch.einsum")
+    del Xr
+    S, N, _ = Xp.shape
+    got = lmm_regression_batch(d["X"], rot, y_rot, d["ncols"])
+    plain = linear_regression_stats_plain(
+        Xp, y_rot[None, :].expand(S, N).contiguous(),
+        torch.ones((S, N), dtype=torch.bool, device=Xp.device), d["ncols"])
+    bad, _ = pinv_rows(Xp, d["ncols"])
+    del Xp
+    errs = hold_ols_stats(got, plain, "ols", err, OLS_REL, what, (), bad,
+                          OLS_PINV_REL)
+    _, t_worst = compare_student_t(*got[:2], d["degenerate"], *got[2:], err,
+                                   what)
+    return (f"rotation within {e_rot:.3g} of torch.einsum, ols max err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" ({len(bad)} pseudo-inverse rows), student_t {t_worst[0]:.3g}"
+              f" / {t_worst[1]:.3g} (card / CPU)"), errs
+
+
+def phase_mode_kernels(torch, device, chunks, quant, err, genes, lmm_in):
+    """Phase 3 for the dual, eQTL and mixed-model paths on the first chunk
+    of ``vcf -q -c`` at full shapes: quant_design with all_rows bitwise
+    (card and CPU), eqtl_ols on the chunk's real (snarl, gene) pairs and
+    on edge cases, and the mixed model's chain.  Returns phase 5's
+    inputs."""
+    import numpy as np
+    from stoat_tpu_torch.convert import to_eqtl_pairs
+    chunk, qchunk, qpheno, qcovar, H, case, (chrom, packed) = chunks
+    q = quant
+    d_all = compare_quant_design(qchunk, qcovar, H, err, all_rows=True)
+    X = d_all["X"]
+    unused = ~d_all["used"]
+    k3 = (d_all["ncols"] - 1 - qcovar.shape[1]).long()
+    check(bool((X[..., 0] == 1.0).all()), "all_rows: an intercept is not 1")
+    cov_ok = all(bool(torch.equal(
+        X[s][:, 1 + int(k3[s]):1 + int(k3[s]) + qcovar.shape[1]], qcovar))
+        for s in range(0, X.shape[0], 97))
+    check(cov_ok, "all_rows: covariates not on every row")
+    var = torch.arange(X.shape[2], device=device)[None, :] <= k3[:, None]
+    var[:, 0] = False
+    check(not bool((X * (unused[:, :, None] & var[:, None, :])).any()),
+          "all_rows: a variant column is not 0 on an unused row")
+    for key, ref in (("used", q["used"]), ("ncols", q["ncols"]),
+                     ("filtered", q["filtered"]), ("degenerate", q["deg"])):
+        check(torch.equal(d_all[key], ref), f"all_rows: {key} differs "
+              f"from the OLS design's")
+
+    pair_snarl, pair_gene = gene_pairs(packed.snarls, to_np(q["filtered"]),
+                                       genes[chrom])
+    pairs = to_eqtl_pairs(pair_snarl, pair_gene, int(q["X"].shape[0]),
+                          device)
+    expr = upload_t(np.stack([g[3] for g in genes[chrom]]), device)
+    design = {"X": q["X"], "used": q["used"], "ncols": q["ncols"]}
+    _, e_errs, n_pinv = compare_eqtl(design, pairs, expr, err, "main chunk")
+    edges = eqtl_edge_cases(device, err)
+    rot, y_rot = lmm_in
+    chain, _ = compare_lmm_chain(d_all, rot, y_rot, err, "main chunk")
+    torch.cuda.synchronize()
+    n_with = len(set(pair_snarl))
+    say(f"phase 3 dual/eQTL/mixed-model kernels vs plain: quant_design "
+        f"all_rows on the main chunk (X {tuple(X.shape)}, "
+        f"{int(to_np(unused).sum())} unused rows kept) bitwise on the card "
+        f"and the CPU, intercepts and covariates on every row, variant "
+        f"columns 0 on unused rows, used/ncols/flags those of the OLS "
+        f"design; eqtl_ols on the chunk's {len(pair_snarl)} pairs "
+        f"({n_with} snarls with pairs, {int(q['X'].shape[0]) - n_with} "
+        f"without, {len(genes[chrom])} genes on {chrom}, {n_pinv} pairs on "
+        f"rank-deficient designs) max err "
+        + ", ".join(f"{k} {v:.3g}" for k, v in e_errs.items())
+        + f" (bound {OLS_REL:g}, {OLS_PINV_REL:g} on pseudo-inverse pairs, "
+        f"df exact); {edges}; mixed model on the all-rows chunk: {chain}; "
+        f"max abs err eqtl_ols={err['eqtl_ols']:.3g}")
+    return {"d_all": d_all, "pairs": pairs, "expr": expr, "rot": rot,
+            "y_rot": y_rot, "n_pairs": len(pair_snarl),
+            "n_with": n_with, "chunk": qchunk, "covar": qcovar, "H": H}
+
+
+class EqtlCapture:
+    """Records the eQTL pairs' statistics as the runner computes them, by
+    wrapping its eqtl_regress_pairs: float64 arrays in row order."""
+
+    def __enter__(self):
+        from stoat_tpu_torch.pipeline import runner
+        self.runner = runner
+        self.real = runner.eqtl_regress_pairs
+        self.parts = []
+
+        def wrap(*a):
+            res = self.real(*a)
+            self.parts.append(res)
+            return res
+        runner.eqtl_regress_pairs = wrap
+        return self
+
+    def __exit__(self, *exc):
+        self.runner.eqtl_regress_pairs = self.real
+        return False
+
+    def values(self):
+        """{p, beta, se, r2}: each [rows] in row order."""
+        import numpy as np
+        return {k: np.concatenate([r[k] for r in self.parts]) if self.parts
+                else np.zeros(0) for k in QUANT_STATS}
+
+
+def read_eqtl_tsv(path):
+    """The eQTL table's rows, split."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    check(lines[0].split("\t")[5] == "GENE", f"eQTL header {lines[0]!r}")
+    rows = [line.split("\t") for line in lines[1:]]
+    check(all(len(r) == 12 for r in rows), "malformed eQTL row")
+    return rows
+
+
+def compare_eqtl_tsvs(rows_a, vals_a, rows_b, vals_b):
+    """Two eQTL tables (CUDA and CPU): the same rows, genes, ALLELE_PATHS
+    and NA cells; a statistic string may differ only where the captured
+    float64 values agree to TSV_REL.  Returns the differing cells."""
+    check(len(rows_a) == len(rows_b), f"eQTL rows {len(rows_a)} / "
+          f"{len(rows_b)}")
+    names = ("p", "r2", "beta", "se")           # columns 6-9
+    diffs = []
+    for i, (a, b) in enumerate(zip(rows_a, rows_b)):
+        check(a[:6] == b[:6] and a[10:] == b[10:], f"eQTL rows differ: "
+              f"{a} / {b}")
+        for col, name in enumerate(names, start=6):
+            if a[col] == b[col]:
+                continue
+            check("NA" not in (a[col], b[col]), f"NA differs: {a} / {b}")
+            va, vb = vals_a[name][i], vals_b[name][i]
+            rel = stat_err(name, [va], [vb], [vals_b["se"][i]])
+            check(rel <= TSV_REL, f"{a[3]} {a[5]} {name}: {a[col]} / "
+                  f"{b[col]} ({va!r} / {vb!r})")
+            diffs.append(f"{a[0]} {a[3]} {a[5]} {name} {a[col]}/{b[col]}")
+    return diffs
+
+
+def capped_chunk(paths):
+    """The runner's chunk for every mode but binary (the design's 2 GB
+    cap, pipeline/runner.py)."""
+    return min(8192, max(int(2e9 // (paths["n_samples"] * 96)), 256))
+
+
+def n_chunks_of(paths, n_chroms, chunk=8192):
+    """Chunks of a run: make_fixture's split over chromosomes, in chunks
+    of ``chunk`` snarls."""
+    per_chrom = -(-paths["n_snarls"] // n_chroms)
+    return sum(math.ceil(min(per_chrom, paths["n_snarls"] - c * per_chrom)
+                         / chunk) for c in range(n_chroms)
+               if paths["n_snarls"] - c * per_chrom > 0)
+
+
+def check_launches(launches, kernels_per_chunk, n_chunks, what):
+    for name, n in launches.items():
+        want = kernels_per_chunk.get(name, 0) * n_chunks
+        check(n == want, f"{what}: kernel {name} launched {n} times, "
+              f"expected {want} ({n_chunks} chunks)")
+
+
+def phase_dual(torch, paths, work, n_chroms, reference):
+    """``vcf -b B -q Q`` on the card: each dual kernel once per chunk (K1
+    once, shared), both tables equal the single ``-b`` and ``-q`` runs'
+    byte for byte, the filter and ALLELE_PATHS of every snarl equal the
+    numpy reference; then on the CPU, byte-identical binary table and the
+    quantitative table as phase 4's regression rule states."""
+    from stoat_tpu_torch import cli, kernels
+    argv = ["vcf", "-s", paths["snarl"], "-v", paths["vcf"], "-b",
+            paths["binary"], "-q", paths["quantitative"]]
+    n_chunks = n_chunks_of(paths, n_chroms)
+    outs, got, walls = {}, {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for device in ("cuda", "cpu"):
+        outs[device] = os.path.join(work, f"out_{device}_dual")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, got[device] = run_captured(cli, [*argv, "-o", outs[device],
+                                             "--device", device])
+        torch.cuda.synchronize()
+        walls[device] = time.perf_counter() - t0
+        check(rc == 0, f"dual on {device}: exit code {rc}")
+        if device == "cuda":
+            launches = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+    check_launches(launches, dict.fromkeys(DUAL_KERNELS, 1), n_chunks,
+                   "vcf -b -q")
+    bt, qt = "binary_table_vcf.tsv", "quantitative_table_vcf.tsv"
+    for table, single in ((bt, "out_cuda"), (qt, "out_cuda_q")):
+        with open(os.path.join(outs["cuda"], table), "rb") as fh:
+            data = fh.read()
+        with open(os.path.join(work, single, table), "rb") as fh:
+            check(fh.read() == data, f"dual {table} differs from the "
+                  f"single run's on the card")
+    with open(os.path.join(outs["cuda"], bt), "rb") as a, \
+            open(os.path.join(outs["cpu"], bt), "rb") as b:
+        check(a.read() == b.read(), "dual binary tables: CUDA and CPU "
+              "differ")
+    n_rows, diffs = compare_quant_tsvs(
+        os.path.join(outs["cuda"], qt), os.path.join(outs["cpu"], qt),
+        got["cuda"], got["cpu"])
+    table = reference[0]
+    check(list(got["cuda"]) == list(table), "dual: snarl order differs "
+          "from the reference")
+    for key, (filtered, allele) in table.items():
+        check(got["cuda"][key][:2] == (filtered, allele),
+              f"dual {key}: filtered/allele_paths differ from the reference")
+    say(f"phase 4 main path: vcf -b -q on {paths['n_samples']} samples x "
+        f"{paths['n_snarls']} snarls: cuda wall {walls['cuda']:.2f}s, cpu "
+        f"wall {walls['cpu']:.2f}s; launches {launches} ({n_chunks} chunks: "
+        f"K1 once per chunk, its words read by membership_counts and "
+        f"quant_design); both tables byte-identical to the single vcf -b and "
+        f"vcf -q runs on the card; binary table byte-identical to the CPU's, "
+        f"quantitative {n_rows} rows, {len(diffs)} statistic strings differ "
+        f"(within {TSV_REL:g}){': ' + '; '.join(diffs[:5]) if diffs else ''}"
+        f"; filter and ALLELE_PATHS of all {len(table)} snarls equal the "
+        f"numpy reference; max_memory_allocated {memory_note(peak, held)}")
+    return launches, walls["cuda"]
+
+
+def phase_eqtl(torch, paths, sub, work, n_chroms, reference, genes):
+    """``vcf -e E -G G -c C -C AGE,SEX`` on the card at full size: its
+    kernels on every chunk, the rows exactly the unfiltered snarls' genes
+    within the window (numpy), ALLELE_PATHS as the reference's, the
+    sampled pairs' statistics within REF_REL of numpy OLS; the per-row
+    format+write timed alone; then CUDA against CPU on the sub-cohort."""
+    import io
+    from stoat_tpu_torch import cli, kernels
+    from stoat_tpu_torch import writer as W
+    from stoat_tpu_torch.io.snarl_file import parse_snarl_path
+
+    def argv(p, out, device):
+        return ["vcf", "-s", p["snarl"], "-v", p["vcf"], "-e", p["qtl_smoke"],
+                "-G", p["genes"], "-c", p["covariate"], "-C",
+                ",".join(COVAR_NAMES), "-o", out, "--device", device]
+    n_chunks = n_chunks_of(paths, n_chroms, capped_chunk(paths))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    out = os.path.join(work, "out_cuda_eqtl")
+    t0 = time.perf_counter()
+    with EqtlCapture() as cap:
+        rc = cli.main(argv(paths, out, "cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(rc == 0, f"eQTL on cuda: exit code {rc}")
+    check_launches(launches, dict.fromkeys(EQTL_KERNELS, 1), n_chunks,
+                   "eQTL")
+    rows = read_eqtl_tsv(os.path.join(out, "eqtl_table_vcf.tsv"))
+    vals = cap.values()
+    check(len(vals["p"]) == len(rows), f"eQTL: {len(vals['p'])} captured "
+          f"pairs, {len(rows)} rows")
+    table, _stats, eqtl_ref, _gls = reference
+    snarls_chr = parse_snarl_path(paths["snarl"])
+    want = []
+    for chrom, snarls in snarls_chr.items():
+        filtered = [table[(chrom, sn.snarl_id_str)][0] for sn in snarls]
+        ps, pg = gene_pairs(snarls, filtered, genes.get(chrom, []))
+        want += [(chrom, snarls[s].snarl_id_str, genes[chrom][g][0],
+                  ",".join(map(str, table[(chrom, snarls[s].snarl_id_str)]
+                               [1]))) for s, g in zip(ps, pg)]
+    check([(r[0], r[3], r[5], r[10]) for r in rows] == want,
+          "eQTL rows (chromosome, snarl, gene, ALLELE_PATHS) differ from "
+          "the numpy pairing")
+    index = {(r[0], r[3], r[5]): i for i, r in enumerate(rows)}
+    worst = 0.0
+    for key, ref in eqtl_ref.items():
+        i = index[key]
+        e = max(stat_err(name, [vals[name][i]], [ref[k]], [ref[2]])
+                for k, name in enumerate(("p", "beta", "se", "r2")))
+        check(e <= REF_REL, f"eQTL {key}: {[vals[n][i] for n in QUANT_STATS]}"
+              f" vs reference {ref} (relative {e:.3g})")
+        worst = max(worst, e)
+    # the per-row format+write (runner._eqtl_chromosome's loop), alone
+    snarl_of = {(c, sn.snarl_id_str): sn for c, sns in snarls_chr.items()
+                for sn in sns}
+    sink = io.StringIO()
+    t1 = time.perf_counter()
+    for i, r in enumerate(rows):
+        sn = snarl_of[(r[0], r[3])]
+        W.write_eqtl_row(sink, r[0], sn, sn.type_var_str, r[5],
+                         W.format_p(vals["p"][i]), W.format_p(vals["r2"][i]),
+                         W.format_p(vals["beta"][i]),
+                         W.format_p(vals["se"][i]),
+                         [int(a) for a in r[10].split(",")])
+    write_s = time.perf_counter() - t1
+    with open(os.path.join(out, "eqtl_table_vcf.tsv")) as fh:
+        fh.readline()
+        check(sink.getvalue() == fh.read(), "eQTL rows rewritten from the "
+              "captured values differ from the table")
+
+    subs = {}
+    for device in ("cuda", "cpu"):
+        o = os.path.join(work, f"sub_{device}_eqtl")
+        t1 = time.perf_counter()
+        with EqtlCapture() as c:
+            check(cli.main(argv(sub, o, device)) == 0,
+                  f"sub-cohort eQTL on {device}")
+        subs[device] = (read_eqtl_tsv(os.path.join(o, "eqtl_table_vcf.tsv")),
+                        c.values(), time.perf_counter() - t1)
+    diffs = compare_eqtl_tsvs(subs["cuda"][0], subs["cuda"][1],
+                              subs["cpu"][0], subs["cpu"][1])
+    n_genes = sum(len(g) for g in genes.values())
+    say(f"phase 4 main path: vcf -e -G -c -C AGE,SEX on "
+        f"{paths['n_samples']} samples x {paths['n_snarls']} snarls and "
+        f"{n_genes} genes (one per {GENE_STEP // 1000} kb, 1 Mb window): "
+        f"cuda wall {wall:.2f}s, of which the per-row format+write of the "
+        f"{len(rows)} rows takes {write_s:.2f}s (timed alone); launches "
+        f"{launches} ({n_chunks} chunks); rows, genes and ALLELE_PATHS "
+        f"equal the numpy pairing; {len(eqtl_ref)} sampled pairs within "
+        f"{worst:.3g} of numpy OLS (bound {REF_REL:g}); sub-cohort "
+        f"{sub['n_snarls']} snarls: cuda {subs['cuda'][2]:.2f}s, cpu "
+        f"{subs['cpu'][2]:.2f}s, {len(subs['cpu'][0])} rows, {len(diffs)} "
+        f"statistic strings differ (within {TSV_REL:g})"
+        f"{': ' + '; '.join(diffs[:5]) if diffs else ''}; "
+        f"max_memory_allocated {memory_note(peak, held)}")
+    return launches, wall, write_s, len(rows)
+
+
+def phase_lmm(torch, paths, sub, work, n_chroms, reference, lmm_note):
+    """``vcf -q Y -k K --lmm -c C -C AGE,SEX`` on the card at full size:
+    quant_design (with all_rows on every call), ols and student_t on every
+    chunk, filter and ALLELE_PATHS of every snarl as the reference's, the
+    sampled snarls within REF_REL of the numpy GLS; then CUDA against CPU
+    on the sub-cohort (the same samples, kinship and phenotype)."""
+    from stoat_tpu_torch import cli, kernels
+    from stoat_tpu_torch.pipeline import quantitative as tq
+
+    def argv(p, out, device):
+        return ["vcf", "-s", p["snarl"], "-v", p["vcf"], "-q", p["lmm_pheno"],
+                "-k", p["kinship"], "--lmm", "-c", p["covariate"], "-C",
+                ",".join(COVAR_NAMES), "-o", out, "--device", device]
+    n_chunks = n_chunks_of(paths, n_chroms, capped_chunk(paths))
+    flags = []
+    real = tq.quant_design
+
+    def spy(*a, all_rows=False, **k):
+        flags.append(all_rows)
+        return real(*a, all_rows=all_rows, **k)
+    table, _stats, _eqtl, gls = reference
+    tq.quant_design = spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, got = run_captured(cli, argv(paths, os.path.join(
+            work, "out_cuda_lmm"), "cuda"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        tq.quant_design = real
+    check(rc == 0, f"LMM on cuda: exit code {rc}")
+    check_launches(launches, dict.fromkeys(LMM_KERNELS, 1), n_chunks,
+                   "LMM")
+    check(flags == [True] * n_chunks, f"LMM: quant_design all_rows {flags}")
+    check(list(got) == list(table), "LMM: snarl order differs")
+    for key, (filtered, allele) in table.items():
+        check(got[key][:2] == (filtered, allele),
+              f"LMM {key}: filtered/allele_paths differ from the reference")
+    worst = 0.0
+    for key, ref in gls.items():
+        e = max(stat_err(name, [got[key][2][QUANT_STATS.index(name)]],
+                         [ref[k]], [ref[2]])
+                for k, name in enumerate(("p", "beta", "se", "r2")))
+        check(e <= REF_REL, f"LMM {key}: {got[key][2]} vs reference {ref} "
+              f"(relative {e:.3g})")
+        worst = max(worst, e)
+    subs, walls = {}, {}
+    for device in ("cuda", "cpu"):
+        o = os.path.join(work, f"sub_{device}_lmm")
+        t1 = time.perf_counter()
+        rc, subs[device] = run_captured(cli, argv(sub, o, device))
+        walls[device] = time.perf_counter() - t1
+        check(rc == 0, f"sub-cohort LMM on {device}")
+    n_rows, diffs = compare_quant_tsvs(
+        os.path.join(work, "sub_cuda_lmm", "lmm_table_vcf.tsv"),
+        os.path.join(work, "sub_cpu_lmm", "lmm_table_vcf.tsv"),
+        subs["cuda"], subs["cpu"])
+    say(f"phase 4 main path: vcf -q -k --lmm -c -C AGE,SEX on "
+        f"{paths['n_samples']} samples x {paths['n_snarls']} snarls "
+        f"({lmm_note}): cuda wall {wall:.2f}s; launches {launches} "
+        f"({n_chunks} chunks, quant_design with all_rows on each); filter "
+        f"and ALLELE_PATHS of all {len(table)} snarls equal the reference; "
+        f"{len(gls)} sampled snarls within {worst:.3g} of the numpy GLS "
+        f"(bound {REF_REL:g}); sub-cohort {sub['n_snarls']} snarls: cuda "
+        f"{walls['cuda']:.2f}s, cpu {walls['cpu']:.2f}s, {n_rows} rows, "
+        f"{len(diffs)} statistic strings differ (within {TSV_REL:g})"
+        f"{': ' + '; '.join(diffs[:5]) if diffs else ''}; "
+        f"max_memory_allocated {memory_note(peak, held)}")
+    return launches, wall
 
 
 # ---------------------------------------------------------------- bounds
@@ -1974,6 +2654,20 @@ def kernel_work(name, x):
         return (S * N * (PT * f8 + 1) + S * PT * PT * f8 + K * N * f8
                 + K * S * f8), K * S * (2 * N * PT + 2 * PT * PT + 2 * PT), \
             "float64"
+    if name == "eqtl_ols":
+        # pass 1 only on the snarls with pairs; per pair X^T y and the sum
+        # of y (2 N (P + 1)), then the residual and total sums of squares
+        # (N (2 P + 5))
+        S, N, P = x["X"].shape
+        B, G, S1 = x["n_pairs"], x["expr"].shape[0], x["n_with"]
+        return (S * N * (P * f8 + 1) + S * i4 + (S + 1) * i4 + B * i4
+                + G * N * f8 + 5 * B * f8), \
+            S1 * N * P * (P + 1) + B * N * (4 * P + 7), "float64"
+    if name == "lmm_gemm":
+        # rot [N, N] @ X laid out [N, S * PT]: read both, write the product
+        S, N, PT = x["X"].shape
+        return N * N * f8 + 2 * S * N * PT * f8, 2 * N * N * S * PT, \
+            "float64"
     raise KeyError(name)
 
 
@@ -1985,6 +2679,28 @@ def bound_of(name, x):
     t_ops = ops / (F64_FLOPS if kind == "float64" else INT32_OPS)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_total_ms(torch, fn, reps=3):
+    """Device time per call of ``fn`` under torch.profiler, summed over
+    every kernel and copy it launches (library kernels have no name of
+    ours)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    key = ("self_device_time_total"
+           if hasattr(averages[0], "self_device_time_total")
+           else "self_cuda_time_total")
+    us = sum(getattr(e, key) for e in averages
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps if us else None
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -2049,10 +2765,10 @@ def main_path_chunks(paths, device):
     """The first chunk of the first chromosome, as the main paths build it,
     on the card: the binary DeviceChunk, the quantitative one (the same
     words, no masks), the quantitative phenotype [N] and the AGE and SEX
-    covariates [N, 2], H, and the binary phenotype as ``vcf -b -c`` feeds
-    it to the logistic model (float64 [N]).  (The chunk cap of ``-q`` and
-    ``-b -c``, 2e9 // (N * 96) = 8,319 at N = 2,504, leaves the chunk at
-    8,192.)"""
+    covariates [N, 2], H, the binary phenotype as ``vcf -b -c`` feeds
+    it to the logistic model (float64 [N]), and (chromosome, host chunk)
+    of that chunk.  (The chunk cap of ``-q`` and ``-b -c``, 2e9 // (N * 96) =
+    8,319 at N = 2,504, leaves the chunk at 8,192.)"""
     from stoat_tpu_torch.io.phenotype import (parse_binary_pheno,
                                               parse_covariates,
                                               parse_quantitative_pheno)
@@ -2079,11 +2795,11 @@ def main_path_chunks(paths, device):
     qpheno, qcovar = to_quant_inputs(pheno_q, covar, len(samples), device)
     gen.close()
     return (chunk, qchunk, qpheno, qcovar, packed.n_haplotypes,
-            to_binary_pheno(pheno, device))
+            to_binary_pheno(pheno, device), (chrom, packed))
 
 
 def phase_kernels(torch, device, chunks, err, graph):
-    chunk, qchunk, qpheno, qcovar, H, case = chunks
+    chunk, qchunk, qpheno, qcovar, H, case = chunks[:6]
     args = (chunk.words, chunk.path_idx, chunk.path_valid, chunk.tail,
             chunk.g1_words)
     g0p, g1p = compare_membership(args, err)
@@ -2131,7 +2847,7 @@ def phase_kernels(torch, device, chunks, err, graph):
         + ", ".join(f"{k}={err[k]:.3g}" for k in QUANT_KERNELS))
     quant = {"chunk": qchunk, "covar": qcovar, "H": H, "X": d["X"], "y": y,
              "used": used, "ncols": d["ncols"], "deg": d["degenerate"],
-             "stats": stats}
+             "filtered": d["filtered"], "stats": stats}
     del d
 
     # K6 on the main graph's partition counts, then its edge rows
@@ -2338,21 +3054,15 @@ def phase_main_regression(torch, paths, work, n_chroms, mode, reference):
     "q"), ``vcf -q -c -C AGE,SEX`` ("q_c") or ``vcf -b -c -C AGE,SEX``
     ("b_c", logistic): its kernels on every chunk, the TSVs against each
     other, and the results against the numpy reference."""
-    import math
     from stoat_tpu_torch import cli, kernels
-    table, stats = reference
+    table, stats = reference[:2]
     table_name, path_kernels, flag, with_covar, names = \
         REGRESSION_PATHS[mode]
     logistic = mode == "b_c"
     p_floor = P_FLOOR if logistic else 0.0
     out_cuda = os.path.join(work, f"out_cuda_{mode}")
     out_cpu = os.path.join(work, f"out_cpu_{mode}")
-    # the runner's chunk cap, and make_fixture's split over chromosomes
-    chunk = min(8192, max(int(2e9 // (paths["n_samples"] * 96)), 256))
-    per_chrom = -(-paths["n_snarls"] // n_chroms)
-    sizes = [min(per_chrom, paths["n_snarls"] - c * per_chrom)
-             for c in range(n_chroms)]
-    n_chunks = sum(math.ceil(n / chunk) for n in sizes if n > 0)
+    n_chunks = n_chunks_of(paths, n_chroms, capped_chunk(paths))
 
     def argv(p, out, device):
         covar = (["-c", p["covariate"], "-C", ",".join(COVAR_NAMES)]
@@ -2371,10 +3081,8 @@ def phase_main_regression(torch, paths, work, n_chroms, mode, reference):
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"CUDA CLI exit code {rc}")
-    for name, n in launches.items():
-        want = n_chunks if name in path_kernels else 0
-        check(n == want, f"kernel {name}: {n} launches on the {mode} path, "
-              f"expected {want} ({n_chunks} chunks)")
+    check_launches(launches, dict.fromkeys(path_kernels, 1), n_chunks,
+                   f"the {mode} path")
     t1 = time.perf_counter()
     rc, got_cpu = run_captured(cli, argv(paths, out_cpu, "cpu"))
     wall_cpu = time.perf_counter() - t1
@@ -2575,12 +3283,18 @@ def device_ms(torch, calls):
     return out
 
 
-def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, smi):
+def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
+                smi):
     """Each kernel's ms per call and its plain version's on the card (CUDA
     events), its device ms (torch.profiler) and its bound, at the main
     paths' shapes: the first chunk of each path, K = 1 + PERM_FULL rows
-    for the permutation kernels."""
+    for the permutation kernels, the first chunk's (snarl, gene) pairs for
+    eqtl_ols.  Then the mixed model's pieces: quant_design with all_rows,
+    the rotation (one GEMM, against torch.einsum as stoat_tpu writes it)
+    and the whole chain against its plain version."""
     from stoat_tpu_torch.pipeline import permutation as pm
+    from stoat_tpu_torch.pipeline import quantitative as tq
+    from stoat_tpu_torch.stats.lmm import lmm_regression_batch, lmm_rotate
     from stoat_tpu_torch.pipeline.binary import (binary_tables,
                                                  binary_tables_plain)
     from stoat_tpu_torch.pipeline.packed import (membership_counts,
@@ -2616,6 +3330,8 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, smi):
     pols = (m["X"], m["used"], m["ncols"], m["phenos"])
     spre = (m["bX"], m["bused"], m["bncols"], m["bad"], m["Z"], m["w"])
     sperm = (m["D"], m["bused"], m["Vinv"], m["e"])
+    md = modes
+    eq = (q["X"], q["used"], q["ncols"], *md["pairs"], md["expr"])
     calls = {
         "membership_counts": lambda: membership_counts(*args),
         "binary_tables": lambda: binary_tables(g0p, g1p, sidx, *thr),
@@ -2630,6 +3346,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, smi):
         "perm_ols": lambda: pm.perm_ols_stats(*pols),
         "score_precompute": lambda: pm.score_precompute(*spre),
         "score_perm": lambda: pm.score_perm_stats(*sperm),
+        "eqtl_ols": lambda: tq.eqtl_ols_stats(*eq),
     }
     times = {
         "membership_counts": (
@@ -2674,6 +3391,9 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, smi):
         "score_perm": (
             cuda_ms(calls["score_perm"], 3, warmup=1),
             cuda_ms(lambda: pm.score_perm_stats_plain(*sperm), 1, warmup=0)),
+        "eqtl_ols": (
+            cuda_ms(calls["eqtl_ols"], 10),
+            cuda_ms(lambda: tq.eqtl_ols_stats_plain(*eq), 1, warmup=0)),
     }
     tail_ms = cuda_ms(lambda: finish_chi2_pvalues(
         tables["chi2_stat"], tables["chi2_df"], tables["chi2_invalid"],
@@ -2708,9 +3428,52 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, smi):
         "perm_ols": {"X": m["X"], "phenos": m["phenos"]},
         "score_precompute": {"X": m["bX"], "Z": m["Z"]},
         "score_perm": {"D": m["D"], "e": m["e"]},
+        "eqtl_ols": {"X": q["X"], "expr": md["expr"],
+                     "n_pairs": md["n_pairs"], "n_with": md["n_with"]},
     }
     bounds = {name: bound_of(name, work[name]) for name in calls}
     bounds[q5] = bound_of("perm_ols", {"X": m["bX"], "phenos": pols5[3]})
+
+    # the mixed model: Q1 with all_rows, K14's rotation, the whole chain
+    d_all = md["d_all"]
+    allrows = (md["chunk"], md["covar"], *THRESHOLDS, md["H"], True)
+    rot, y_rot = md["rot"], md["y_rot"]
+    qa = "quant_design (all_rows)"
+    times[qa] = (cuda_ms(lambda: quant_design(*allrows), 10),
+                 cuda_ms(lambda: quant_design_plain(*allrows), 3, warmup=1))
+    dev[qa] = device_ms(torch, {"quant_design": lambda: quant_design(
+        *allrows)})["quant_design"]
+    bounds[qa] = bound_of("quant_design", dict(
+        work["quant_design"], X_out=d_all["X"]))
+    gemm = "lmm rotation (GEMM)"
+    times[gemm] = (
+        cuda_ms(lambda: lmm_rotate(rot, d_all["X"]), 5),
+        cuda_ms(lambda: torch.einsum("mn,snp->smp", rot, d_all["X"]), 3,
+                warmup=1))
+    dev[gemm] = device_total_ms(torch, lambda: lmm_rotate(rot, d_all["X"]))
+    bounds[gemm] = bound_of("lmm_gemm", {"X": d_all["X"]})
+
+    def chain():
+        st = lmm_regression_batch(d_all["X"], rot, y_rot, d_all["ncols"])
+        return student_t_pvalues(*st[:2], d_all["degenerate"], *st[2:])
+
+    def chain_plain():
+        X = torch.einsum("mn,snp->smp", rot, d_all["X"])
+        S, N, _ = X.shape
+        st = linear_regression_stats_plain(
+            X, y_rot[None, :].expand(S, N).contiguous(),
+            torch.ones((S, N), dtype=torch.bool, device=X.device),
+            d_all["ncols"])
+        return student_t_pvalues_plain(*st[:2], d_all["degenerate"],
+                                       *st[2:])
+    lc = "lmm chain (rotation, ols, student_t)"
+    times[lc] = (cuda_ms(chain, 5), cuda_ms(chain_plain, 2, warmup=1))
+    dev[lc] = device_total_ms(torch, chain)
+    b_ols = bound_of("ols", {"X": d_all["X"]})[0]
+    b_t = bound_of("student_t", {"t1": q["stats"][0],
+                                 "df": q["stats"][1]})[0]
+    bounds[lc] = (bounds[gemm][0] + b_ols + b_t, "operations"
+                  if bounds[gemm][1] == "operations" else "bytes")
     say(f"phase 5 times on {smi} (ms per chunk call, kernel / plain; "
         f"device ms per call from torch.profiler; bound ms and what sets "
         f"it): " + "; ".join(
@@ -2719,7 +3482,11 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, smi):
             f"{bounds[k][0]:.4f} {bounds[k][1]})"
             for k, (a, b) in times.items())
         + f"; chi2 tail (torch.special, K5) {tail_ms:.4f}; permutation "
-        f"kernels at K = {PERM_FULL + 1} rows")
+        f"kernels at K = {PERM_FULL + 1} rows; eqtl_ols on "
+        f"{md['n_pairs']} pairs of {md['n_with']} snarls; the mixed model's "
+        f"rows on the all-rows design (the GEMM's plain column is "
+        f"torch.einsum, the chain's the plain versions after it; device ms "
+        f"of both is every kernel in their profiler window)")
     return times, dev, bounds
 
 
@@ -2854,6 +3621,163 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
                      f"{paths['n_snarls']} snarls", stage)
 
 
+MODE_TITLES = {"bq": "vcf -b -q", "e": "vcf -e -G -c -C AGE,SEX",
+               "lmm": "vcf -q -k --lmm -c -C AGE,SEX"}
+
+
+def profile_mode(torch, device, paths, work, out_dir, mode):
+    """--profile DIR: where the time of the dual run (mode "bq"), eQTL
+    ("e") or the mixed model ("lmm") goes.  The stages run once serially
+    (parse inputs, the null model's REML fit, native ingest, host pack,
+    upload, kernels, fetch, the eQTL pairing, format+write), then
+    torch.profiler traces one whole CUDA CLI run (trace_cli)."""
+    import numpy as np
+    from stoat_tpu_torch import writer as W
+    from stoat_tpu_torch.convert import (chunk_words, pheno_masks,
+                                         to_eqtl_expr, to_eqtl_pairs,
+                                         to_lmm_inputs, to_quant_inputs,
+                                         upload_words)
+    from stoat_tpu_torch.io.phenotype import (parse_binary_pheno,
+                                              parse_covariates,
+                                              parse_kinship_matrix,
+                                              parse_qtl_gene_file,
+                                              parse_quantitative_pheno)
+    from stoat_tpu_torch.io.snarl_file import parse_snarl_path
+    from stoat_tpu_torch.io.vcf import VcfReader
+    from stoat_tpu_torch.pipeline import quantitative as tq
+    from stoat_tpu_torch.pipeline.runner import (found_gene_snarl,
+                                                 iter_chromosome_matrices)
+    from stoat_tpu_torch.stats.lmm import fit_null_reml
+    from stoat_tpu_torch.tables import pack_chromosome_chunks
+    stage = dict.fromkeys(("parse inputs", "null model", "native ingest",
+                           "host pack", "upload", "kernels", "fetch",
+                           "pairs", "format+write"), 0.0)
+
+    def timed(name, fn, sync=False):
+        t = time.perf_counter()
+        out = fn()
+        if sync:
+            torch.cuda.synchronize()
+        stage[name] += time.perf_counter() - t
+        return out
+
+    def parse():
+        reader = VcfReader(paths["vcf"])
+        samples = reader.samples
+        reader.close()
+        covar = (None if mode == "bq" else
+                 parse_covariates(paths["covariate"], COVAR_NAMES, samples))
+        if mode == "bq":
+            pheno, samples = parse_binary_pheno(paths["binary"], samples)
+            extra = parse_quantitative_pheno(paths["quantitative"], samples)
+        elif mode == "e":
+            pheno = parse_qtl_gene_file(paths["qtl_smoke"], paths["genes"],
+                                        samples)
+            extra = None
+        else:
+            pheno = parse_quantitative_pheno(paths["lmm_pheno"], samples)
+            extra = parse_kinship_matrix(paths["kinship"])
+        return pheno, extra, covar, samples, parse_snarl_path(paths["snarl"])
+    pheno, extra, covar, samples, snarls_chr = timed("parse inputs", parse)
+    N = len(samples)
+    if mode == "lmm":
+        def null():
+            index = {s: i for i, s in enumerate(extra.ids)}
+            order = [index[s] for s in samples]
+            return fit_null_reml(pheno, extra.matrix[np.ix_(order, order)],
+                                 covar)
+        ctx = timed("null model", null)
+    gen = iter_chromosome_matrices(paths["vcf"], 2 * N, snarls_chr)
+    th = THRESHOLDS
+    sink = open(os.path.join(work, "profile_rows.tsv"), "w")
+    consts = None
+    while True:
+        got = timed("native ingest", lambda: next(gen, None))
+        if got is None:
+            break
+        chrom, matrix = got
+        chunk = 8192 if mode == "bq" else min(8192, int(2e9 // (N * 96)))
+        packs = timed("host pack", lambda: pack_chromosome_chunks(
+            snarls_chr[chrom], matrix, chunk))
+
+        def up():
+            words = upload_words(chunk_words(packs[0]), device)
+            if consts is not None:
+                return words, consts
+            if mode == "bq":
+                return words, (pheno_masks(pheno, 2 * N, int(words.shape[1]),
+                                           device),
+                               to_quant_inputs(extra, None, N, device))
+            if mode == "e":
+                return words, to_quant_inputs(np.zeros(N), covar, N,
+                                              device)[1]
+            return words, to_lmm_inputs(ctx, covar, N, device)
+        words, consts = timed("upload", up, sync=True)
+        for packed in packs:
+            if mode == "bq":
+                res = timed("kernels", lambda: tq.dual_analyze_chromosome(
+                    packed, consts[0], *consts[1], *th, device, words=words),
+                    sync=True)
+                timed("fetch", res.wait)
+                timed("format+write", lambda: (
+                    W.write_binary_rows_batch(sink, chrom, packed.snarls,
+                                              res),
+                    W.write_quant_rows_batch(sink, chrom, packed.snarls,
+                                             tq.PrefixView(res))))
+            elif mode == "lmm":
+                res = timed("kernels", lambda: tq.lmm_analyze_chromosome(
+                    packed, *consts, *th, device, words=words), sync=True)
+                timed("fetch", res.wait)
+                timed("format+write", lambda: W.write_quant_rows_batch(
+                    sink, chrom, packed.snarls, res))
+            else:
+                genes = pheno.get(chrom, [])
+                d = timed("kernels", lambda: tq.eqtl_design_for_chromosome(
+                    packed, consts, *th, device, words=words), sync=True)
+                flags = timed("fetch", lambda: d["filtered"].cpu().numpy())
+
+                def pairs():
+                    ps, pg = [], []
+                    for i, sn in enumerate(packed.snarls):
+                        if not flags[i]:
+                            for g in found_gene_snarl(genes, sn.start_pos,
+                                                      sn.end_pos, 1000000):
+                                ps.append(i)
+                                pg.append(g)
+                    return ps, pg
+                ps, pg = timed("pairs", pairs)
+                res = timed("kernels", lambda: tq.eqtl_regress_pairs(
+                    d, *to_eqtl_pairs(ps, pg, int(d["X"].shape[0]), device),
+                    to_eqtl_expr(genes, device)), sync=True)
+                timed("fetch", res.wait)
+                allele = d["allele_paths"].cpu().numpy()
+
+                def rows():
+                    p, r2, b, se = (res[k] for k in ("p", "r2", "beta",
+                                                     "se"))
+                    for i, (si, g) in enumerate(zip(ps, pg)):
+                        sn = packed.snarls[si]
+                        W.write_eqtl_row(
+                            sink, chrom, sn, sn.type_var_str,
+                            genes[g].gene_name, W.format_p(p[i]),
+                            W.format_p(r2[i]), W.format_p(b[i]),
+                            W.format_p(se[i]), allele[si][:sn.n_paths])
+                timed("format+write", rows)
+    sink.close()
+    args = {"bq": ["-b", paths["binary"], "-q", paths["quantitative"]],
+            "e": ["-e", paths["qtl_smoke"], "-G", paths["genes"], "-c",
+                  paths["covariate"], "-C", ",".join(COVAR_NAMES)],
+            "lmm": ["-q", paths["lmm_pheno"], "-k", paths["kinship"], "--lmm",
+                    "-c", paths["covariate"], "-C",
+                    ",".join(COVAR_NAMES)]}[mode]
+    return trace_cli(torch, ["vcf", "-s", paths["snarl"], "-v", paths["vcf"],
+                             *args, "-o", os.path.join(work,
+                                                       f"out_profile_{mode}"),
+                             "--device", device.type], out_dir, mode,
+                     f"{MODE_TITLES[mode]}: {paths['n_samples']} samples x "
+                     f"{paths['n_snarls']} snarls", stage)
+
+
 def trace_cli(torch, args, out_dir, mode, title, stage):
     """torch.profiler over one whole CUDA CLI run of ``args``; writes the
     serial ``stage`` times, the run's wall and device busy time and the
@@ -2943,6 +3867,32 @@ def profile_graph(torch, device, graph, work, out_dir):
                      f"{2 * graph['n_samples']} haplotype paths", stage)
 
 
+def lmm_null_model(paths):
+    """The mixed model's null fit as the CLI makes it (the kinship parsed
+    and ordered to the VCF's samples, REML with the covariates), timed;
+    returns the context and a note of its times, delta and h2."""
+    import numpy as np
+    from stoat_tpu_torch.io.phenotype import (parse_covariates,
+                                              parse_kinship_matrix,
+                                              parse_quantitative_pheno)
+    from stoat_tpu_torch.stats.lmm import fit_null_reml
+    samples = list(paths["samples"])
+    t0 = time.perf_counter()
+    kin = parse_kinship_matrix(paths["kinship"])
+    t1 = time.perf_counter()
+    index = {s: i for i, s in enumerate(kin.ids)}
+    order = [index[s] for s in samples]
+    ctx = fit_null_reml(
+        parse_quantitative_pheno(paths["lmm_pheno"], samples),
+        kin.matrix[np.ix_(order, order)],
+        parse_covariates(paths["covariate"], COVAR_NAMES, samples))
+    t2 = time.perf_counter()
+    return ctx, (f"kinship {kin.matrix.shape[0]} x {kin.matrix.shape[1]} "
+                 f"(rank {KIN_RANK}) parsed in {t1 - t0:.2f}s, REML null fit "
+                 f"{t2 - t1:.2f}s: delta {ctx.delta:.4g}, h2 "
+                 f"{ctx.heritability:.4f}")
+
+
 def run(args):
     # the run uses one card, the first visible one, and so reports one
     os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
@@ -2971,87 +3921,8 @@ def run(args):
 
     t_start = time.perf_counter()
     smi = phase_card(torch)
-    phase_native()
-    base = os.path.join(HERE, "build", "stoat_tpu_torch")
-    os.makedirs(base, exist_ok=True)
-    work = tempfile.mkdtemp(prefix="smoke-", dir=base)
-    try:
-        t0 = time.perf_counter()
-        paths = make_fixture(os.path.join(work, "data"),
-                             n_samples=N_SAMPLES, n_snarls=args.snarls,
-                             seed=0, n_chroms=N_CHROMS)
-        paths["n_samples"], paths["n_snarls"] = N_SAMPLES, args.snarls
-        gen_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        graph = write_graph(os.path.join(work, "graph"), args.graph_snarls)
-        twin = write_graph(os.path.join(work, "twin"), TWIN_SNARLS, seed=1)
-        say(f"graphs generated in {time.perf_counter() - t0:.1f}s: "
-            f"{graph['n_snarls']} snarls x {2 * graph['n_samples']} "
-            f"haplotype paths ({os.path.getsize(graph['gfa']) / 1e6:.0f} MB "
-            f"GFA), and {twin['n_snarls']} for the Python twin")
-        chunks = main_path_chunks(paths, device)
-        err = {name: 0.0 for name in KERNELS}
-        g0p, g1p, tables, quant, logit = phase_kernels(torch, device, chunks,
-                                                       err, graph)
-        perm = phase_perm_kernels(torch, device, chunks, quant, logit, err)
-        launches = phase_main(torch, paths, work, N_CHROMS, gen_s)
-        t0 = time.perf_counter()
-        from stoat_tpu_torch.io.phenotype import (parse_binary_pheno,
-                                                  parse_covariates,
-                                                  parse_quantitative_pheno)
-        samples = list(paths["samples"])
-        reference = quant_reference(
-            paths, parse_quantitative_pheno(paths["quantitative"], samples),
-            parse_covariates(paths["covariate"], COVAR_NAMES, samples),
-            parse_binary_pheno(paths["binary"], samples)[0])
-        say(f"phase 4 numpy regression reference: {len(reference[0])} "
-            f"snarls, {len(reference[1])} sampled, in "
-            f"{time.perf_counter() - t0:.1f}s")
-        for mode in ("q", "q_c", "b_c"):
-            r_launches, _ = phase_main_regression(torch, paths, work,
-                                                  N_CHROMS, mode, reference)
-            for name in REGRESSION_PATHS[mode][1]:
-                launches[name] = launches.get(name, 0) + r_launches[name]
-        g_launches, _ = phase_graph(torch, graph, twin, work)
-        launches["graph_stats"] = g_launches["graph_stats"]
-        t0 = time.perf_counter()
-        sub = make_fixture(os.path.join(work, "sub"), n_samples=N_SAMPLES,
-                           n_snarls=SUB_SNARLS, seed=1, n_chroms=N_CHROMS)
-        sub["n_samples"], sub["n_snarls"] = N_SAMPLES, SUB_SNARLS
-        say(f"phase 4 permutations: sub-cohort of {N_SAMPLES} samples x "
-            f"{SUB_SNARLS} snarls generated in "
-            f"{time.perf_counter() - t0:.1f}s for the CUDA-against-CPU "
-            f"comparison at K = {PERM_SUB}; full size at K = {PERM_FULL}")
-        perm_walls, cpu_walls = {}, {}
-        for mode in ("b", "q", "q_c", "b_c"):
-            p_launches, perm_walls[mode], cpu_walls[mode], line = \
-                phase_perm_main(torch, paths, sub, work, N_CHROMS, mode)
-            say(line)
-            for name, n in p_launches.items():
-                launches[name] = launches.get(name, 0) + n
-        # the two quantitative passes again, in the same order: is a wall
-        # the mode's own or the first run's?
-        again = {}
-        for mode in ("q", "q_c"):
-            _, again[mode], _, line = phase_perm_main(
-                torch, paths, None, work, N_CHROMS, mode)
-            say(f"{line} (second run)")
-        times, dev, bounds = phase_times(torch, chunks[0], g0p, g1p, tables,
-                                         quant, logit, perm, smi)
-        say("phase 5 permutation pass walls (s, K = "
-            f"{PERM_FULL}, {paths['n_snarls']} snarls): " + ", ".join(
-                f"{PERM_TITLES[m]} {w:.3f} "
-                f"({PERM_FULL * paths['n_snarls'] / w:.4g} permuted "
-                f"snarl-tests/s)" for m, w in perm_walls.items())
-            + "; second runs: " + ", ".join(
-                f"{PERM_TITLES[m]} {w:.3f}" for m, w in again.items()))
-        if args.profile:
-            for mode in ("b", "q_c", "b_c"):
-                say(profile_main_path(torch, device, paths, work,
-                                      args.profile, mode))
-            say(profile_graph(torch, device, graph, work, args.profile))
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    launches, err, times, dev, bounds = smoke(torch, device, args, smi,
+                                              make_fixture)
     # library_ms: no single PyTorch call computes any of these functions
     kernels_json = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3069,6 +3940,119 @@ def run(args):
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": count}}))
     return 0
+
+
+def smoke(torch, device, args, smi, make_fixture):
+    """Phases 2 to 5 on ``device``; returns (launches over the main paths'
+    runs, max abs errors, times, device ms, bounds) per kernel."""
+    phase_native()
+    base = os.path.join(HERE, "build", "stoat_tpu_torch")
+    os.makedirs(base, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="smoke-", dir=base)
+    try:
+        t0 = time.perf_counter()
+        paths = make_fixture(os.path.join(work, "data"),
+                             n_samples=N_SAMPLES, n_snarls=args.snarls,
+                             seed=0, n_chroms=N_CHROMS)
+        paths["n_samples"], paths["n_snarls"] = N_SAMPLES, args.snarls
+        genes = write_genes(paths)
+        write_kinship(paths)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        graph = write_graph(os.path.join(work, "graph"), args.graph_snarls)
+        twin = write_graph(os.path.join(work, "twin"), TWIN_SNARLS, seed=1)
+        say(f"graphs generated in {time.perf_counter() - t0:.1f}s: "
+            f"{graph['n_snarls']} snarls x {2 * graph['n_samples']} "
+            f"haplotype paths ({os.path.getsize(graph['gfa']) / 1e6:.0f} MB "
+            f"GFA), and {twin['n_snarls']} for the Python twin")
+        chunks = main_path_chunks(paths, device)
+        lmm_ctx, lmm_note = lmm_null_model(paths)
+        say(f"mixed model inputs: {lmm_note}")
+        err = {name: 0.0 for name in KERNELS}
+        g0p, g1p, tables, quant, logit = phase_kernels(torch, device, chunks,
+                                                       err, graph)
+        perm = phase_perm_kernels(torch, device, chunks, quant, logit, err)
+        from stoat_tpu_torch.convert import to_lmm_inputs
+        modes = phase_mode_kernels(
+            torch, device, chunks, quant, err, genes,
+            to_lmm_inputs(lmm_ctx, None, N_SAMPLES, device)[:2])
+        launches = phase_main(torch, paths, work, N_CHROMS, gen_s)
+        t0 = time.perf_counter()
+        from stoat_tpu_torch.io.phenotype import (parse_binary_pheno,
+                                                  parse_covariates,
+                                                  parse_quantitative_pheno)
+        samples = list(paths["samples"])
+        covar = parse_covariates(paths["covariate"], COVAR_NAMES, samples)
+        reference = quant_reference(
+            paths, parse_quantitative_pheno(paths["quantitative"], samples),
+            covar, parse_binary_pheno(paths["binary"], samples)[0],
+            genes=genes, lmm=(lmm_ctx.rot, lmm_ctx.y_rot))
+        say(f"phase 4 numpy regression reference: {len(reference[0])} "
+            f"snarls, {len(reference[1])} sampled ({len(reference[2])} eQTL "
+            f"pairs, {len(reference[3])} mixed-model tests), in "
+            f"{time.perf_counter() - t0:.1f}s")
+        for mode in ("q", "q_c", "b_c"):
+            r_launches, _ = phase_main_regression(torch, paths, work,
+                                                  N_CHROMS, mode, reference)
+            for name in REGRESSION_PATHS[mode][1]:
+                launches[name] = launches.get(name, 0) + r_launches[name]
+        g_launches, _ = phase_graph(torch, graph, twin, work)
+        launches["graph_stats"] = g_launches["graph_stats"]
+        t0 = time.perf_counter()
+        sub = make_fixture(os.path.join(work, "sub"), n_samples=N_SAMPLES,
+                           n_snarls=SUB_SNARLS, seed=1, n_chroms=N_CHROMS)
+        sub["n_samples"], sub["n_snarls"] = N_SAMPLES, SUB_SNARLS
+        write_genes(sub, seed=1)
+        # the same samples: the full cohort's kinship and phenotype
+        sub["kinship"], sub["lmm_pheno"] = paths["kinship"], \
+            paths["lmm_pheno"]
+        say(f"phase 4 permutations: sub-cohort of {N_SAMPLES} samples x "
+            f"{SUB_SNARLS} snarls generated in "
+            f"{time.perf_counter() - t0:.1f}s for the CUDA-against-CPU "
+            f"comparison at K = {PERM_SUB}; full size at K = {PERM_FULL}")
+        perm_walls, cpu_walls = {}, {}
+        for mode in ("b", "q", "q_c", "b_c", "bq"):
+            p_launches, perm_walls[mode], cpu_walls[mode], line = \
+                phase_perm_main(torch, paths, sub, work, N_CHROMS, mode)
+            say(line)
+            for name, n in p_launches.items():
+                launches[name] = launches.get(name, 0) + n
+        # the two quantitative passes again, in the same order: is a wall
+        # the mode's own or the first run's?
+        again = {}
+        for mode in ("q", "q_c"):
+            _, again[mode], _, line = phase_perm_main(
+                torch, paths, None, work, N_CHROMS, mode)
+            say(f"{line} (second run)")
+        for name, n in phase_dual(torch, paths, work, N_CHROMS,
+                                  reference)[0].items():
+            launches[name] = launches.get(name, 0) + n
+        for name, n in phase_eqtl(torch, paths, sub, work, N_CHROMS,
+                                  reference, genes)[0].items():
+            launches[name] = launches.get(name, 0) + n
+        for name, n in phase_lmm(torch, paths, sub, work, N_CHROMS,
+                                 reference, lmm_note)[0].items():
+            launches[name] = launches.get(name, 0) + n
+        times, dev, bounds = phase_times(torch, chunks[0], g0p, g1p, tables,
+                                         quant, logit, perm, modes, smi)
+        say("phase 5 permutation pass walls (s, K = "
+            f"{PERM_FULL}, {paths['n_snarls']} snarls): " + ", ".join(
+                f"{PERM_TITLES[m]} {w:.3f} "
+                f"({len(PERM_TABLES[m]) * PERM_FULL * paths['n_snarls'] / w:.4g}"
+                f" permuted snarl-tests/s)" for m, w in perm_walls.items())
+            + "; second runs: " + ", ".join(
+                f"{PERM_TITLES[m]} {w:.3f}" for m, w in again.items()))
+        if args.profile:
+            for mode in ("b", "q_c", "b_c"):
+                say(profile_main_path(torch, device, paths, work,
+                                      args.profile, mode))
+            say(profile_graph(torch, device, graph, work, args.profile))
+            for mode in ("bq", "e", "lmm"):
+                say(profile_mode(torch, device, paths, work, args.profile,
+                                 mode))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, err, times, dev, bounds
 
 
 def main():

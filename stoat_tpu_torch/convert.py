@@ -9,14 +9,15 @@ the uint32 words, because PyTorch on the CPU has no uint32 shifts or
 staged in pinned host memory and copied without blocking.
 
 The CPU tests feed the same numpy arrays to both packages through
-:func:`to_device_chunk`, :func:`to_quant_inputs`, :func:`to_perm_inputs`
-and :func:`to_graph_counts`.
+:func:`to_device_chunk`, :func:`to_quant_inputs`, :func:`to_perm_inputs`,
+:func:`to_graph_counts`, :func:`to_lmm_inputs` and the eQTL uploads
+(:func:`to_eqtl_expr`, :func:`to_eqtl_pairs`).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,9 +28,11 @@ from stoat_tpu_torch.pipeline.packed import (pack_hap_mask_words,
                                              tail_mask_words)
 
 __all__ = ["DeviceChunk", "upload", "upload_words", "chunk_words",
-           "pheno_masks", "to_device_chunk", "to_quant_inputs",
+           "pheno_masks", "to_device_chunk", "to_covariates",
+           "to_quant_inputs",
            "to_binary_pheno", "PermInputs", "to_perm_inputs",
-           "to_graph_counts"]
+           "to_graph_counts", "to_lmm_inputs", "to_eqtl_expr",
+           "to_eqtl_pairs"]
 
 
 @dataclass
@@ -119,16 +122,57 @@ def to_device_chunk(packed, binary_phenotype: Optional[np.ndarray],
     )
 
 
+def to_covariates(covar: Optional[np.ndarray], n_samples: int,
+                  device: torch.device) -> torch.Tensor:
+    """The parsed covariate table as float64 [N, C] on ``device``; [N, 0]
+    when there is none."""
+    if covar is None:
+        covar = np.zeros((n_samples, 0), np.float64)
+    return upload(np.asarray(covar, np.float64), device)
+
+
 def to_quant_inputs(phenotype: np.ndarray, covar: Optional[np.ndarray],
                     n_samples: int, device: torch.device
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(phenotype float64 [N], covariates float64 [N, C]) on ``device``,
-    from the parsed quantitative phenotype and covariate table; the
-    covariates are [N, 0] when there are none."""
-    if covar is None:
-        covar = np.zeros((n_samples, 0), np.float64)
+    from the parsed quantitative phenotype and covariate table
+    (:func:`to_covariates`)."""
     return (upload(np.asarray(phenotype, np.float64), device),
-            upload(np.asarray(covar, np.float64), device))
+            to_covariates(covar, n_samples, device))
+
+
+def to_lmm_inputs(lmm_ctx, covar: Optional[np.ndarray], n_samples: int,
+                  device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(rot float64 [N, N], y_rot [N], covariates [N, C]) on ``device``:
+    the mixed model's rotation and rotated phenotype (an
+    ``stats.lmm.LmmContext``), uploaded once per run, and the design's
+    covariates ([N, 0] when there are none)."""
+    return (upload(np.asarray(lmm_ctx.rot, np.float64), device),
+            *to_quant_inputs(lmm_ctx.y_rot, covar, n_samples, device))
+
+
+def to_eqtl_expr(gene_list: Sequence, device: torch.device
+                 ) -> torch.Tensor:
+    """float64 [G, N] expression of a chromosome's genes (the
+    ``io.phenotype.QtlData`` list, in its order) on ``device``, uploaded
+    once per chromosome; pairs index its rows."""
+    return upload(np.stack([np.asarray(g.sample_expression, np.float64)
+                            for g in gene_list]), device)
+
+
+def to_eqtl_pairs(pair_snarl: List[int], pair_gene: List[int],
+                  n_snarls: int, device: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A chunk's (snarl, gene) pairs, given in (snarl, gene) order, as CSR
+    by snarl on ``device``: (pair_off int32 [n_snarls + 1], pair_gene int32
+    [B]); ``n_snarls`` counts the chunk's padded snarl slots."""
+    counts = np.bincount(np.asarray(pair_snarl, np.int64),
+                         minlength=n_snarls)
+    off = np.zeros(n_snarls + 1, np.int32)
+    np.cumsum(counts, dtype=np.int32, out=off[1:])
+    return (upload(off, device),
+            upload(np.asarray(pair_gene, np.int32), device))
 
 
 def to_binary_pheno(binary_phenotype: np.ndarray,

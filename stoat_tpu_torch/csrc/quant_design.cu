@@ -21,6 +21,10 @@
 //   X[s, n, :]   = used(n) ? [1, m_j * count_j(n) * recip(n) for each
 //                  variant j (m_j columns merged into it), covariates,
 //                  0...] : 0, width PT = 1 + Pmax + C
+//   all_rows     (the EMMAX designs of the mixed model, stoat_tpu's
+//                  all_rows=True, quantitative.py:238-242) an unused row
+//                  keeps its intercept and covariates: [1, 0..., covariates,
+//                  0...]; used, ncols, the flags and the counts are as above
 //
 // Counts, row sums, allele counts and the merge test are exact integer
 // work.  ||d_i - d_j||^2 == 0 on the Gram matrix, stoat_tpu's test, holds
@@ -101,6 +105,11 @@ __device__ T block_sum(T v, T* red) {
   return total;
 }
 
+// kAllRows: a template argument, so that the OLS designs' instantiation
+// is the code without it (an int argument tested per row took the kernel
+// from 64 to 56 registers and 2.5% more time on an H100,
+// tools/kernel_ab.py)
+template <bool kAllRows>
 __global__ void quant_design_kernel(
     Words wd, const uint8_t* __restrict__ path_valid,
     const int32_t* __restrict__ sidx, const double* __restrict__ covar,
@@ -228,8 +237,9 @@ __global__ void quant_design_kernel(
     const double recip = rs == 0 ? 0.0 : 1.0 / double(rs);
     used_out[s * N + n] = used;
     n_used_part += used;
+    const bool keep = kAllRows || used;
     double* row = X + (s * N + n) * PT;
-    row[0] = used ? 1.0 : 0.0;
+    row[0] = keep ? 1.0 : 0.0;
     for (int j = 0; j < Pmax; ++j) {
       const int slot = col_slot[j];
       if (slot) {
@@ -238,7 +248,7 @@ __global__ void quant_design_kernel(
       }
     }
     for (int c = 0; c < C; ++c) {
-      row[1 + k3 + c] = used ? covar[n * C + c] : 0.0;
+      row[1 + k3 + c] = keep ? covar[n * C + c] : 0.0;
     }
     for (int64_t t = 1 + k3 + C; t < PT; ++t) row[t] = 0.0;
   }
@@ -266,8 +276,8 @@ extern "C" int quant_design_launch(
     const void* sidx, const void* covar, void* X, void* used, void* ncols,
     void* filtered, void* degenerate, void* allele_paths, int64_t S,
     int64_t Pmax, int64_t K, int64_t W, int64_t N, int64_t C, int64_t H,
-    double min_individuals, double min_haplotypes, double maf_threshold,
-    void* stream) {
+    int64_t all_rows, double min_individuals, double min_haplotypes,
+    double maf_threshold, void* stream) {
   const size_t smem = size_t(Pmax) * (sizeof(double) + 4 * sizeof(int32_t) +
                                       sizeof(uint8_t));
   if (Pmax < 1 || K < 1 || smem > 48 * 1024 || H != 2 * N) {
@@ -276,8 +286,9 @@ extern "C" int quant_design_launch(
   if (S > 0) {
     const Words wd{static_cast<const uint32_t*>(words),
                    static_cast<const int32_t*>(path_idx), K, W, H};
-    quant_design_kernel<<<unsigned(S), kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = all_rows ? quant_design_kernel<true>
+                           : quant_design_kernel<false>;
+    kernel<<<unsigned(S), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         wd, static_cast<const uint8_t*>(path_valid),
         static_cast<const int32_t*>(sidx), static_cast<const double*>(covar),
         static_cast<double*>(X), static_cast<uint8_t*>(used),

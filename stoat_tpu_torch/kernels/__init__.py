@@ -4,7 +4,9 @@ Each kernel has a wrapper beside its plain PyTorch version:
 ``pipeline/packed.py membership_counts`` (csrc/membership_counts.cu),
 ``pipeline/binary.py binary_tables`` (csrc/binary_tables.cu),
 ``stats/fisher.py fisher_exact_2x2`` (csrc/fisher.cu),
-``pipeline/quantitative.py quant_design`` (csrc/quant_design.cu),
+``pipeline/quantitative.py quant_design`` (csrc/quant_design.cu; with
+``all_rows`` for the mixed model's designs) and ``eqtl_ols_stats``
+(csrc/eqtl_ols.cu),
 ``stats/linreg.py linear_regression_stats`` (csrc/ols.cu),
 ``stats/linreg.py student_t_pvalues`` and ``linear_pvalues``
 (csrc/student_t.cu), ``graph/association.py graph_stats``
@@ -38,7 +40,7 @@ LAUNCHES: Dict[str, int] = {"membership_counts": 0, "binary_tables": 0,
                             "student_t": 0, "graph_stats": 0, "logreg": 0,
                             "perm_membership": 0, "perm_binary": 0,
                             "perm_ols": 0, "score_precompute": 0,
-                            "score_perm": 0}
+                            "score_perm": 0, "eqtl_ols": 0}
 
 
 def reset_launch_counts() -> None:

@@ -169,16 +169,43 @@ def _spy(real, seen):
 
 
 @pytest.mark.parametrize("argv", [
-    ["vcf", "-b", "x", "-q", "y"], ["simulate"],
-    ["vcf", "--lmm"], ["vcf", "--permutations", "10"], ["vcf", "-T", "0.01"],
+    ["vcf", "-g"], ["simulate"],
+    ["vcf", "-m"], ["vcf", "--permutations", "10"], ["vcf", "-T", "0.01"],
     ["vcf", "--no-such-flag"], ["truth"], ["BHcorrect"],
-    ["vcf", "-e", "x", "-G", "y"], ["vcf", "-q", "x", "-k", "y", "--lmm"]])
+    ["vcf", "-y", "2"], ["plot", "qq"]])
 def test_unported_modes_exit_nonzero_naming_roadmap(argv, capsys):
-    """Dual -b -q, eQTL, LMM, permutations, -T and the simulate, truth and
-    BHcorrect subcommands are refused before anything runs, never run on
-    another path."""
+    """The GAF output (-g), the decomposition's flags (-y), -T tables,
+    --make-bed, a run without a phenotype and the simulate, truth,
+    BHcorrect and plot subcommands are refused before anything runs, never
+    run on another path."""
     assert torch_cli.main(argv) != 0
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case", ["lmm without -k", "lmm with -b",
+                                  "lmm with -b -q"])
+def test_lmm_flag_rules_exit_before_any_output(tmp_path, case):
+    """--lmm needs -k and a quantitative phenotype alone
+    (stoat_tpu/cli.py:219-221, 240-242): the port exits non-zero before it
+    writes anything, on either device."""
+    paths = make_fixture(str(tmp_path / "data"), n_samples=20, n_snarls=8,
+                         seed=1)
+    kin = str(tmp_path / "kin.tsv")
+    with open(kin, "w") as fh:
+        fh.write("id\t" + "\t".join(paths["samples"]) + "\n")
+    pheno = {"lmm without -k": ["-q", paths["quantitative"]],
+             "lmm with -b": ["-b", paths["binary"], "-k", kin],
+             "lmm with -b -q": ["-b", paths["binary"], "-q",
+                                paths["quantitative"], "-k", kin]}[case]
+    out = tmp_path / "out"
+    for device in ("cpu", "cuda"):
+        with pytest.raises(SystemExit) as e:
+            torch_cli.main(["vcf", "-s", paths["snarl"], "-v", paths["vcf"],
+                            *pheno, "--lmm", "-o", str(out), "--device",
+                            device])
+        assert e.value.code not in (0, None) and "--lmm requires" in \
+            str(e.value.code)
+        assert not out.exists()
 
 
 def test_covariate_needs_its_column_names(tmp_path):

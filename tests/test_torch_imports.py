@@ -35,13 +35,14 @@ def _run(script: str, tmp_path) -> subprocess.CompletedProcess:
 
 def test_port_runs_without_jax_or_triton(tmp_path):
     """Importing the port, its CLI, its runner, graph mode and every kernel
-    module, and whole CPU runs of ``vcf -b``, ``vcf -b -c``, ``vcf -q`` and
-    ``vcf -q -c`` (each alone and with ``--permutations 20``), of the
-    ``-p/-d`` decomposition route and of ``graph``, then importing
-    chip_smoke.py, leave jax, jaxlib, triton and every stoat_tpu module out
-    of sys.modules and need no CUDA toolkit (no kernel is built).  The
-    decomposition inputs are written here: the module that writes them
-    imports stoat_tpu."""
+    module, and whole CPU runs of ``vcf -b``, ``vcf -b -c``, ``vcf -q``,
+    ``vcf -q -c`` and the dual ``vcf -b -q`` (each alone and with
+    ``--permutations 20``), of eQTL (``-e -G -c``), of the mixed model
+    (``-q -k --lmm -c``), of the ``-p/-d`` decomposition route and of
+    ``graph``, then importing chip_smoke.py, leave jax, jaxlib, triton and
+    every stoat_tpu module out of sys.modules and need no CUDA toolkit (no
+    kernel is built).  The decomposition inputs are written here: the
+    module that writes them imports stoat_tpu."""
     from test_cli_decompose import build_fixture
     deco = tmp_path / "deco"
     deco.mkdir()
@@ -56,6 +57,7 @@ def test_port_runs_without_jax_or_triton(tmp_path):
         import stoat_tpu_torch.pipeline.quantitative
         import stoat_tpu_torch.stats.linalg
         import stoat_tpu_torch.stats.linreg
+        import stoat_tpu_torch.stats.lmm
         import stoat_tpu_torch.stats.logreg
         import stoat_tpu_torch.stats.special
         from stoat_tpu_torch.kernels import build
@@ -64,24 +66,44 @@ def test_port_runs_without_jax_or_triton(tmp_path):
                          n_snarls=12, seed=4)
         out = {str(tmp_path / 'out')!r}
         covar = ["-c", p["covariate"], "-C", "AGE,SEX"]
-        runs = ((["-b", p["binary"]], "binary"),
-                (["-b", p["binary"], *covar], "binary"),
-                (["-q", p["quantitative"]], "quantitative"),
-                (["-q", p["quantitative"], *covar], "quantitative"))
+        kin = os.path.join({str(tmp_path)!r}, "kinship.tsv")
+        with open(kin, "w") as fh:
+            fh.write("id\\t" + "\\t".join(p["samples"]) + "\\n")
+            for i, s in enumerate(p["samples"]):
+                fh.write(s + "\\t" + "\\t".join(
+                    "1" if j == i else "0.1" for j in range(20)) + "\\n")
+        both = ["-b", p["binary"], "-q", p["quantitative"]]
+        runs = ((["-b", p["binary"]], ["binary"]),
+                (["-b", p["binary"], *covar], ["binary"]),
+                (["-q", p["quantitative"]], ["quantitative"]),
+                (["-q", p["quantitative"], *covar], ["quantitative"]),
+                (both, ["binary", "quantitative"]))
         for perms in ([], ["--permutations", "20", "--perm-seed", "3"]):
-            for pheno, table in runs:
+            for pheno, tables in runs:
                 rc = stoat_tpu_torch.cli.main(
                     ["vcf", "-s", p["snarl"], "-v", p["vcf"], *pheno,
                      "-o", out, "--device", "cpu", *perms])
                 assert rc == 0, rc
-                names = [table + "_table_vcf.tsv"]
+                names = [t + "_table_vcf.tsv" for t in tables]
                 if perms:
-                    names.append(table + "_permutation_vcf.tsv")
+                    names += [t + "_permutation_vcf.tsv" for t in tables]
                 for name in names:
                     with open(os.path.join(out, name)) as fh:
                         assert fh.readline().startswith("#CHR")
                         assert fh.readline()
                     os.remove(os.path.join(out, name))
+        for pheno, name in (
+                (["-e", p["qtl"], "-G", p["gene_position"], *covar],
+                 "eqtl_table_vcf.tsv"),
+                (["-q", p["quantitative"], "-k", kin, "--lmm", *covar],
+                 "lmm_table_vcf.tsv")):
+            rc = stoat_tpu_torch.cli.main(
+                ["vcf", "-s", p["snarl"], "-v", p["vcf"], *pheno, "-o", out,
+                 "--device", "cpu"])
+            assert rc == 0, rc
+            with open(os.path.join(out, name)) as fh:
+                assert fh.readline().startswith("#CHR")
+                assert fh.readline()
         rc = stoat_tpu_torch.cli.main(
             ["vcf", "-p", {gfa!r}, "-d", {dist!r}, "-v", {dvcf!r}, "-b",
              {dpheno!r}, "-o", out, "--device", "cpu"])
@@ -256,5 +278,5 @@ def test_launch_counts_reset():
                                      "student_t", "graph_stats", "logreg",
                                      "perm_membership", "perm_binary",
                                      "perm_ols", "score_precompute",
-                                     "score_perm"}
+                                     "score_perm", "eqtl_ols"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

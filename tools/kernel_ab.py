@@ -5,8 +5,8 @@ on one card, in one process.
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/kernel_ab.py --baseline DIR [--candidate DIR]
-                               [--kernel ols|perm_ols] [--snarls 16384]
-                               [--rounds 4]
+                               [--kernel ols|perm_ols|quant_design]
+                               [--snarls 16384] [--rounds 4]
 
 Each DIR holds one version's kernel sources (its ``<kernel>.cu`` and the
 ``.cuh`` headers that it includes), for example the ``csrc/`` of an
@@ -17,8 +17,9 @@ registers and spills printed.  Both then run through the port's own
 wrapper on the same inputs, the first chunk of ``vcf -q -c -C AGE,SEX`` on
 chip_smoke.py's cohort (2,504 samples; ``--snarls`` over 2 chromosomes,
 8,192 per chunk; perm_ols with the observed phenotype and 64
-Freedman-Lane permutations), in the order A B B A for ``--rounds`` rounds
-(A is the candidate).  It prints each version's ms per call (CUDA events,
+Freedman-Lane permutations; quant_design's OLS design, ``all_rows`` off,
+launched with the argument list each version's source declares), in the
+order A B B A for ``--rounds`` rounds (A is the candidate).  It prints each version's ms per call (CUDA events,
 the median of its rounds), its device ms per call (torch.profiler) and
 whether the two versions' outputs are equal bit for bit, then the card's
 name and power limit.  It exits non-zero when there is no card.
@@ -45,8 +46,8 @@ def quant_chunk(cs, device, snarls, work):
     from stoat_tpu_torch.pipeline.quantitative import quant_design
     paths = make_fixture(os.path.join(work, "data"), n_samples=cs.N_SAMPLES,
                          n_snarls=snarls, seed=0, n_chroms=cs.N_CHROMS)
-    chunk, qchunk, qpheno, qcovar, H, case = cs.main_path_chunks(paths,
-                                                                 device)
+    chunk, qchunk, qpheno, qcovar, H, case, _ = cs.main_path_chunks(paths,
+                                                                    device)
     d = quant_design(qchunk, qcovar, *cs.THRESHOLDS, H)
     return d, chunk, qpheno, qcovar, case
 
@@ -72,7 +73,44 @@ def perm_ols_inputs(cs, device, snarls, work):
     return (lambda: perm_ols_stats(*args)), tuple(d["X"].shape)
 
 
-CALLS = {"ols": ols_inputs, "perm_ols": perm_ols_inputs}
+def quant_design_inputs(cs, device, snarls, work, versions):
+    """A zero-argument call of the quant_design kernel on the first ``vcf
+    -q -c`` chunk (the OLS design: all_rows off), and X's shape.  The call
+    passes ``all_rows`` only to a version whose source declares it
+    (``versions``: tag -> source directory), read from the tag that
+    ``use`` last set (STATE)."""
+    import torch
+    from stoat_tpu_torch.kernels import F64, I64, VOIDP, launch
+    from stoat_tpu_torch.pipeline.quantitative import DESIGN_KEYS
+    d, chunk, _qpheno, qcovar, _case = quant_chunk(cs, device, snarls, work)
+    with_flag = {}
+    for tag, src in versions.items():
+        with open(os.path.join(src, "quant_design.cu")) as fh:
+            with_flag[tag] = "all_rows" in fh.read()
+    W = int(chunk.words.shape[1])
+    K = int(chunk.path_idx.shape[1])
+    S, Pmax = chunk.snarl_path_idx.shape
+    N, C = qcovar.shape
+    H = 2 * N
+    out = {key: torch.empty_like(d[key]) for key in DESIGN_KEYS}
+
+    def call():
+        ints = [S, Pmax, K, W, N, C, H] + ([0] if with_flag[STATE["tag"]]
+                                           else [])
+        launch("quant_design",
+               [VOIDP] * 11 + [I64] * len(ints) + [F64] * 3,
+               [chunk.words.data_ptr(), chunk.path_idx.data_ptr(),
+                chunk.path_valid.data_ptr(), chunk.snarl_path_idx.data_ptr(),
+                qcovar.data_ptr(), *(out[k].data_ptr() for k in DESIGN_KEYS),
+                *ints, *map(float, cs.THRESHOLDS)], device)
+        return [out[k] for k in DESIGN_KEYS]
+    return call, tuple(d["X"].shape)
+
+
+CALLS = {"ols": ols_inputs, "perm_ols": perm_ols_inputs,
+         "quant_design": quant_design_inputs}
+# the version whose library is loaded (kernel_ab's use)
+STATE = {"tag": "A"}
 
 
 def build_version(build, name, src_dir, tag):
@@ -125,12 +163,15 @@ def main():
         libs[tag], ptxas[tag] = build_version(build, name, src_dir, tag)
 
     def use(tag):
+        STATE["tag"] = tag
         with build._LOCK:
             build._LIBS[name] = libs[tag]
 
     work = tempfile.mkdtemp(prefix="ab-", dir=build.BUILD_DIR)
+    extra = ({"versions": {"A": str(candidate), "B": args.baseline}}
+             if name == "quant_design" else {})
     try:
-        call, shape = CALLS[name](cs, device, args.snarls, work)
+        call, shape = CALLS[name](cs, device, args.snarls, work, **extra)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     outs, ms, dev = {}, {"A": [], "B": []}, {}
