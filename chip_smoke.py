@@ -6,7 +6,7 @@ g++:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels (fourteen entry points in twelve
+It builds the port's CUDA kernels (fifteen entry points in thirteen
 sources, one nvcc per source, all at once) and the native VCF and graph
 cores from the sources in the checkout, then runs five phases, each
 printing lines and each fatal on failure:
@@ -22,7 +22,10 @@ printing lines and each fatal on failure:
      again with the main path's 1,001 rows, perm_ols at both the ``-q``
      and the ``-q -c`` design; quant_design with ``all_rows``, eqtl_ols on
      the first chunk's (snarl, gene) pairs and the mixed model's chain
-     of rotation, OLS and tail) and on edge cases (tolerances printed);
+     of rotation, OLS and tail; the chi-squared tail chi2_tail on the
+     tail grid, a random grid of 10^6 and the first chunk's statistics;
+     quant_design's -T table view on the OLS and all-rows designs) and on
+     edge cases (tolerances printed);
   4. main paths: the port's CLI with ``--device cuda``: ``vcf -b``, ``vcf
      -q``, ``vcf -q -c -C AGE,SEX`` and ``vcf -b -c -C AGE,SEX`` on a
      generated cohort of 2,504 samples (the 1000 Genomes phase-3 size)
@@ -42,13 +45,21 @@ printing lines and each fatal on failure:
      set written here (one gene per 150 kb, a 1 Mb window) and the mixed
      model ``vcf -q -k --lmm -c -C AGE,SEX`` on a rank-200 kinship and a
      phenotype y = g + e written here, each against its numpy reference
-     at full size and CUDA against CPU on the sub-cohort;
+     at full size and CUDA against CPU on the sub-cohort; then ``-T
+     0.01`` at full size (``-q -c`` and ``-b -c``: the table view on every
+     chunk, one table per significant row) and ``-T 0.05`` CUDA against
+     CPU on the sub-cohort in five modes, the ``regression/`` files
+     included; then the decomposition alone (``vcf -p -d``).  While the
+     CUDA CLI runs the binary, graph and permutation paths,
+     torch.special.gammaincc must not be called: every chi-squared tail
+     runs on chi2_tail;
   5. each kernel's time and its plain version's, on the card, at the main
      paths' shapes (CUDA events, after a warm-up, and profiler device
      time), its bound (bytes over the card's memory rate or operations
      over its peak rate, whichever is larger), the wall of each
      permutation pass, and the mixed model's rotation (one float64 GEMM)
-     beside its bound.
+     beside its bound; chi2_tail beside torch.special.gammaincc on the
+     same inputs (its library_ms), and quant_design's table view.
 
 The last two lines of standard output are a JSON object of the kernels and
 the contract line {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -133,19 +144,23 @@ KERNELS = {
                    "stoat_tpu/pipeline/permutation.py:201"),
     "eqtl_ols": ("stoat_tpu_torch/csrc/eqtl_ols.cu",
                  "stoat_tpu/pipeline/quantitative.py:599"),
+    "chi2_tail": ("stoat_tpu_torch/csrc/chi2_tail.cu",
+                  "stoat_tpu/stats/special.py:30"),
 }
 # the kernel sources (one nvcc each), by their build names
 SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
-BINARY_KERNELS = ("membership_counts", "binary_tables", "fisher")
+BINARY_KERNELS = ("membership_counts", "binary_tables", "fisher",
+                  "chi2_tail")
 QUANT_KERNELS = ("quant_design", "ols", "student_t")
 BC_KERNELS = ("quant_design", "logreg")
-GRAPH_KERNELS = ("graph_stats",)
+# K6, then its two chi-squared tails (2x2 and 2xN) on chi2_tail
+GRAPH_KERNELS = ("graph_stats", "chi2_tail")
 PERM_KERNELS = ("perm_membership", "perm_binary", "perm_ols",
                 "score_precompute", "score_perm")
 # the dual run: K1 once (perm_membership), then the binary and the
 # quantitative kernels on its words
 DUAL_KERNELS = ("perm_membership", "membership_counts", "binary_tables",
-                "fisher", "quant_design", "ols", "student_t")
+                "fisher", "chi2_tail", "quant_design", "ols", "student_t")
 EQTL_KERNELS = ("quant_design", "eqtl_ols", "student_t")
 LMM_KERNELS = ("quant_design", "ols", "student_t")
 # eQTL: one gene every 150 kb, 30 kb long (GTEx v8: ~20k genes over
@@ -168,6 +183,16 @@ SUB_SNARLS = 2048
 # the p-values resolve within TIE_REL
 SCORE_REL = 1e-10
 TIE_REL = 1e-9
+# the chi-squared tail, kernel vs plain (torch.special.gammaincc): one
+# algorithm, the same rounding where torch's build fuses multiply-adds,
+# the card's math library on both sides; checked where p > 1e-300, with
+# the same strings, zeros, NaNs and DBL_MAX.  Against the CPU's op (glibc)
+# the strings and the special values must agree.
+CHI2_REL = 1e-13
+LARGE_DF = "large-df grid"
+# -T: the full-size runs' threshold, and the sub-cohort's
+T_FULL = "0.01"
+T_SUB = "0.05"
 # the bound of a kernel's time: the H100 SXM's 3.35 TB/s of HBM3 and its
 # float64 peak, 67 TFLOP/s (the tensor cores; NVIDIA's data sheet), and
 # for int32 work (AND, popcount)
@@ -269,6 +294,28 @@ def rel_ok(a, b, rel):
 
 def to_np(t):
     return t.detach().cpu().numpy()
+
+
+class GammainccCounter:
+    """Counts the calls of torch.special.gammaincc while entered: on the
+    CUDA CLI every chi-squared tail runs on chi2_tail, so the count stays
+    0 (the plain version, chi2_sf_plain, is its one caller)."""
+
+    def __enter__(self):
+        import torch
+        self.special = torch.special
+        self.real = torch.special.gammaincc
+        self.calls = 0
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.real(*a, **k)
+        torch.special.gammaincc = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.special.gammaincc = self.real
+        return False
 
 
 def memory_note(peak, held):
@@ -820,8 +867,6 @@ def edge_cases(device, err):
     """Phase 3 edge cases; returns a short description."""
     import numpy as np
     import torch
-    from stoat_tpu_torch.writer import format_p
-    from stoat_tpu_torch.stats.special import chi2_sf
 
     # K1+K2: zero-edge valid path, invalid path, H % 32 != 0, W = 1
     zero_edge = (np.vstack([np.zeros((3, 1), np.uint32),
@@ -866,22 +911,134 @@ def edge_cases(device, err):
                        torch.from_numpy(g1).to(device),
                        torch.from_numpy(sidx).to(device), thr, err)
 
-    # K5: torch.special.gammaincc on the card vs the CPU
-    grid = [(s, d) for s in TAIL_STATS for d in TAIL_DFS]
-    st = torch.tensor([s for s, _ in grid], dtype=torch.float64)
-    df = torch.tensor([float(d) for _, d in grid], dtype=torch.float64)
-    on_card = to_np(chi2_sf(st.to(device), df.to(device)))
-    on_cpu = chi2_sf(st, df).numpy()
-    check([format_p(v) for v in on_card] == [format_p(v) for v in on_cpu],
-          "chi2_sf: format_p differs between the card and the CPU")
-    big = on_cpu > 1e-300
-    tail_rel = float(np.max(np.abs(on_card[big] - on_cpu[big])
-                            / on_cpu[big]))
-    check(tail_rel <= 1e-12, f"chi2_sf: relative error {tail_rel}")
     return (f"edge cases ok (zero-edge/invalid paths, H=7/31/32/101/5008,"
             f" {len(FISHER_CASES)} pinned + {len(OVERFLOW_TABLES)} "
-            f"overflow + 12288 random Fisher tables, zero-margin 2x2/2xN, "
-            f"chi2_sf grid max rel err {tail_rel:.3g})")
+            f"overflow + 12288 random Fisher tables, zero-margin 2x2/2xN)")
+
+
+def chi2_grids(seed=0, n=1_000_000):
+    """The chi-squared tail's test grids: tests/test_extreme_tails.py's
+    TAIL_STATS x TAIL_DFS, and n statistics uniform in [0, 1500] on df
+    1-8 (the binary tables' and the graph's dfs) with zeros, NaNs and
+    85 +- 1e-9 (both sides of the tail's switch).  The third grid, df up
+    to 2,000 with statistics near df, reaches the uniform asymptotic
+    expansion (df > 40), where torch's CUDA op is not its CPU op."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    stat = rng.uniform(0.0, 1500.0, n)
+    df = rng.integers(1, 9, n).astype(np.float64)
+    stat[:1000] = 0.0
+    stat[1000:1100] = np.nan
+    stat[1100:1600] = 85.0 + 1e-9
+    stat[1600:2100] = 85.0 - 1e-9
+    big_df = rng.integers(1, 2001, n // 5).astype(np.float64)
+    return {"tail grid": (np.repeat(TAIL_STATS, len(TAIL_DFS)),
+                          np.tile(np.asarray(TAIL_DFS, np.float64),
+                                  len(TAIL_STATS))),
+            f"random grid of {n}": (stat, df),
+            LARGE_DF: (big_df * rng.uniform(0.3, 1.7, big_df.size),
+                       big_df)}
+
+
+def hold_tail(got, want, what, rel_bound, strings=True):
+    """chi2_tail's p against a plain version's: NaN, zeros and DBL_MAX in
+    the same places and (with ``strings``) the same format_p strings
+    (compared where the bits differ); where p > 1e-300, relative
+    ``rel_bound`` (None: report only).  Returns (max relative error, max
+    ulps, elements whose bits differ)."""
+    import numpy as np
+    from stoat_tpu_torch.writer import format_p
+    dbl_max = np.finfo(np.float64).max
+    for name, mask in (("NaN", np.isnan), ("zero", lambda v: v == 0),
+                       ("DBL_MAX", lambda v: v == dbl_max)):
+        check(np.array_equal(mask(got), mask(want)),
+              f"chi2_tail ({what}): {name} in other places")
+    both_nan = np.isnan(got) & np.isnan(want)
+    differ = np.nonzero((got.view(np.uint64) != want.view(np.uint64))
+                        & ~both_nan)[0]
+    bad = [i for i in differ if strings
+           and format_p(got[i]) != format_p(want[i])]
+    check(not bad, f"chi2_tail ({what}): {len(bad)} strings differ, first "
+          f"{got[bad[0]]!r} / {want[bad[0]]!r}" if bad else "")
+    big = want > 1e-300
+    rel = np.abs(got[big] - want[big]) / want[big]
+    worst = float(rel.max()) if rel.size else 0.0
+    check(rel_bound is None or worst <= rel_bound,
+          f"chi2_tail ({what}): relative error {worst:.3g} > {rel_bound}")
+    fin = np.isfinite(got) & np.isfinite(want)
+    ulps = int(np.abs(got[fin].view(np.int64)
+                      - want[fin].view(np.int64)).max()) if fin.any() else 0
+    return worst, ulps, len(differ)
+
+
+def compare_chi2_tail(torch, device, tables, err):
+    """K5: chi2_tail against chi2_sf_plain (torch.special.gammaincc) on the
+    card at CHI2_REL, and against the CPU's op (strings and special values),
+    on chi2_grids and on the main chunk's statistics with their masks
+    (finish_chi2_pvalues against its plain version).  On the large-df grid
+    chi2_tail follows the CPU's algorithm, which the card's op does not:
+    there it is held to the CPU's op, and its distance to the card's op is
+    reported.  Returns a description."""
+    import numpy as np
+    from stoat_tpu_torch.stats.chi2 import (finish_chi2_pvalues,
+                                            finish_chi2_pvalues_plain)
+    from stoat_tpu_torch.stats.special import chi2_sf, chi2_sf_plain
+    notes = []
+    cases = {what: [torch.from_numpy(v) for v in sd]
+             for what, sd in chi2_grids().items()}
+    cases["main chunk"] = [tables[k] for k in ("chi2_stat", "chi2_df",
+                                               "chi2_invalid", "chi2_zexp")]
+    for what, args in cases.items():
+        card_args = [a.to(device) for a in args]
+        cpu_args = [a.cpu() for a in args]
+        if len(args) == 2:
+            got = to_np(chi2_sf(*card_args))
+            plain = to_np(chi2_sf_plain(*card_args))
+            cpu = chi2_sf_plain(*cpu_args).numpy()
+        else:
+            got = to_np(finish_chi2_pvalues(*card_args))
+            plain = to_np(finish_chi2_pvalues_plain(*card_args))
+            cpu = finish_chi2_pvalues_plain(*cpu_args).numpy()
+        large = what == LARGE_DF
+        r_card = hold_tail(got, plain, f"{what}, card",
+                           None if large else CHI2_REL, strings=not large)
+        r_cpu = hold_tail(got, cpu, f"{what}, CPU", None)
+        if not large:
+            err["chi2_tail"] = max(err["chi2_tail"], max_abs_err(got,
+                                                                 plain))
+        notes.append(f"{what} ({got.size}): vs the card's op max rel "
+                     f"{r_card[0]:.3g}, {r_card[1]} ulps, {r_card[2]} differing"
+                     f"; vs the CPU's op max rel {r_cpu[0]:.3g}, {r_cpu[1]} "
+                     f"ulps, {r_cpu[2]} differing")
+    return "; ".join(notes)
+
+
+def compare_table_view(chunk, covar, n_haplotypes, err, what, all_rows=False):
+    """Q1's -T table view on the card: norm and kept bitwise against the
+    plain version, and the design of the table instantiation equal to the
+    OLS instantiation's.  Returns a description."""
+    from stoat_tpu_torch.pipeline.quantitative import (DESIGN_KEYS,
+                                                       TABLE_KEYS,
+                                                       quant_design,
+                                                       quant_design_plain)
+    got = quant_design(chunk, covar, *THRESHOLDS, n_haplotypes,
+                       all_rows=all_rows, tables=True)
+    plain = quant_design_plain(chunk, covar, *THRESHOLDS, n_haplotypes,
+                               all_rows=all_rows, tables=True)
+    for key in TABLE_KEYS:
+        a, b = to_np(got[key]), to_np(plain[key])
+        check(same_bits(a, b) if key == "norm" else bool((a == b).all()),
+              f"quant_design table view ({what}): {key} differs from the "
+              f"plain version")
+    design = quant_design(chunk, covar, *THRESHOLDS, n_haplotypes,
+                          all_rows=all_rows)
+    for key in DESIGN_KEYS:
+        check(bool((got[key] == design[key]).all()), f"quant_design table "
+              f"view ({what}): {key} differs from the OLS instantiation's")
+    err["quant_design"] = max(err["quant_design"], max_abs_err(
+        to_np(got["norm"]), to_np(plain["norm"])))
+    return (f"{what}: norm {tuple(got['norm'].shape)} bitwise, kept exact "
+            f"({int(to_np(got['kept']).sum())} kept columns), design equal")
 
 
 # ---------------------------------------------------------------- quantitative
@@ -1243,10 +1400,11 @@ def quant_edge_cases(device, err):
 # ---------------------------------------------------------------- graph, logit
 
 def compare_graph_stats(G0, G1, mask, err, expected_fisher=None):
-    """K6 kernel vs plain: bitwise on the card (the tails are the same
-    torch ops on bitwise statistics); against the CPU's plain version
-    Fisher bitwise and the chi-squared p-values (torch.special.gammaincc on
-    the card and on the CPU) to a relative 1e-12 with equal strings."""
+    """K6 kernel vs plain: bitwise on the card (the plain version's tails
+    on the card run the same chi2_tail on bitwise statistics); against the
+    CPU's plain version Fisher bitwise and the chi-squared p-values
+    (chi2_tail on the card, torch.special.gammaincc on the CPU) to a
+    relative 1e-12 with equal strings."""
     from stoat_tpu_torch.writer import format_p
     from stoat_tpu_torch.graph.association import (graph_stats,
                                                    graph_stats_plain)
@@ -1929,15 +2087,15 @@ PERM_TABLES = {"b": ("binary_permutation_vcf.tsv",),
 # the permutation pass's
 PERM_LAUNCHES = {
     "b": {"membership_counts": 1, "binary_tables": 1, "fisher": 1,
-          "perm_membership": 1, "perm_binary": 1},
+          "chi2_tail": 2, "perm_membership": 1, "perm_binary": 1},
     "q": {"quant_design": 2, "ols": 1, "student_t": 2, "perm_ols": 1},
     "q_c": {"quant_design": 2, "ols": 1, "student_t": 2, "perm_ols": 1},
     "b_c": {"quant_design": 2, "logreg": 1, "score_precompute": 1,
-            "score_perm": 1},
+            "score_perm": 1, "chi2_tail": 1},
     # the dual table (K1 once), then both jobs of one pass
     "bq": {"perm_membership": 2, "membership_counts": 1, "binary_tables": 1,
-           "fisher": 1, "quant_design": 2, "ols": 1, "student_t": 2,
-           "perm_binary": 1, "perm_ols": 1},
+           "fisher": 1, "chi2_tail": 2, "quant_design": 2, "ols": 1,
+           "student_t": 2, "perm_binary": 1, "perm_ols": 1},
 }
 
 
@@ -1956,13 +2114,15 @@ def phase_perm_main(torch, paths, sub, work, n_chroms, mode):
     held = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with PermCapture() as cap:
+    with PermCapture() as cap, GammainccCounter() as lib:
         rc = cli.main(perm_cli_args(paths, out, "cuda", mode, PERM_FULL))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"--permutations {mode}: exit code {rc}")
+    check(lib.calls == 0, f"--permutations {mode} called "
+          f"torch.special.gammaincc {lib.calls} times")
     check_launches(launches, PERM_LAUNCHES[mode], n_chunks,
                    f"--permutations {mode}")
     tables = PERM_TABLES[mode]
@@ -2296,11 +2456,14 @@ def phase_dual(torch, paths, work, n_chroms, reference):
         outs[device] = os.path.join(work, f"out_{device}_dual")
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        rc, got[device] = run_captured(cli, [*argv, "-o", outs[device],
-                                             "--device", device])
+        with GammainccCounter() as lib:
+            rc, got[device] = run_captured(cli, [*argv, "-o", outs[device],
+                                                 "--device", device])
         torch.cuda.synchronize()
         walls[device] = time.perf_counter() - t0
         check(rc == 0, f"dual on {device}: exit code {rc}")
+        check(device == "cpu" or lib.calls == 0, f"the dual on the card "
+              f"called torch.special.gammaincc {lib.calls} times")
         if device == "cuda":
             launches = dict(kernels.LAUNCHES)
             peak = torch.cuda.max_memory_allocated()
@@ -2518,6 +2681,186 @@ def phase_lmm(torch, paths, sub, work, n_chroms, reference, lmm_note):
     return launches, wall
 
 
+# ---------------------------------------------------------------- -T, case 3
+
+# each -T path: its phenotype flags, its tables with their statistic
+# columns (None: the binary table, byte for byte) and its kernels
+TABLE_PATHS = {
+    "q": (lambda p: ["-q", p["quantitative"]],
+          (("quantitative_table_vcf.tsv", ("p", "r2", "beta", "se")),),
+          QUANT_KERNELS),
+    "q_c": (lambda p: ["-q", p["quantitative"], *covar_args(p)],
+            (("quantitative_table_vcf.tsv", ("p", "r2", "beta", "se")),),
+            QUANT_KERNELS),
+    "b_c": (lambda p: ["-b", p["binary"], *covar_args(p)],
+            (("binary_table_vcf.tsv", ("p", "beta", "se")),), BC_KERNELS),
+    "lmm": (lambda p: ["-q", p["lmm_pheno"], "-k", p["kinship"], "--lmm",
+                       *covar_args(p)],
+            (("lmm_table_vcf.tsv", ("p", "r2", "beta", "se")),),
+            LMM_KERNELS),
+    "bq": (lambda p: ["-b", p["binary"], "-q", p["quantitative"]],
+           (("binary_table_vcf.tsv", None),
+            ("quantitative_table_vcf.tsv", ("p", "r2", "beta", "se"))),
+           None),
+}
+TABLE_TITLES = {"q": "-q", "q_c": "-q -c", "b_c": "-b -c", "lmm": "--lmm",
+                "bq": "-b -q"}
+
+
+def covar_args(p):
+    return ["-c", p["covariate"], "-C", ",".join(COVAR_NAMES)]
+
+
+def table_cli_args(p, out, device, mode, threshold):
+    return ["vcf", "-s", p["snarl"], "-v", p["vcf"],
+            *TABLE_PATHS[mode][0](p), "-T", threshold, "-o", out,
+            "--device", device]
+
+
+def significant_rows(tsv, threshold):
+    """SNARL of each row of a regression TSV whose P string passes the
+    threshold (formatting.is_pvalue_significant), in file order."""
+    from stoat_tpu_torch.formatting import is_pvalue_significant
+    with open(tsv) as fh:
+        rows = [line.rstrip("\n").split("\t") for line in fh][1:]
+    return [r[3] for r in rows if is_pvalue_significant(float(threshold),
+                                                        r[5])]
+
+
+def regression_files(out):
+    d = os.path.join(out, "regression")
+    files = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name), "rb") as fh:
+            files[name] = fh.read()
+    return files
+
+
+def phase_tables(torch, paths, sub, work, n_chroms):
+    """-T on the card.  At full size, ``-q -c`` and ``-b -c`` with
+    T_FULL: the table instantiation of quant_design on every chunk (the
+    wrapper's ``tables`` flag), one file in regression/ per row whose P
+    passes, named by its snarl, each a sample x path table of the used
+    samples.  Then on the sub-cohort with T_SUB in five modes, CUDA
+    against CPU: the main TSVs (binary byte for byte, regressions under
+    phase 4's string rule) and regression/ byte for byte, a file present
+    in one only where its P string differs at the threshold.  Returns
+    (launches, description lines)."""
+    from stoat_tpu_torch import cli, kernels
+    from stoat_tpu_torch.pipeline import quantitative as tq
+    n_chunks = n_chunks_of(paths, n_chroms, capped_chunk(paths))
+    launches, lines = {}, []
+    real = tq.quant_design
+    for mode in ("q_c", "b_c"):
+        flags = []
+
+        def spy(*a, tables=False, **k):
+            flags.append(tables)
+            return real(*a, tables=tables, **k)
+        out = os.path.join(work, f"tables_cuda_{mode}")
+        tq.quant_design = spy
+        try:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(table_cli_args(paths, out, "cuda", mode, T_FULL))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            tq.quant_design = real
+        check(rc == 0, f"-T {T_FULL} {mode}: exit code {rc}")
+        got = dict(kernels.LAUNCHES)
+        check_launches(got, dict.fromkeys(TABLE_PATHS[mode][2], 1),
+                       n_chunks, f"-T {T_FULL} {mode}")
+        check(flags == [True] * n_chunks, f"-T {mode}: quant_design tables "
+              f"{flags}")
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+        table = TABLE_PATHS[mode][1][0][0]
+        sig = significant_rows(os.path.join(out, table), T_FULL)
+        files = regression_files(out)
+        check(len(files) == len(sig) and set(files) == {f"{snarl}.tsv"
+                                                        for snarl in sig},
+              f"-T {mode}: {len(files)} tables for {len(sig)} rows with P "
+              f"< {T_FULL}")
+        widths = set()
+        for data in files.values():
+            rows = data.decode().splitlines()
+            check(rows[0].startswith("sample_name\t") and len(rows) > 1,
+                  f"-T {mode}: a table without rows")
+            widths |= {len(r.split("\t")) for r in rows[1:]}
+        lines.append(f"{TABLE_TITLES[mode]} -T {T_FULL} cuda wall "
+                     f"{wall:.2f}s, quant_design's table view on {n_chunks} "
+                     f"of {n_chunks} chunks, {len(files)} tables = rows with "
+                     f"P < {T_FULL} (columns per table row "
+                     f"{sorted(widths)})")
+
+    for mode, (_, tables, _) in TABLE_PATHS.items():
+        outs, got, walls = {}, {}, {}
+        for device in ("cuda", "cpu"):
+            outs[device] = os.path.join(work, f"tables_sub_{device}_{mode}")
+            t0 = time.perf_counter()
+            rc, got[device] = run_captured(cli, table_cli_args(
+                sub, outs[device], device, mode, T_SUB))
+            walls[device] = time.perf_counter() - t0
+            check(rc == 0, f"sub-cohort -T {mode} on {device}: exit code "
+                  f"{rc}")
+        diffs = []
+        for table, names in tables:
+            a, b = (os.path.join(outs[d], table) for d in ("cuda", "cpu"))
+            if names is None:
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    check(fa.read() == fb.read(), f"sub-cohort -T {mode}: "
+                          f"{table} differs")
+                continue
+            diffs += compare_quant_tsvs(
+                a, b, got["cuda"], got["cpu"], names,
+                P_FLOOR if mode == "b_c" else 0.0)[1]
+        files = {d: regression_files(outs[d]) for d in ("cuda", "cpu")}
+        for name in set(files["cuda"]) & set(files["cpu"]):
+            check(files["cuda"][name] == files["cpu"][name],
+                  f"sub-cohort -T {mode}: regression/{name} differs")
+        alone = set(files["cuda"]) ^ set(files["cpu"])
+        p_moved = {f"{k[1]}.tsv" for k in got["cuda"] for d in diffs
+                   if d.startswith(f"{k[0]} {k[1]} p ")}
+        check(alone <= p_moved, f"sub-cohort -T {mode}: tables "
+              f"{sorted(alone)} in one output only")
+        lines.append(f"{TABLE_TITLES[mode]} -T {T_SUB} on the sub-cohort: "
+                     f"cuda {walls['cuda']:.2f}s, cpu {walls['cpu']:.2f}s, "
+                     f"{len(files['cuda'])} tables byte-identical, "
+                     f"{len(diffs)} statistic strings differ (within "
+                     f"{TSV_REL:g}){': ' + '; '.join(diffs[:3]) if diffs else ''}")
+    return launches, lines
+
+
+def phase_case3(graph, work):
+    """The decomposition alone (``vcf -p G -d G -r CHR``): the snarl file
+    and its companion, no kernel launched, no device asked for."""
+    from stoat_tpu_torch import cli, kernels
+    out = os.path.join(work, "case3")
+    chr_file = os.path.join(work, "case3_chr.txt")
+    with open(chr_file, "w") as fh:
+        fh.write("ref\n")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["vcf", "-p", graph["gfa"], "-d", graph["gfa"], "-r",
+                   chr_file, "-o", out])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"case 3: exit code {rc}")
+    check(sorted(os.listdir(out)) == ["snarl_analyse.tsv",
+                                      "snarl_not_analyse.tsv"],
+          f"case 3 wrote {sorted(os.listdir(out))}")
+    with open(os.path.join(out, "snarl_analyse.tsv")) as fh:
+        n_rows = sum(1 for _ in fh) - 1
+    check(n_rows >= graph["n_snarls"], f"case 3: {n_rows} snarls for a "
+          f"graph of {graph['n_snarls']}")
+    check(not any(kernels.LAUNCHES.values()), f"case 3 launched "
+          f"{kernels.LAUNCHES}")
+    return (f"phase 4 case 3: vcf -p -d -r on {graph['n_snarls']} snarls "
+            f"({2 * graph['n_samples']} haplotype paths): {n_rows} snarls "
+            f"in snarl_analyse.tsv in {wall:.2f}s, no kernel launched")
+
+
 # ---------------------------------------------------------------- bounds
 
 def cf_iterations(t1, df):
@@ -2607,13 +2950,16 @@ def kernel_work(name, x):
             12 * fisher_terms(G0[:, 0], G0[:, 1], to_np(x["G1"])[:, 0],
                               to_np(x["G1"])[:, 1]) + 40 * B * Pm, "float64"
     if name == "quant_design":
+        # with the table view, norm [S, N, Pmax] and kept [S, Pmax] too
         S, N, PT = x["X_out"].shape
         w, idx = x["words"], x["path_idx"]
         rows = np.unique(to_np(idx)).size
+        Pmax = x["sidx"].shape[1]
+        tables = S * Pmax * (N * f8 + 1) if x.get("tables") else 0
         return (rows * w.shape[1] * i4 + idx.numel() * i4
                 + x["sidx"].numel() * i4 + x["covar"].numel() * f8
-                + S * N * PT * f8 + S * N + S * (3 + x["sidx"].shape[1]) * i4
-                ), 4 * S * N * x["sidx"].shape[1], "float64"
+                + S * N * PT * f8 + S * N + S * (3 + Pmax) * i4 + tables
+                ), 4 * S * N * Pmax, "float64"
     if name == "ols":
         S, N, P = x["X"].shape
         return S * N * (P * f8 + f8 + 1) + S * i4 + 5 * S * f8, \
@@ -2663,12 +3009,101 @@ def kernel_work(name, x):
         return (S * N * (P * f8 + 1) + S * i4 + (S + 1) * i4 + B * i4
                 + G * N * f8 + 5 * B * f8), \
             S1 * N * P * (P + 1) + B * N * (4 * P + 7), "float64"
+    if name == "chi2_tail":
+        # stat and df read, the two masks read, p written
+        stat, df = to_np(x["stat"]), to_np(x["df"])
+        return stat.size * (2 * f8 + 2 + f8), \
+            igammac_operations(stat, df), "float64"
     if name == "lmm_gemm":
         # rot [N, N] @ X laid out [N, S * PT]: read both, write the product
         S, N, PT = x["X"].shape
         return N * N * f8 + 2 * S * N * PT * f8, 2 * N * N * S * PT, \
             "float64"
     raise KeyError(name)
+
+
+# igammac's operations (chi2_tail_device.cuh): per iteration of each loop,
+# and per element for the prefactor x^a e^-x / Gamma(a) (a log, an lgamma
+# and an exp, counted at 20 each) and the branch tests
+IGAM_SERIES_OPS = 5
+IGAMC_SERIES_OPS = 6
+CF_OPS = 16
+ELEMENT_OPS = 70
+
+
+def igammac_operations(stat, df):
+    """Floating-point operations of chi2_tail's igammac on these inputs:
+    each element's helper, chosen as calc_igammac chooses it, and its
+    loop run in numpy until it stops as the kernel's does (the
+    data-dependent work; the asymptotic expansion, df > 40, is counted at
+    its 625 coefficients)."""
+    import numpy as np
+    machep = 1.11022302462515654042e-16
+    a = np.asarray(df, np.float64) * 0.5
+    x = np.asarray(stat, np.float64) * 0.5
+    with np.errstate(all="ignore"):
+        r = np.abs(x - a) / a
+        asym = (((a > 20) & (a < 200) & (r < 0.3))
+                | ((a > 200) & (r < 4.5 / np.sqrt(a))))
+        live = ~asym & (x > 0) & np.isfinite(x) & (a > 0)
+        low = np.where(x > 1.1, x < a,
+                       np.where(x <= 0.5, -0.4 / np.log(x) < a,
+                                x * 1.1 < a))
+        cf = live & (x > 1.1) & ~low
+        series = live & low
+        upper = live & ~low & ~cf
+        ops = float(asym.sum()) * 2 * 625 + ELEMENT_OPS * float(live.sum())
+        # 1 - igam series
+        aa, xx = a[series], x[series]
+        rr, c, ans = aa.copy(), np.ones_like(aa), np.ones_like(aa)
+        active = np.ones(aa.shape, bool)
+        for _ in range(2000):
+            if not active.any():
+                break
+            ops += IGAM_SERIES_OPS * float(active.sum())
+            rr = np.where(active, rr + 1.0, rr)
+            c = np.where(active, c * (xx / rr), c)
+            ans = np.where(active, ans + c, ans)
+            active &= ~(c <= machep * ans)
+        # igamc series
+        aa, xx = a[upper], x[upper]
+        fac, total = np.ones_like(aa), np.zeros_like(aa)
+        active = np.ones(aa.shape, bool)
+        for n in range(1, 2000):
+            if not active.any():
+                break
+            ops += IGAMC_SERIES_OPS * float(active.sum())
+            fac = np.where(active, fac * (-xx / n), fac)
+            term = fac / (aa + n)
+            total = np.where(active, total + term, total)
+            active &= ~(np.abs(term) <= machep * np.abs(total))
+        # continued fraction
+        aa, xx = a[cf], x[cf]
+        y = 1.0 - aa
+        z = xx + y + 1.0
+        c = np.zeros_like(aa)
+        pkm2, qkm2 = np.ones_like(aa), xx.copy()
+        pkm1, qkm1 = xx + 1.0, z * xx
+        ans = pkm1 / qkm1
+        active = np.ones(aa.shape, bool)
+        for _ in range(2000):
+            if not active.any():
+                break
+            ops += CF_OPS * float(active.sum())
+            c, y, z = c + 1.0, y + 1.0, z + 2.0
+            yc = y * c
+            pk = pkm1 * z - pkm2 * yc
+            qk = qkm1 * z - qkm2 * yc
+            rr = np.where(qk != 0, pk / qk, ans)
+            t = np.where(qk != 0, np.abs((ans - rr) / rr), 1.0)
+            ans = np.where(active, rr, ans)
+            pkm2, pkm1, qkm2, qkm1 = pkm1, pk, qkm1, qk
+            scale = np.where(np.abs(pk) > 4.503599627370496e15,
+                             2.22044604925031308085e-16, 1.0)
+            pkm2, pkm1, qkm2, qkm1 = (v * scale for v in
+                                      (pkm2, pkm1, qkm2, qkm1))
+            active &= ~(t <= machep)
+    return ops
 
 
 def bound_of(name, x):
@@ -2811,11 +3246,19 @@ def phase_kernels(torch, device, chunks, err, graph):
               f"{tuple(chunk.path_idx.shape)}, snarl_path_idx "
               f"{tuple(chunk.snarl_path_idx.shape)}")
     edges = edge_cases(device, err)
+    tails = compare_chi2_tail(torch, device, tables, err)
     torch.cuda.synchronize()
     say(f"phase 3 kernels vs plain: main-path shapes ({shapes}) ok; "
         f"{edges}; tolerances: counts/flags/keep exact, Fisher bitwise, "
-        f"chi2 stat rel 1e-12, chi2_sf rel 1e-12 for p > 1e-300; max abs "
-        f"err " + ", ".join(f"{k}={err[k]:.3g}" for k in BINARY_KERNELS))
+        f"chi2 stat rel 1e-12; max abs err "
+        + ", ".join(f"{k}={err[k]:.3g}" for k in BINARY_KERNELS))
+    say(f"phase 3 chi2_tail vs plain (torch {torch.__version__}'s "
+        f"torch.special.gammaincc): {tails}; bounds: relative {CHI2_REL:g} "
+        f"against the card's op where p > 1e-300 and equal strings, zeros, "
+        f"NaNs and DBL_MAX against both, but on the {LARGE_DF} (chi2_tail "
+        f"follows the CPU's op, the card's op another expansion): equal "
+        f"strings and special values against the CPU's op, the card's "
+        f"reported")
 
     # Q1 -> Q2 -> Q3 on the first chunk of `vcf -q -c`
     import numpy as np
@@ -2832,6 +3275,13 @@ def phase_kernels(torch, device, chunks, err, graph):
     _, t_worst = compare_student_t(*stats[:2], d["degenerate"], *stats[2:],
                                    err, "main chunk")
     qedges = quant_edge_cases(device, err)
+    no_covar = torch.zeros((qcovar.shape[0], 0), dtype=torch.float64,
+                           device=device)
+    views = "; ".join(compare_table_view(qchunk, c, H, err, what, all_rows)
+                      for c, what, all_rows in (
+                          (qcovar, "-q -c design", False),
+                          (no_covar, "-b -c design", False),
+                          (qcovar, "all-rows design", True)))
     torch.cuda.synchronize()
     say(f"phase 3 quantitative kernels vs plain: main chunk (X "
         f"{tuple(d['X'].shape)}, {int(to_np(d['filtered']).sum())} "
@@ -2843,7 +3293,7 @@ def phase_kernels(torch, device, chunks, err, graph):
         f"pivot of the others {nearest:.3g} x 1e-10); student_t max rel err "
         f"{t_worst[0]:.3g} vs the card's plain version (bound {T_REL:g}), "
         f"{t_worst[1]:.3g} vs the CPU's (bound {T_CPU_REL:g}); {qedges}; "
-        f"max abs err "
+        f"table view (-T) on the main chunk: {views}; max abs err "
         + ", ".join(f"{k}={err[k]:.3g}" for k in QUANT_KERNELS))
     quant = {"chunk": qchunk, "covar": qcovar, "H": H, "X": d["X"], "y": y,
              "used": used, "ncols": d["ncols"], "deg": d["degenerate"],
@@ -2863,8 +3313,6 @@ def phase_kernels(torch, device, chunks, err, graph):
         f"graph_stats={err['graph_stats']:.3g}")
 
     # K11 on the first chunk of `vcf -b -c` (its design has no covariates)
-    no_covar = torch.zeros((qcovar.shape[0], 0), dtype=torch.float64,
-                           device=device)
     d = quant_design(qchunk, no_covar, *THRESHOLDS, H)
     bused = d["used"]
     by = case[None, :] * bused
@@ -2910,15 +3358,18 @@ def phase_main(torch, paths, work, n_chroms, gen_s):
     held = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rc = cli.main(cli_args(paths, out_cuda, "cuda"))
-    torch.cuda.synchronize()
+    with GammainccCounter() as lib:
+        rc = cli.main(cli_args(paths, out_cuda, "cuda"))
+        torch.cuda.synchronize()
     wall_cuda = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"CUDA CLI exit code {rc}")
-    for name, n in launches.items():
-        check((n > 0) == (name in BINARY_KERNELS),
-              f"kernel {name}: {n} launches on the binary path")
+    n_chunks = n_chunks_of(paths, n_chroms)
+    check_launches(launches, dict.fromkeys(BINARY_KERNELS, 1), n_chunks,
+                   "the binary path")
+    check(lib.calls == 0, f"the binary path called torch.special.gammaincc "
+          f"{lib.calls} times")
     native_runs = runner.INGEST_COUNTS["native"] - ingest0["native"]
     python_runs = runner.INGEST_COUNTS["python"] - ingest0["python"]
     check(native_runs == n_chroms and python_runs == 0,
@@ -2962,7 +3413,8 @@ def phase_main(torch, paths, work, n_chroms, gen_s):
         f"equal to the numpy reference ({ref_s:.1f}s), which filters "
         f"{len(filtered)}: " + "; ".join(
             f"{c} {s} ({why})" for c, s, why in filtered[:5])
-        + f"; launches {launches}; native ingest of "
+        + f"; launches {launches} ({n_chunks} chunks; "
+        f"torch.special.gammaincc called 0 times); native ingest of "
         f"{native_runs} chromosomes, python fallback 0; "
         f"max_memory_allocated {memory_note(peak, held)}")
     return launches
@@ -3180,12 +3632,16 @@ def phase_graph(torch, graph, twin, work):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         try:
-            rc = cli.main(["graph", "-p", g["gfa"], "-d", g["gfa"], "-b",
-                           g["pheno"], "-T", method, "-O", fmt, "-r", "ref",
-                           "-V", "0", "-o", out, "--device", device])
+            with GammainccCounter() as lib:
+                rc = cli.main(["graph", "-p", g["gfa"], "-d", g["gfa"], "-b",
+                               g["pheno"], "-T", method, "-O", fmt, "-r",
+                               "ref", "-V", "0", "-o", out, "--device",
+                               device])
         finally:
             os.environ.pop("STOAT_GRAPH_PYTHON", None)
         torch.cuda.synchronize()
+        check(device == "cpu" or lib.calls == 0, f"graph {method} {fmt} on "
+              f"the card called torch.special.gammaincc {lib.calls} times")
         wall = time.perf_counter() - t0
         check(rc == 0, f"graph {method} {fmt} on {device}: exit code {rc}")
         path = "python" if python else "native"
@@ -3208,6 +3664,9 @@ def phase_graph(torch, graph, twin, work):
     for name, n in launches.items():
         check((n > 0) == (name in GRAPH_KERNELS), f"kernel {name}: {n} "
               f"launches on the graph path")
+    check(launches["chi2_tail"] == 2 * launches["graph_stats"],
+          f"graph: chi2_tail launched {launches['chi2_tail']} times for "
+          f"{launches['graph_stats']} graph_stats launches")
     wall_cpu, _, tsv_cpu = run(graph, os.path.join(work, "g_cpu"), "cpu")
     check(tsv == tsv_cpu, "graph: CUDA and CPU TSVs differ")
     lines = tsv.decode().splitlines()
@@ -3239,13 +3698,16 @@ def phase_graph(torch, graph, twin, work):
                                         "cuda", python=True)
     check(native == python, "graph: the Python twin's TSV differs from the "
           "native path's")
-    check(twin_launches["graph_stats"] == 1, f"graph twin: launches "
+    check(twin_launches["graph_stats"] == 1
+          and twin_launches["chi2_tail"] == 2, f"graph twin: launches "
           f"{twin_launches}")
     say(f"phase 4 main path: graph -T chi2 on {graph['n_snarls']} snarls x "
         f"{2 * graph['n_samples']} haplotype paths: cuda wall "
         f"{wall_cuda:.2f}s, cpu wall {wall_cpu:.2f}s, {len(lines) - 1} rows "
         f"byte-identical ({depth2} nested at depth 2; partitions per row "
-        f"{dict(sorted(kinds.items()))}); launches {launches}, native path; "
+        f"{dict(sorted(kinds.items()))}); launches {launches} (the two "
+        f"tails on chi2_tail, torch.special.gammaincc called 0 times), "
+        f"native path; "
         f"{n_ref} sampled rows' P_FISHER/P_CHI2 equal scipy's strings "
         f"({ref_s:.1f}s), {len(flips)} at a rounding boundary"
         f"{': ' + '; '.join(flips[:5]) if flips else ''}; "
@@ -3301,7 +3763,8 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
                                                  membership_counts_plain)
     from stoat_tpu_torch.pipeline.quantitative import (quant_design,
                                                        quant_design_plain)
-    from stoat_tpu_torch.stats.chi2 import finish_chi2_pvalues
+    from stoat_tpu_torch.stats.chi2 import (finish_chi2_pvalues,
+                                            finish_chi2_pvalues_plain)
     from stoat_tpu_torch.stats.fisher import (fisher_exact_2x2,
                                               fisher_exact_2x2_plain)
     from stoat_tpu_torch.graph.association import (graph_stats,
@@ -3332,6 +3795,8 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
     sperm = (m["D"], m["bused"], m["Vinv"], m["e"])
     md = modes
     eq = (q["X"], q["used"], q["ncols"], *md["pairs"], md["expr"])
+    k5 = tuple(tables[k] for k in ("chi2_stat", "chi2_df", "chi2_invalid",
+                                   "chi2_zexp"))
     calls = {
         "membership_counts": lambda: membership_counts(*args),
         "binary_tables": lambda: binary_tables(g0p, g1p, sidx, *thr),
@@ -3347,6 +3812,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "score_precompute": lambda: pm.score_precompute(*spre),
         "score_perm": lambda: pm.score_perm_stats(*sperm),
         "eqtl_ols": lambda: tq.eqtl_ols_stats(*eq),
+        "chi2_tail": lambda: finish_chi2_pvalues(*k5),
     }
     times = {
         "membership_counts": (
@@ -3394,11 +3860,20 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "eqtl_ols": (
             cuda_ms(calls["eqtl_ols"], 10),
             cuda_ms(lambda: tq.eqtl_ols_stats_plain(*eq), 1, warmup=0)),
+        "chi2_tail": (
+            cuda_ms(calls["chi2_tail"], 50),
+            cuda_ms(lambda: finish_chi2_pvalues_plain(*k5), 20)),
     }
-    tail_ms = cuda_ms(lambda: finish_chi2_pvalues(
-        tables["chi2_stat"], tables["chi2_df"], tables["chi2_invalid"],
-        tables["chi2_zexp"]), 20)
+    # the one PyTorch call that computes K5's function: the upper
+    # incomplete gamma of the same inputs (halved outside the timing)
+    halves = (k5[1] * 0.5, k5[0] * 0.5)
+    library = {"chi2_tail": cuda_ms(
+        lambda: torch.special.gammaincc(*halves), 50)}
     dev = device_ms(torch, calls)
+    # graph_stats launches chi2_tail for its two tails: chi2_tail's own
+    # device time comes from a window of its own
+    dev["chi2_tail"] = device_ms(torch, {"chi2_tail": calls["chi2_tail"]}
+                                 )["chi2_tail"]
     # perm_ols at the `-q` design (PT = 5) too; the row above is `-q -c`'s
     pols5 = (m["bX"], m["bused"], m["bncols"], m["phenos_q"])
     q5 = "perm_ols (PT = 5)"
@@ -3430,9 +3905,21 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "score_perm": {"D": m["D"], "e": m["e"]},
         "eqtl_ols": {"X": q["X"], "expr": md["expr"],
                      "n_pairs": md["n_pairs"], "n_with": md["n_with"]},
+        "chi2_tail": {"stat": k5[0], "df": k5[1]},
     }
     bounds = {name: bound_of(name, work[name]) for name in calls}
     bounds[q5] = bound_of("perm_ols", {"X": m["bX"], "phenos": pols5[3]})
+
+    # Q1's table view (-T) on the same chunk
+    qt = "quant_design (tables)"
+    times[qt] = (
+        cuda_ms(lambda: quant_design(*design, tables=True), 10),
+        cuda_ms(lambda: quant_design_plain(*design, tables=True), 3,
+                warmup=1))
+    dev[qt] = device_ms(torch, {"quant_design": lambda: quant_design(
+        *design, tables=True)})["quant_design"]
+    bounds[qt] = bound_of("quant_design", dict(work["quant_design"],
+                                               tables=True))
 
     # the mixed model: Q1 with all_rows, K14's rotation, the whole chain
     d_all = md["d_all"]
@@ -3481,13 +3968,15 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
             f"{'not measured' if dev[k] is None else f'{dev[k]:.4f}'}, bound "
             f"{bounds[k][0]:.4f} {bounds[k][1]})"
             for k, (a, b) in times.items())
-        + f"; chi2 tail (torch.special, K5) {tail_ms:.4f}; permutation "
+        + f"; library (one PyTorch call of the same function): chi2_tail "
+        f"{library['chi2_tail']:.4f} (torch.special.gammaincc); chi2_tail "
+        f"on the first vcf -b chunk's statistics and masks; permutation "
         f"kernels at K = {PERM_FULL + 1} rows; eqtl_ols on "
         f"{md['n_pairs']} pairs of {md['n_with']} snarls; the mixed model's "
         f"rows on the all-rows design (the GEMM's plain column is "
         f"torch.einsum, the chain's the plain versions after it; device ms "
         f"of both is every kernel in their profiler window)")
-    return times, dev, bounds
+    return times, dev, bounds, library
 
 
 PROFILE_TITLES = {"b": "vcf -b", "q_c": "vcf -q -c -C AGE,SEX",
@@ -3921,15 +4410,16 @@ def run(args):
 
     t_start = time.perf_counter()
     smi = phase_card(torch)
-    launches, err, times, dev, bounds = smoke(torch, device, args, smi,
-                                              make_fixture)
-    # library_ms: no single PyTorch call computes any of these functions
+    launches, err, times, dev, bounds, library = smoke(
+        torch, device, args, smi, make_fixture)
+    # library_ms: one PyTorch call computes K5's function
+    # (torch.special.gammaincc); none computes any of the others
     kernels_json = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
          "ms": times[name][0], "plain_ms": times[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None, "device_ms": dev[name]}
+         "library_ms": library.get(name), "device_ms": dev[name]}
         for name, (src, rep) in KERNELS.items()]
     count = torch.cuda.device_count()
     check(count == 1, f"{count} devices visible, the run used 1")
@@ -3944,7 +4434,8 @@ def run(args):
 
 def smoke(torch, device, args, smi, make_fixture):
     """Phases 2 to 5 on ``device``; returns (launches over the main paths'
-    runs, max abs errors, times, device ms, bounds) per kernel."""
+    runs, max abs errors, times, device ms, bounds, library ms) per
+    kernel."""
     phase_native()
     base = os.path.join(HERE, "build", "stoat_tpu_torch")
     os.makedirs(base, exist_ok=True)
@@ -3997,7 +4488,8 @@ def smoke(torch, device, args, smi, make_fixture):
             for name in REGRESSION_PATHS[mode][1]:
                 launches[name] = launches.get(name, 0) + r_launches[name]
         g_launches, _ = phase_graph(torch, graph, twin, work)
-        launches["graph_stats"] = g_launches["graph_stats"]
+        for name in GRAPH_KERNELS:
+            launches[name] = launches.get(name, 0) + g_launches[name]
         t0 = time.perf_counter()
         sub = make_fixture(os.path.join(work, "sub"), n_samples=N_SAMPLES,
                            n_snarls=SUB_SNARLS, seed=1, n_chroms=N_CHROMS)
@@ -4033,8 +4525,14 @@ def smoke(torch, device, args, smi, make_fixture):
         for name, n in phase_lmm(torch, paths, sub, work, N_CHROMS,
                                  reference, lmm_note)[0].items():
             launches[name] = launches.get(name, 0) + n
-        times, dev, bounds = phase_times(torch, chunks[0], g0p, g1p, tables,
-                                         quant, logit, perm, modes, smi)
+        t_launches, t_lines = phase_tables(torch, paths, sub, work, N_CHROMS)
+        say("phase 4 -T regression tables: " + "; ".join(t_lines))
+        for name, n in t_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        say(phase_case3(twin, work))
+        times, dev, bounds, library = phase_times(
+            torch, chunks[0], g0p, g1p, tables, quant, logit, perm, modes,
+            smi)
         say("phase 5 permutation pass walls (s, K = "
             f"{PERM_FULL}, {paths['n_snarls']} snarls): " + ", ".join(
                 f"{PERM_TITLES[m]} {w:.3f} "
@@ -4052,7 +4550,7 @@ def smoke(torch, device, args, smi, make_fixture):
                                  mode))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return launches, err, times, dev, bounds
+    return launches, err, times, dev, bounds, library
 
 
 def main():

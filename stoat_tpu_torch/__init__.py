@@ -15,7 +15,7 @@ device, or as their plain PyTorch versions on the CPU:
 - ``pipeline/binary.py``: K3, per-snarl table, filter and chi-squared
   statistic (csrc/binary_tables.cu);
 - ``stats/fisher.py``: K4, the Fisher exact scan (csrc/fisher.cu);
-- ``stats/special.py``: K5, the chi-squared tail (torch.special);
+- ``stats/special.py``: K5, the chi-squared tail (csrc/chi2_tail.cu);
 - ``pipeline/quantitative.py``: K1+K7+K8, per-snarl OLS designs straight
   from the packed words (csrc/quant_design.cu);
 - ``stats/linreg.py``: K9, masked OLS with the LDL^T rank probe and the

@@ -1,5 +1,6 @@
 """Command line of the PyTorch/CUDA port: ``stoat vcf`` (every
-single-device mode, with the permutation test) and ``stoat graph``.
+single-device mode, with the permutation test, the ``-T`` regression tables
+and the decomposition alone) and ``stoat graph``.
 
 ``vcf`` follows stoat_tpu/cli.py main_vcf (:57-356) on one device: a binary
 phenotype (``-b``, chi-squared + Fisher; with ``-c FILE -C NAME[,NAME...]``,
@@ -9,16 +10,20 @@ covariates, both in one pass (``-b -q``: two tables), the EMMAX mixed model
 (``-q -k KINSHIP --lmm``, into ``lmm_table_vcf.tsv``; ``-k`` without
 ``--lmm`` parses the matrix, warns and runs OLS) and eQTL (``-e EXPR -G
 GENES [-w WINDOW]``, one row per snarl and gene within the window).
-``--permutations N [--perm-seed S]`` then runs the Westfall–Young min-P
-permutation test (pipeline/permutation.py) into
-``binary_permutation_vcf.tsv`` and/or ``quantitative_permutation_vcf.tsv``.
-The snarl paths come from ``-s`` or from the decomposition of ``-p``/``-d``
-(graph/decompose.py).  ``graph`` follows main_graph (:383-411): walk-set
+``-T P`` writes each significant snarl's sample x path table into
+``<out>/regression/`` (the regression modes).  ``--permutations N
+[--perm-seed S]`` then runs the Westfall–Young min-P permutation test
+(pipeline/permutation.py) into ``binary_permutation_vcf.tsv`` and/or
+``quantitative_permutation_vcf.tsv``.  The snarl paths come from ``-s`` or
+from the decomposition of ``-p``/``-d`` (graph/decompose.py, with
+``-r``/``-i``/``-y``/``-l``); ``-p -d`` alone writes the decomposition and
+stops (case 3).  ``graph`` follows main_graph (:383-411): walk-set
 partitions of the graph's haplotype paths, tested against a binary
-phenotype.  ``--device`` picks the device (default cuda); a CUDA device
-that is not there is an error, never a quiet run on the CPU.  Every other
-mode, subcommand and flag of stoat_tpu exits non-zero and names
-ROADMAP.md, where its port is queued.
+phenotype.  ``--device`` picks the device of the GWAS (default cuda); a
+CUDA device that is not there is an error, never a quiet run on the CPU.
+The GAF output (``vcf -g``) and the ``BHcorrect``, ``simulate``, ``truth``
+and ``plot`` subcommands of stoat_tpu exit non-zero and name ROADMAP.md,
+where their port is queued.
 """
 
 from __future__ import annotations
@@ -83,9 +88,12 @@ def main_vcf(argv: List[str]) -> int:
     ap.add_argument("-d", "--dist", metavar="FILE")
     ap.add_argument("-v", "--vcf", metavar="FILE")
     ap.add_argument("-s", "--snarl", metavar="FILE")
+    ap.add_argument("-r", "--chr", dest="chr_file", metavar="FILE")
     ap.add_argument("-b", "--binary", metavar="FILE")
     ap.add_argument("-q", "--quantitative", metavar="FILE")
     ap.add_argument("-e", "--eqtl", metavar="FILE")
+    # parsed and unused, as in stoat_tpu (the reference never reads it)
+    ap.add_argument("-m", "--make-bed", action="store_true")
     ap.add_argument("-c", "--covariate", metavar="FILE")
     ap.add_argument("-C", "--covar-name", metavar="NAME")
     ap.add_argument("-k", "--kinship", metavar="FILE")
@@ -103,21 +111,31 @@ def main_vcf(argv: List[str]) -> int:
     ap.add_argument("--lmm", action="store_true",
                     help="kinship mixed model (EMMAX) for quantitative "
                          "traits; requires -k and -q")
+    ap.add_argument("-g", "--gaf", action="store_true")
     ap.add_argument("-I", "--min-individuals", type=int, default=3)
     ap.add_argument("-H", "--min-haplotypes", type=int, default=5)
+    ap.add_argument("-i", "--children", type=int, default=50)
+    ap.add_argument("-y", "--cycle", type=int, default=1)
+    ap.add_argument("-l", "--path-length", type=int, default=10000)
     ap.add_argument("-G", "--gene-position", metavar="FILE")
     ap.add_argument("-w", "--windows-gene", type=int, default=1000000)
+    ap.add_argument("-T", "--table-threshold", type=float, default=-1)
     ap.add_argument("-M", "--maf", type=float, default=0.05)
+    ap.add_argument("-t", "--thread", type=int, default=0,
+                    help="native-core worker threads (0 = all cores)")
+    ap.add_argument("-V", "--verbose", type=int, default=1)
     ap.add_argument("-o", "--output", default="output")
     ap.add_argument("--device", default="cuda",
-                    help="torch device: cuda (default), cuda:N or cpu; "
-                         "cuda without a card is an error")
-    # every other stoat_tpu vcf flag belongs to a mode not ported yet
+                    help="torch device of the GWAS: cuda (default), cuda:N "
+                         "or cpu; cuda without a card is an error")
+    # an option stoat_tpu's vcf does not have either
     args, unknown = ap.parse_known_args(argv)
     if unknown:
         return _not_ported(f"option {' '.join(unknown)}")
-    logging.basicConfig(level=logging.WARNING,
-                        format="[%(levelname)s] %(message)s", force=True)
+    if args.gaf:
+        return _not_ported("the GAF output (-g)")
+    _setup_logging(args.verbose)
+    _set_threads(args.thread)
 
     # threshold validation (stoat_tpu/cli.py:113-128)
     if args.min_individuals < 2:
@@ -126,14 +144,24 @@ def main_vcf(argv: List[str]) -> int:
     if args.min_haplotypes < 2:
         raise SystemExit("Error: [stoat vcf] min_haplotypes threshold "
                          "must be > 1")
+    if args.children < 2:
+        raise SystemExit("Error: [stoat vcf] Children threshold must be > 1")
+    if args.cycle < 1:
+        raise SystemExit("Error: [stoat vcf] Cycle threshold must be > 0")
+    if args.path_length < 2:
+        raise SystemExit("Error: [stoat vcf] Path length threshold must be "
+                         "> 1")
     if args.windows_gene < 1:
         raise SystemExit("Error: [stoat vcf] Windows gene threshold must "
                          "be > 0")
+    if args.table_threshold != -1 and not (0 < args.table_threshold <= 1):
+        raise SystemExit("Error: [stoat vcf] Table threshold must be in "
+                         "(0,1]")
     if not (0 <= args.maf <= 1):
         raise SystemExit("Error: [stoat vcf] MAF must be in [0,1]")
-    for path in (args.graph, args.dist, args.vcf, args.snarl, args.binary,
-                 args.quantitative, args.eqtl, args.covariate, args.kinship,
-                 args.gene_position):
+    for path in (args.graph, args.dist, args.vcf, args.snarl, args.chr_file,
+                 args.binary, args.quantitative, args.eqtl, args.covariate,
+                 args.kinship, args.gene_position):
         if path:
             _check_file(path)
 
@@ -154,17 +182,22 @@ def main_vcf(argv: List[str]) -> int:
     # extension: one VCF ingest, one K1 pass per chunk, two tables)
     both_phenotypes = bool(args.binary) and bool(args.quantitative) \
         and not args.eqtl
-    if phenotype_count == 0:
-        if decompose and not args.vcf and not args.snarl:
-            return _not_ported("snarl decomposition alone (case 3)")
-        return _not_ported("a run without a phenotype")
-    if not ((args.snarl or decompose) and args.vcf
+    only_snarl_parsing = False
+    if ((args.snarl or decompose) and args.vcf
             and (phenotype_count == 1 or both_phenotypes)):
+        pass                                       # GWAS (cases 1 and 2)
+    elif (decompose and not args.vcf and not args.snarl
+          and phenotype_count == 0):
+        only_snarl_parsing = True                  # case 3
+    else:
         logger.error(
             "[stoat vcf] Invalid argument combination provided.\n"
-            "stoat_tpu_torch runs: snarl_path + vcf_path + phenotype, or "
-            "graph_path + dist_path + vcf_path + phenotype (phenotype: "
-            "-b, -q, both, or -e with -G; each with optional -c/-C)")
+            "There are only 3 ways to launch stoat vcf:\n"
+            "Case 1 (GWAS only): snarl_path + vcf_path + phenotype (+ "
+            "optional file)\n"
+            "Case 2 (GWAS + snarl path decomposition): graph_path + "
+            "dist_path + vcf_path + phenotype (+ optional file)\n"
+            "Case 3 (snarl path decomposition): graph_path + dist_path")
         return 1
     # the mixed model's flag rules (stoat_tpu/cli.py:215-242), checked
     # before any output
@@ -175,25 +208,33 @@ def main_vcf(argv: List[str]) -> int:
         raise SystemExit("Error: [stoat vcf] --lmm requires a "
                          "quantitative phenotype (-q)")
 
-    device = _resolve(args.device, "vcf")
+    # the decomposition alone runs on the host: no device to resolve
+    device = None if only_snarl_parsing else _resolve(args.device, "vcf")
     os.makedirs(args.output, exist_ok=True)
+    regression_dir = os.path.join(args.output, "regression")
+    if args.table_threshold != -1:
+        os.makedirs(regression_dir, exist_ok=True)
     t_start = time.time()
 
-    from stoat_tpu_torch.io import (parse_binary_pheno, parse_covariates,
-                                    parse_kinship_matrix,
+    from stoat_tpu_torch.io import (parse_binary_pheno,
+                                    parse_chromosome_reference,
+                                    parse_covariates, parse_kinship_matrix,
                                     parse_qtl_gene_file,
                                     parse_quantitative_pheno,
                                     parse_snarl_path)
     from stoat_tpu_torch.io.vcf import VcfReader
 
-    header_reader = VcfReader(args.vcf)
-    list_samples = header_reader.samples
-    header_reader.close()
+    list_samples: List[str] = []
+    if not only_snarl_parsing:
+        header_reader = VcfReader(args.vcf)
+        list_samples = header_reader.samples
+        header_reader.close()
     covariate = None
     if args.covariate:
         covariate = parse_covariates(args.covariate, covar_names,
                                      list_samples)
     binary_phenotype = quantitative_phenotype = None
+    mode = phenotype = None
     if args.binary:
         # -b -c: the covariates are parsed and validated above, and then
         # stay out of the logistic model (stoat_tpu/stats/logreg.py:9-14)
@@ -224,17 +265,22 @@ def main_vcf(argv: List[str]) -> int:
                            "the reference stub, stats_test.hpp:115-125). "
                            "Pass --lmm with -q to run the mixed model.")
 
+    ref_chr = (parse_chromosome_reference(args.chr_file)
+               if args.chr_file else set())
     if args.snarl:
         snarls_chr = parse_snarl_path(args.snarl)
     else:
         logger.info("Starting snarl decomposition... ")
         t0 = time.time()
         from stoat_tpu_torch.graph.decompose import decompose_to_snarl_file
-        # stoat_tpu's defaults: all chromosomes, children 50, path length
-        # 10000, cycle 1 (the flags that change them are not ported)
-        snarls_chr = decompose_to_snarl_file(args.graph, args.dist,
-                                             args.output, set())
+        snarls_chr = decompose_to_snarl_file(
+            args.graph, args.dist, args.output, ref_chr,
+            children_threshold=args.children,
+            path_length_threshold=args.path_length,
+            cycle_threshold=args.cycle)
         logger.info("Snarl time decomposition : %.3f s", time.time() - t0)
+        if only_snarl_parsing:
+            return 0
 
     t_gwas = time.time()
     logger.info("Starting GWAS analysis on %s...", device)
@@ -256,11 +302,12 @@ def main_vcf(argv: List[str]) -> int:
     run_vcf_analysis(
         args.vcf, snarls_chr, output_tsv, phenotype, device, mode=mode,
         covariate=covariate, maf_threshold=args.maf,
+        table_threshold=args.table_threshold,
         min_individuals=args.min_individuals,
         min_haplotypes=args.min_haplotypes,
         windows_gene_threshold=args.windows_gene,
-        sample_names=list_samples, secondary=secondary,
-        resume=args.resume,
+        regression_dir=regression_dir, sample_names=list_samples,
+        secondary=secondary, resume=args.resume,
     )
     if args.permutations > 0 and mode == "eqtl":
         logger.warning("--permutations: eQTL mode has no eligible "
@@ -371,11 +418,13 @@ def print_help() -> None:
         "commands:\n"
         "  vcf        VCF-based GWAS: binary (-b), quantitative (-q),\n"
         "             both, mixed model (-q -k --lmm) or eQTL (-e -G),\n"
-        "             each with optional covariates -c/-C\n"
+        "             each with optional covariates -c/-C, -T regression\n"
+        "             tables and --permutations; or the snarl\n"
+        "             decomposition alone (-p -d)\n"
         "  graph      graph-path-based association (binary phenotype)\n"
         "  version    print version\n\n"
-        "The other stoat_tpu commands and modes are not ported yet; see "
-        "ROADMAP.md.\n")
+        "The GAF output (vcf -g) and the BHcorrect, simulate, truth and\n"
+        "plot commands are not ported yet; see ROADMAP.md.\n")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -17,8 +17,8 @@
 //
 // The operations and their order are those of stats/chi2.py and
 // stats/fisher.py in the port; with -fmad=false every output is bitwise
-// equal to the plain version.  The two tails then run as torch ops (K5,
-// stats/special.py chi2_sf), as on the ``vcf -b`` path.
+// equal to the plain version.  The two tails then run on csrc/chi2_tail.cu
+// (K5, stats/chi2.py finish_chi2_pvalues), as on the ``vcf -b`` path.
 //
 // What bounds it on the card: launch latency.  At 100,000 rows of 4
 // columns it reads 3.2 MB of counts and writes 4.4 MB, microseconds of

@@ -18,8 +18,8 @@
 //                      stat[k, s], df[k, s],
 //                      bad[k, s] = filtered | invalid | zero expected
 //
-// The chi-squared tail and the +inf of bad tables follow as torch ops
-// (pipeline/permutation.py).
+// The chi-squared tail (csrc/chi2_tail.cu) and the +inf of bad tables (a
+// torch op) follow (pipeline/permutation.py).
 //
 // What bounds it on the card: the population counts.  perm_binary does
 // K * S * Pmax * W AND + popcount pairs, 5.2e9 per chunk at K = 1,001,

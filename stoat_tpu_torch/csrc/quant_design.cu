@@ -25,18 +25,23 @@
 //                  all_rows=True, quantitative.py:238-242) an unused row
 //                  keeps its intercept and covariates: [1, 0..., covariates,
 //                  0...]; used, ncols, the flags and the counts are as above
+//   tables       (the -T table view, quantitative.py:245-258) also
+//                  norm[s, n, j] = kept_j ? count_j(n) * recip(n) : 0, over
+//                  the unmerged columns, float64 [S, N, Pmax], and kept
+//                  [S, Pmax]
 //
 // Counts, row sums, allele counts and the merge test are exact integer
 // work.  ||d_i - d_j||^2 == 0 on the Gram matrix, stoat_tpu's test, holds
 // exactly when the 2-bit dosage fields of the two columns agree in every
-// word, which is what the kernel compares.  Each X entry is one float64
-// multiply of an integer by the one reciprocal of its row, so X equals the
-// plain version (pipeline/quantitative.py) bit for bit.  colsum is a
+// word, which is what the kernel compares.  Each X and norm entry is one
+// float64 multiply of an integer by the one reciprocal of its row, so both
+// equal the plain version (pipeline/quantitative.py) bit for bit.  colsum is a
 // float64 sum in a fixed order (each thread's samples in order, then a
 // fixed tree); it feeds only the maf > threshold test.  No atomics.
 //
 // What bounds it on the card: writing X, S * N * PT * 8 bytes (1.15 GB
-// per chunk at S = 8192, N = 2,504, PT = 7; 0.34 ms at 3.35 TB/s).  The
+// per chunk at S = 8192, N = 2,504, PT = 7; 0.34 ms at 3.35 TB/s), and with
+// the table view norm too (S * N * Pmax * 8 bytes, 0.66 GB at Pmax = 4).  The
 // word gathers are P * K * W * 4 bytes per pass (41 MB at that shape) and
 // stay in L1/L2: the kernel re-derives a column's membership words from
 // the edge rows whenever it needs them instead of writing the [P, W] or
@@ -105,17 +110,18 @@ __device__ T block_sum(T v, T* red) {
   return total;
 }
 
-// kAllRows: a template argument, so that the OLS designs' instantiation
-// is the code without it (an int argument tested per row took the kernel
-// from 64 to 56 registers and 2.5% more time on an H100,
+// kAllRows and kTables: template arguments, so that the OLS designs'
+// instantiation is the code without them (an int argument tested per row
+// took the kernel from 64 to 56 registers and 2.5% more time on an H100,
 // tools/kernel_ab.py)
-template <bool kAllRows>
+template <bool kAllRows, bool kTables>
 __global__ void quant_design_kernel(
     Words wd, const uint8_t* __restrict__ path_valid,
     const int32_t* __restrict__ sidx, const double* __restrict__ covar,
     double* __restrict__ X, uint8_t* __restrict__ used_out,
     int32_t* __restrict__ ncols_out, uint8_t* __restrict__ filtered_out,
     uint8_t* __restrict__ degenerate_out, int32_t* __restrict__ allele_out,
+    double* __restrict__ norm_out, uint8_t* __restrict__ kept_out,
     int Pmax, int64_t N, int C, double min_individuals,
     double min_haplotypes, double maf_threshold) {
   extern __shared__ double dyn[];
@@ -150,6 +156,7 @@ __global__ void quant_design_kernel(
     if (tid == 0) {
       allele_out[s * Pmax + j] = int32_t(cnt);
       kept[j] = cnt > 0;
+      if (kTables) kept_out[s * Pmax + j] = cnt > 0;
     }
   }
   __syncthreads();
@@ -251,6 +258,12 @@ __global__ void quant_design_kernel(
       row[1 + k3 + c] = keep ? covar[n * C + c] : 0.0;
     }
     for (int64_t t = 1 + k3 + C; t < PT; ++t) row[t] = 0.0;
+    if (kTables) {
+      double* nrow = norm_out + (s * N + n) * Pmax;
+      for (int j = 0; j < Pmax; ++j) {
+        nrow[j] = kept[j] ? double(wd.dosage(col_path[j], n)) * recip : 0.0;
+      }
+    }
   }
   const long long n_used = block_sum(n_used_part, red_i);
 
@@ -274,27 +287,33 @@ __global__ void quant_design_kernel(
 extern "C" int quant_design_launch(
     const void* words, const void* path_idx, const void* path_valid,
     const void* sidx, const void* covar, void* X, void* used, void* ncols,
-    void* filtered, void* degenerate, void* allele_paths, int64_t S,
-    int64_t Pmax, int64_t K, int64_t W, int64_t N, int64_t C, int64_t H,
-    int64_t all_rows, double min_individuals, double min_haplotypes,
-    double maf_threshold, void* stream) {
+    void* filtered, void* degenerate, void* allele_paths, void* norm,
+    void* kept, int64_t S, int64_t Pmax, int64_t K, int64_t W, int64_t N,
+    int64_t C, int64_t H, int64_t all_rows, double min_individuals,
+    double min_haplotypes, double maf_threshold, void* stream) {
   const size_t smem = size_t(Pmax) * (sizeof(double) + 4 * sizeof(int32_t) +
                                       sizeof(uint8_t));
-  if (Pmax < 1 || K < 1 || smem > 48 * 1024 || H != 2 * N) {
+  if (Pmax < 1 || K < 1 || smem > 48 * 1024 || H != 2 * N ||
+      (norm == nullptr) != (kept == nullptr)) {
     return int(cudaErrorInvalidValue);
   }
   if (S > 0) {
     const Words wd{static_cast<const uint32_t*>(words),
                    static_cast<const int32_t*>(path_idx), K, W, H};
-    auto kernel = all_rows ? quant_design_kernel<true>
-                           : quant_design_kernel<false>;
+    // the table view when given its outputs
+    auto kernel = norm != nullptr
+                      ? (all_rows ? quant_design_kernel<true, true>
+                                  : quant_design_kernel<false, true>)
+                      : (all_rows ? quant_design_kernel<true, false>
+                                  : quant_design_kernel<false, false>);
     kernel<<<unsigned(S), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         wd, static_cast<const uint8_t*>(path_valid),
         static_cast<const int32_t*>(sidx), static_cast<const double*>(covar),
         static_cast<double*>(X), static_cast<uint8_t*>(used),
         static_cast<int32_t*>(ncols), static_cast<uint8_t*>(filtered),
         static_cast<uint8_t*>(degenerate),
-        static_cast<int32_t*>(allele_paths), int(Pmax), N, int(C),
+        static_cast<int32_t*>(allele_paths), static_cast<double*>(norm),
+        static_cast<uint8_t*>(kept), int(Pmax), N, int(C),
         min_individuals, min_haplotypes, maf_threshold);
   }
   return int(cudaGetLastError());

@@ -24,8 +24,9 @@
 //
 //   U = D^T (used e_k) [PT],  T[k, s] = U^T Vinv U
 //
-// The chi-squared tail of max(T, 0) on df and the +inf of allbad or a
-// non-finite T follow as torch ops (pipeline/permutation.py).  The LDL^T
+// The chi-squared tail of max(T, 0) on df (csrc/chi2_tail.cu) and the
+// +inf of allbad or a non-finite T (torch ops) follow
+// (pipeline/permutation.py).  The LDL^T
 // is ldlt_device.cuh (Q2, K11), a zero pivot divided as 1.
 //
 // What bounds them on the card: score_precompute reads X and writes D

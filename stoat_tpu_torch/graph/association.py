@@ -9,9 +9,9 @@ the device is K6, ``_graph_stats_fused`` (:496-513):
 chi-squared 2x2, Fisher and chi-squared 2xN on every tested snarl's
 partition counts, one row per snarl, then the rows' splice and write.
 
-CUDA tensors run csrc/graph_stats.cu and then the chi-squared tail as
-torch ops (K5, as on the ``vcf -b`` path); CPU tensors run the plain
-version.  All three statistics are computed for every row, as in JAX;
+CUDA tensors run csrc/graph_stats.cu and then the chi-squared tails on
+csrc/chi2_tail.cu (K5, as on the ``vcf -b`` path); CPU tensors run the
+plain version.  All three statistics are computed for every row, as in JAX;
 the writer picks the 2x2 pair when a snarl has two partitions and the 2xN
 p otherwise.
 
@@ -103,8 +103,8 @@ def graph_stats(G0: torch.Tensor, G1: torch.Tensor,
     bool column mask; the 2x2 tests take the first two columns.
 
     CUDA tensors run csrc/graph_stats.cu, one thread per row, then the
-    chi-squared tails as torch ops; the kernel is launch-bound at any real
-    B.  CPU tensors run the plain version."""
+    two chi-squared tails on csrc/chi2_tail.cu; both are launch-bound at
+    any real B.  CPU tensors run the plain version."""
     if kernels_enabled(G0.device):
         return _graph_stats_cuda(G0, G1, mask)
     return graph_stats_plain(G0, G1, mask)

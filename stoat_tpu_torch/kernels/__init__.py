@@ -4,6 +4,8 @@ Each kernel has a wrapper beside its plain PyTorch version:
 ``pipeline/packed.py membership_counts`` (csrc/membership_counts.cu),
 ``pipeline/binary.py binary_tables`` (csrc/binary_tables.cu),
 ``stats/fisher.py fisher_exact_2x2`` (csrc/fisher.cu),
+``stats/special.py chi2_sf`` and ``stats/chi2.py finish_chi2_pvalues``
+(csrc/chi2_tail.cu),
 ``pipeline/quantitative.py quant_design`` (csrc/quant_design.cu; with
 ``all_rows`` for the mixed model's designs) and ``eqtl_ols_stats``
 (csrc/eqtl_ols.cu),
@@ -40,7 +42,8 @@ LAUNCHES: Dict[str, int] = {"membership_counts": 0, "binary_tables": 0,
                             "student_t": 0, "graph_stats": 0, "logreg": 0,
                             "perm_membership": 0, "perm_binary": 0,
                             "perm_ols": 0, "score_precompute": 0,
-                            "score_perm": 0, "eqtl_ols": 0}
+                            "score_perm": 0, "eqtl_ols": 0,
+                            "chi2_tail": 0}
 
 
 def reset_launch_counts() -> None:

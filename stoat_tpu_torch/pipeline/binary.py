@@ -11,7 +11,7 @@ The port of stoat_tpu/pipeline/binary.py:76-220.  Per snarl:
                 where maf = min(g1/colsum, 1 - g1/colsum)            (K3)
   kept == 2     chi2 2x2 (K3) + Fisher exact (K4)
   kept != 2     chi2 2xN (K3), Fisher NA
-  p_chi2        chi-squared tail (K5, torch.special.gammaincc)
+  p_chi2        chi-squared tail (K5, csrc/chi2_tail.cu)
 
 The JAX package's dense float32 membership twin is not ported: dense
 sources are packed on the host, which the JAX tests pin as value-identical.

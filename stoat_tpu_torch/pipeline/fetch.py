@@ -14,23 +14,48 @@ ported.)
 from __future__ import annotations
 
 import threading
-from typing import Dict, Iterator, Mapping
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["HostResult", "fetch_async"]
+__all__ = ["DeviceTables", "HostResult", "fetch_async"]
+
+
+class DeviceTables:
+    """A chunk's -T table view left where it was computed: norm float64
+    [S, N, Pmax], used bool [S, N] and kept bool [S, Pmax].  Only the rows
+    of the snarls that pass the threshold are gathered on the device and
+    copied to the host (norm is 656 MB per chunk of 8,192 snarls at 2,504
+    samples and Pmax = 4; users' thresholds keep a few rows)."""
+
+    def __init__(self, norm: torch.Tensor, used: torch.Tensor,
+                 kept: torch.Tensor):
+        self._tensors = (norm, used, kept)
+
+    def rows(self, snarls: Sequence[int]
+             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(norm, used, kept) of ``snarls``, in that order, on the host.
+        Called from the writer thread, it queues the gather on that
+        thread's current stream of the device, behind the chunk's work."""
+        device = self._tensors[0].device
+        idx = torch.as_tensor(list(snarls), dtype=torch.long, device=device)
+        return tuple(t.index_select(0, idx).cpu().numpy()
+                     for t in self._tensors)
 
 
 class HostResult(Mapping):
     """Read-only mapping of result key -> numpy array whose device copies
-    may still be in flight; the first read waits for them."""
+    may still be in flight; the first read waits for them.  ``tables``
+    is the chunk's :class:`DeviceTables` (-T), or None."""
 
-    def __init__(self, host: Dict[str, torch.Tensor], event=None):
+    def __init__(self, host: Dict[str, torch.Tensor], event=None,
+                 tables: Optional[DeviceTables] = None):
         self._host = host
         self._event = event          # torch.cuda.Event, None for CPU data
         self._ready = event is None
         self._lock = threading.Lock()
+        self.tables = tables
 
     def wait(self) -> None:
         """Block until every copy of this result has landed."""
@@ -50,8 +75,10 @@ class HostResult(Mapping):
         return len(self._host)
 
 
-def fetch_async(out: Dict[str, torch.Tensor]) -> HostResult:
-    """Start the host copies of a result dict and return its HostResult.
+def fetch_async(out: Dict[str, torch.Tensor],
+                tables: Optional[DeviceTables] = None) -> HostResult:
+    """Start the host copies of a result dict and return its HostResult
+    (carrying ``tables``, which stays on the device).
 
     CPU tensors are handed over as they are.  CUDA tensors get one pinned
     buffer and one non-blocking copy each on the current stream, then one
@@ -64,7 +91,7 @@ def fetch_async(out: Dict[str, torch.Tensor]) -> HostResult:
                          f"{sorted(map(str, devices))}")
     device = devices.pop()
     if device.type != "cuda":
-        return HostResult(dict(out))
+        return HostResult(dict(out), tables=tables)
     host = {}
     for key, t in out.items():
         buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -72,4 +99,4 @@ def fetch_async(out: Dict[str, torch.Tensor]) -> HostResult:
         host[key] = buf
     event = torch.cuda.Event()
     event.record(torch.cuda.current_stream(device))
-    return HostResult(host, event)
+    return HostResult(host, event, tables)

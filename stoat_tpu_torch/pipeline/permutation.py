@@ -9,7 +9,7 @@ one batch of 1 + K rows:
             per (k, snarl) the case counts against the packed case mask
             k, the table, filter and chi-squared statistic of K3
             (perm_binary_stats, csrc/perm_binary.cu), then the chi-squared
-            tail (K5, torch.special)
+            tail (K5, csrc/chi2_tail.cu)
   -q        Q1 (the design, with the covariates when given), then per
             (k, snarl) the OLS t statistic of y = phenos[k] * used with the
             snarl's inverse computed once (perm_ols_stats, csrc/perm_ols.cu),
@@ -18,7 +18,7 @@ one batch of 1 + K rows:
             score test: D, V^-1, df and the flags once per chunk
             (score_precompute), then T = U^T V^-1 U with U = D^T (used e_k)
             (score_perm_stats), both csrc/score_test.cu; then the
-            chi-squared tail
+            chi-squared tail (K5, csrc/chi2_tail.cu)
 
 Every p-value is then sanitised: filtered, invalid and non-finite tests
 score +inf (never significant, never in the null minimum).  Per snarl the

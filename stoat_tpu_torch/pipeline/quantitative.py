@@ -57,7 +57,8 @@ from stoat_tpu_torch.convert import DeviceChunk, to_device_chunk
 from stoat_tpu_torch.device import kernels_enabled
 from stoat_tpu_torch.kernels import F64, I64, VOIDP, check_tensor, launch
 from stoat_tpu_torch.pipeline.binary import binary_from_path_counts
-from stoat_tpu_torch.pipeline.fetch import HostResult, fetch_async
+from stoat_tpu_torch.pipeline.fetch import (DeviceTables, HostResult,
+                                            fetch_async)
 from stoat_tpu_torch.pipeline.packed import (membership_counts,
                                              membership_words_plain,
                                              unpack_membership_plain)
@@ -67,8 +68,9 @@ from stoat_tpu_torch.stats.linreg import (linear_regression_stats,
 from stoat_tpu_torch.stats.lmm import lmm_regression_batch
 from stoat_tpu_torch.stats.logreg import logistic_regression
 
-__all__ = ["DESIGN_KEYS", "design_from_membership_plain", "quant_design",
-           "quant_design_plain", "quantitative_analyze_chromosome",
+__all__ = ["DESIGN_KEYS", "TABLE_KEYS", "design_from_membership_plain",
+           "quant_design", "quant_design_plain",
+           "quantitative_analyze_chromosome",
            "binary_covar_analyze_chromosome", "dual_analyze_chromosome",
            "PrefixView", "lmm_analyze_chromosome",
            "eqtl_design_for_chromosome", "pair_snarls", "eqtl_ols_stats",
@@ -76,13 +78,16 @@ __all__ = ["DESIGN_KEYS", "design_from_membership_plain", "quant_design",
 
 DESIGN_KEYS = ("X", "used", "ncols", "filtered", "degenerate",
                "allele_paths")
+# the -T table view (stoat_tpu's norm and kept, :245-258)
+TABLE_KEYS = ("norm", "kept")
 
 
 def design_from_membership_plain(membership: torch.Tensor,
                                  snarl_path_idx: torch.Tensor,
                                  covar: torch.Tensor, min_individuals,
                                  min_haplotypes, maf_threshold,
-                                 all_rows: bool = False
+                                 all_rows: bool = False,
+                                 tables: bool = False
                                  ) -> Dict[str, torch.Tensor]:
     """Per-snarl OLS designs from the bool [P, H] membership (K8).
 
@@ -93,7 +98,9 @@ def design_from_membership_plain(membership: torch.Tensor,
     integers; X = float64(count) * (1.0 / float64(row_sum)), one rounding,
     as in stoat_tpu.  Rows of unused samples are all zero, unless
     ``all_rows`` (the mixed model's EMMAX designs), where they keep the
-    intercept and the covariates."""
+    intercept and the covariates.  With ``tables``, also ``TABLE_KEYS``:
+    norm float64 [S, N, Pmax], each kept column's dosage times the row's
+    reciprocal (0 elsewhere), and kept bool [S, Pmax]."""
     device = membership.device
     counts_path = membership.sum(dim=1, dtype=torch.int32)           # [P]
     m = membership.to(torch.uint8)
@@ -159,7 +166,7 @@ def design_from_membership_plain(membership: torch.Tensor,
         X[rows, :, 1 + k3 + c] = covar[None, :, c]
     if not all_rows:
         X = torch.where(used[:, :, None], X, 0.0)
-    return {
+    out = {
         "X": X.contiguous(),
         "used": used,
         "ncols": (1 + k3 + C).to(torch.int32),
@@ -167,12 +174,15 @@ def design_from_membership_plain(membership: torch.Tensor,
         "degenerate": degenerate,
         "allele_paths": allele_paths.to(torch.int32),
     }
+    if tables:
+        out.update(norm=Df * recip[:, :, None], kept=kept)
+    return out
 
 
 def quant_design_plain(chunk: DeviceChunk, covar: torch.Tensor,
                        min_individuals, min_haplotypes, maf_threshold,
-                       n_haplotypes: int, all_rows: bool = False
-                       ) -> Dict[str, torch.Tensor]:
+                       n_haplotypes: int, all_rows: bool = False,
+                       tables: bool = False) -> Dict[str, torch.Tensor]:
     """Plain PyTorch version of :func:`quant_design`: membership words
     (K1), unpacked to bool [P, H] (K7), then the design (K8)."""
     mem = membership_words_plain(chunk.words, chunk.path_idx)
@@ -180,11 +190,11 @@ def quant_design_plain(chunk: DeviceChunk, covar: torch.Tensor,
                                          n_haplotypes)
     return design_from_membership_plain(
         membership, chunk.snarl_path_idx, covar, min_individuals,
-        min_haplotypes, maf_threshold, all_rows=all_rows)
+        min_haplotypes, maf_threshold, all_rows=all_rows, tables=tables)
 
 
 def _quant_design_cuda(chunk, covar, min_individuals, min_haplotypes,
-                       maf_threshold, n_haplotypes, all_rows):
+                       maf_threshold, n_haplotypes, all_rows, tables):
     words, path_idx = chunk.words, chunk.path_idx
     device = words.device
     R, W = words.shape
@@ -213,10 +223,14 @@ def _quant_design_cuda(chunk, covar, min_individuals, min_haplotypes,
         "degenerate": empty((S,), torch.bool),
         "allele_paths": empty((S, Pmax), torch.int32),
     }
-    launch("quant_design", [VOIDP] * 11 + [I64] * 8 + [F64] * 3,
+    if tables:
+        out.update(norm=empty((S, N, Pmax), torch.float64),
+                   kept=empty((S, Pmax), torch.bool))
+    launch("quant_design", [VOIDP] * 13 + [I64] * 8 + [F64] * 3,
            [words.data_ptr(), path_idx.data_ptr(),
             chunk.path_valid.data_ptr(), chunk.snarl_path_idx.data_ptr(),
             covar.data_ptr(), *(out[key].data_ptr() for key in DESIGN_KEYS),
+            *(out[key].data_ptr() if tables else None for key in TABLE_KEYS),
             S, Pmax, K, W, N, C, n_haplotypes, int(all_rows),
             float(min_individuals), float(min_haplotypes),
             float(maf_threshold)], device)
@@ -225,21 +239,35 @@ def _quant_design_cuda(chunk, covar, min_individuals, min_haplotypes,
 
 def quant_design(chunk: DeviceChunk, covar: torch.Tensor, min_individuals,
                  min_haplotypes, maf_threshold, n_haplotypes: int,
-                 all_rows: bool = False) -> Dict[str, torch.Tensor]:
+                 all_rows: bool = False,
+                 tables: bool = False) -> Dict[str, torch.Tensor]:
     """Per-snarl OLS designs of a chunk, from its packed words (K1 + K7 +
     K8): ``DESIGN_KEYS``, as :func:`design_from_membership_plain` (with
-    ``all_rows``, the mixed model's designs over every sample).
+    ``all_rows``, the mixed model's designs over every sample; with
+    ``tables``, the -T table view ``TABLE_KEYS`` too).
 
     CUDA tensors run csrc/quant_design.cu, one block per snarl, which
     never writes the [P, W] or [P, H] membership: it is bound by writing X
-    (S * N * (1 + Pmax + C) * 8 bytes).  CPU tensors run the plain
-    version."""
+    (S * N * (1 + Pmax + C) * 8 bytes), and norm (S * N * Pmax * 8) with
+    the table view.  CPU tensors run the plain version."""
     if kernels_enabled(chunk.words.device):
         return _quant_design_cuda(chunk, covar, min_individuals,
                                   min_haplotypes, maf_threshold,
-                                  n_haplotypes, all_rows)
+                                  n_haplotypes, all_rows, tables)
     return quant_design_plain(chunk, covar, min_individuals, min_haplotypes,
-                              maf_threshold, n_haplotypes, all_rows)
+                              maf_threshold, n_haplotypes, all_rows, tables)
+
+
+def _finish(d: Dict[str, torch.Tensor], out: Dict[str, torch.Tensor],
+            tables: bool) -> HostResult:
+    """A chunk's result: ``out`` with the design's filter flags and
+    allele counts, its host copies started; with ``tables``, the design's
+    table view stays on the device (``HostResult.tables``)."""
+    view = (DeviceTables(d["norm"], d["used"], d["kept"]) if tables
+            else None)
+    return fetch_async({"filtered": d["filtered"],
+                        "allele_paths": d["allele_paths"], **out},
+                       tables=view)
 
 
 def quantitative_analyze_chromosome(packed, pheno: torch.Tensor,
@@ -247,7 +275,8 @@ def quantitative_analyze_chromosome(packed, pheno: torch.Tensor,
                                     min_individuals: int,
                                     min_haplotypes: int,
                                     maf_threshold: float, device,
-                                    words=None) -> HostResult:
+                                    words=None,
+                                    tables: bool = False) -> HostResult:
     """Run one packed chunk (a ``tables.PackedChromosome``)
     through the quantitative pipeline on ``device``: design, OLS of
     y = pheno * used, p-values and NA masking.
@@ -255,10 +284,11 @@ def quantitative_analyze_chromosome(packed, pheno: torch.Tensor,
     ``pheno`` float64 [N] and ``covar`` float64 [N, C] are on ``device``
     (convert.to_quant_inputs); ``words`` lets the caller share the
     chromosome's uploaded words across chunks.  Returns a
-    ``fetch.HostResult`` with filtered, allele_paths, p, beta, se, r2."""
+    ``fetch.HostResult`` with filtered, allele_paths, p, beta, se, r2, and
+    with ``tables`` the design's -T table view (``HostResult.tables``)."""
     chunk = to_device_chunk(packed, None, device, words=words)
     d = quant_design(chunk, covar, min_individuals, min_haplotypes,
-                     maf_threshold, packed.n_haplotypes)
+                     maf_threshold, packed.n_haplotypes, tables=tables)
     used = d["used"]
     y = pheno[None, :] * used
     t1, df_res, beta, se, r2 = linear_regression_stats(d.pop("X"), y, used,
@@ -267,15 +297,15 @@ def quantitative_analyze_chromosome(packed, pheno: torch.Tensor,
     # the allocator hands its memory to the next chunk's X only behind the
     # OLS launch on the same stream
     out = student_t_pvalues(t1, df_res, d["degenerate"], beta, se, r2)
-    return fetch_async({"filtered": d["filtered"],
-                        "allele_paths": d["allele_paths"], **out})
+    return _finish(d, out, tables)
 
 
 def binary_covar_analyze_chromosome(packed, pheno: torch.Tensor,
                                     min_individuals: int,
                                     min_haplotypes: int,
                                     maf_threshold: float, device,
-                                    words=None) -> HostResult:
+                                    words=None,
+                                    tables: bool = False) -> HostResult:
     """Run one packed chunk through ``vcf -b -c`` on ``device``: the design
     with no covariates (the reference's shadowing, kept on purpose), IRLS
     logistic regression of y = pheno * used, and NA where the snarl is
@@ -283,20 +313,20 @@ def binary_covar_analyze_chromosome(packed, pheno: torch.Tensor,
 
     ``pheno`` is the float64 [N] case indicator on ``device``
     (convert.to_binary_pheno).  Returns a ``fetch.HostResult`` with
-    filtered, allele_paths, p, beta, se."""
+    filtered, allele_paths, p, beta, se (and the table view with
+    ``tables``)."""
     chunk = to_device_chunk(packed, None, device, words=words)
     no_covar = torch.zeros((pheno.shape[0], 0), dtype=torch.float64,
                            device=pheno.device)
     d = quant_design(chunk, no_covar, min_individuals, min_haplotypes,
-                     maf_threshold, packed.n_haplotypes)
+                     maf_threshold, packed.n_haplotypes, tables=tables)
     used = d["used"]
     # X, alive through every Newton step, is released once K11 is queued:
     # the allocator reuses it only behind that launch, as after the OLS
     out = logistic_regression(d.pop("X"), pheno[None, :] * used, used,
                               d["ncols"], d["degenerate"])
     del out["iters"]                   # the Newton step counts stay behind
-    return fetch_async({"filtered": d["filtered"],
-                        "allele_paths": d["allele_paths"], **out})
+    return _finish(d, out, tables)
 
 
 def dual_analyze_chromosome(packed, pheno: Tuple[torch.Tensor, torch.Tensor],
@@ -356,7 +386,8 @@ class PrefixView:
 def lmm_analyze_chromosome(packed, rot: torch.Tensor, y_rot: torch.Tensor,
                            covar: torch.Tensor, min_individuals: int,
                            min_haplotypes: int, maf_threshold: float,
-                           device, words=None) -> HostResult:
+                           device, words=None,
+                           tables: bool = False) -> HostResult:
     """Run one packed chunk through the mixed model (``vcf -q -k
     --lmm``) on ``device``: the EMMAX design over every sample (Q1 with
     ``all_rows``), the rotation and OLS against the rotated phenotype (K14,
@@ -365,15 +396,16 @@ def lmm_analyze_chromosome(packed, rot: torch.Tensor, y_rot: torch.Tensor,
 
     ``rot`` float64 [N, N], ``y_rot`` [N] and ``covar`` [N, C] are on
     ``device`` (convert.to_lmm_inputs).  Returns a ``fetch.HostResult``
-    with filtered, allele_paths, p, beta, se, r2."""
+    with filtered, allele_paths, p, beta, se, r2 (and the table view with
+    ``tables``)."""
     chunk = to_device_chunk(packed, None, device, words=words)
     d = quant_design(chunk, covar, min_individuals, min_haplotypes,
-                     maf_threshold, packed.n_haplotypes, all_rows=True)
+                     maf_threshold, packed.n_haplotypes, all_rows=True,
+                     tables=tables)
     t1, df_res, beta, se, r2 = lmm_regression_batch(d.pop("X"), rot, y_rot,
                                                     d["ncols"])
     out = student_t_pvalues(t1, df_res, d["degenerate"], beta, se, r2)
-    return fetch_async({"filtered": d["filtered"],
-                        "allele_paths": d["allele_paths"], **out})
+    return _finish(d, out, tables)
 
 
 def eqtl_design_for_chromosome(packed, covar: torch.Tensor,

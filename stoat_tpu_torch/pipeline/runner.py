@@ -14,8 +14,11 @@ order.  eQTL runs inline instead, as in stoat_tpu (:551, :1067-1107): its
 gene pairing needs each chunk's filter flags on the host.  A
 ``secondary`` phenotype (:440-481) runs a second analysis on the same
 chunks into a second table; binary with a quantitative secondary shares
-one K1 pass (pipeline/quantitative.py dual_analyze_chromosome).
-``--resume`` checkpoints every completed chromosome in a
+one K1 pass (pipeline/quantitative.py dual_analyze_chromosome), unless -T
+asks for tables (:690-694).  With -T (``table_threshold``), the regression
+modes also write, for each snarl whose printed P passes the threshold, its
+sample x path table into ``regression_dir`` (:1019-1064); binary and eQTL
+runs write none.  ``--resume`` checkpoints every completed chromosome in a
 ``<output>.progress`` sidecar per output.
 
 The helpers below are copies of stoat_tpu/pipeline/runner.py:42-190,
@@ -45,6 +48,7 @@ from stoat_tpu_torch.convert import (chunk_words, pheno_masks,
                                      to_eqtl_expr, to_eqtl_pairs,
                                      to_lmm_inputs, to_quant_inputs,
                                      upload_words)
+from stoat_tpu_torch.formatting import is_pvalue_significant, pair_to_string
 from stoat_tpu_torch.io.phenotype import QtlData
 from stoat_tpu_torch.io.snarl_file import SnarlData
 from stoat_tpu_torch.io.vcf import VcfReader
@@ -306,15 +310,20 @@ class _Run:
     thresholds: tuple
     chunk_size: int
     window: int
+    table_threshold: float = -1
+    regression_dir: str = ""
+    samples: List[str] = field(default_factory=list)
     secondary: Optional[Dict] = None
     sec_fh: object = None
     consts: Dict[str, object] = field(default_factory=dict)
 
     @property
     def dual(self) -> bool:
-        """Binary with a quantitative secondary: one K1 pass for both."""
+        """Binary with a quantitative secondary: one K1 pass for both
+        (not with -T, as in stoat_tpu, :690-694)."""
         return (self.secondary is not None and self.mode == "binary"
-                and self.secondary["mode"] == "quantitative")
+                and self.secondary["mode"] == "quantitative"
+                and self.table_threshold == -1)
 
 
 def _inputs(run: _Run, key: str, mode: str, phenotype, packed, words):
@@ -349,16 +358,51 @@ def _analyze(run: _Run, key: str, mode: str, phenotype, packed, words):
         return (binary_analyze_chromosome(packed, phenotype, *th, device,
                                           words=words, pheno=c),
                 W.write_binary_rows_batch)
+    has_r2 = mode != "binary_covar"
+    tables = run.table_threshold != -1
+    if tables:
+        write = partial(_write_quant_family, threshold=run.table_threshold,
+                        regression_dir=run.regression_dir,
+                        samples=run.samples, has_r2=has_r2)
+    else:
+        write = partial(W.write_quant_rows_batch, has_r2=has_r2)
     if mode == "binary_covar":
-        return (binary_covar_analyze_chromosome(packed, c, *th, device,
-                                                words=words),
-                partial(W.write_quant_rows_batch, has_r2=False))
-    if mode == "quantitative":
-        return (quantitative_analyze_chromosome(packed, *c, *th, device,
-                                                words=words),
-                W.write_quant_rows_batch)
-    return (lmm_analyze_chromosome(packed, *c, *th, device, words=words),
-            W.write_quant_rows_batch)
+        res = binary_covar_analyze_chromosome(packed, c, *th, device,
+                                              words=words, tables=tables)
+    elif mode == "quantitative":
+        res = quantitative_analyze_chromosome(packed, *c, *th, device,
+                                              words=words, tables=tables)
+    else:
+        res = lmm_analyze_chromosome(packed, *c, *th, device, words=words,
+                                     tables=tables)
+    return res, write
+
+
+def _write_quant_family(outf, chrom, snarls, res, threshold: float,
+                        regression_dir: str, samples: List[str],
+                        has_r2: bool) -> int:
+    """A regression chunk under -T (stoat_tpu's _write_quant_family and
+    _maybe_write_table, :1019-1064): its rows through the batch writer,
+    whose bytes are the per-row writer's, then for each unfiltered snarl
+    whose printed P passes ``threshold`` its table (writer.cpp:181-208)
+    in ``regression_dir``: the used samples' normalised dosages over the
+    kept paths.  Only those snarls' rows of the table view leave the
+    device.  Returns the filtered count."""
+    filtered = W.write_quant_rows_batch(outf, chrom, snarls, res,
+                                        has_r2=has_r2)
+    filtered_arr, p_arr = res["filtered"], res["p"]
+    significant = [s for s in range(len(snarls)) if not filtered_arr[s]
+                   and is_pvalue_significant(threshold, W.format_p(p_arr[s]))]
+    if significant:
+        norm, used, kept = res.tables.rows(significant)
+        for i, s in enumerate(significant):
+            snarl = snarls[s]
+            W.write_significant_table(
+                os.path.join(regression_dir,
+                             pair_to_string(snarl.snarl_ids) + ".tsv"),
+                norm[i][used[i]][:, kept[i]], snarl.path_strings,
+                [name for name, u in zip(samples, used[i]) if u])
+    return filtered
 
 
 def _log_degenerate(chrom: str, matrix, n_snarls: int) -> None:
@@ -522,9 +566,11 @@ def run_vcf_analysis(
     mode: str = "binary",
     covariate: Optional[np.ndarray] = None,
     maf_threshold: float = 0.05,
+    table_threshold: float = -1,
     min_individuals: int = 3,
     min_haplotypes: int = 5,
     windows_gene_threshold: int = 1000000,
+    regression_dir: str = "",
     sample_names: Optional[List[str]] = None,
     snarl_chunk_size: int = 8192,
     secondary: Optional[Dict] = None,
@@ -548,8 +594,11 @@ def run_vcf_analysis(
     table (stoat_tpu, :440-446): a dict with ``mode`` (binary,
     binary_covar, quantitative or lmm), ``output_tsv`` and the mode's
     phenotype under ``binary_phenotype``, ``quantitative_phenotype`` or
-    ``lmm_ctx``; not with an eQTL primary.  Each output is byte-identical
-    to stoat_tpu's run_vcf_analysis with the same arguments."""
+    ``lmm_ctx``; not with an eQTL primary.  ``table_threshold`` other than
+    -1 (the CLI's -T) writes the regression modes' significant tables into
+    ``regression_dir``, which the caller has made, with the columns named
+    by ``sample_names``.  Each output is byte-identical to stoat_tpu's
+    run_vcf_analysis with the same arguments."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     if secondary is not None:
@@ -609,7 +658,8 @@ def run_vcf_analysis(
 
     run = _Run(mode, phenotype, covariate, device,
                (min_individuals, min_haplotypes, maf_threshold),
-               snarl_chunk_size, windows_gene_threshold, secondary)
+               snarl_chunk_size, windows_gene_threshold, table_threshold,
+               regression_dir, samples, secondary)
     total_analyzed = total_filtered = 0
     with _open_output(output_tsv, mode, prim_prog) as outf:
         if secondary is not None:

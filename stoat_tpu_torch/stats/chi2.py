@@ -3,8 +3,9 @@
 Plain PyTorch counterparts of stoat_tpu/stats/chi2.py:32-146, float64,
 with the same operations in the same order.  On the main path the
 hand-written kernel csrc/binary_tables.cu computes both statistics per
-snarl; these functions are its plain version's building blocks and the
-tail's entry point.  A zero row or column margin makes a table invalid
+snarl; these functions are its plain version's building blocks, and
+``finish_chi2_pvalues`` is the tail's entry point (csrc/chi2_tail.cu on
+CUDA tensors).  A zero row or column margin makes a table invalid
 ("NA"); a zero expected count gives the DBL_MAX sentinel.
 """
 
@@ -14,9 +15,11 @@ from typing import Tuple
 
 import torch
 
-from stoat_tpu_torch.stats.special import chi2_sf
+from stoat_tpu_torch.device import kernels_enabled
+from stoat_tpu_torch.stats.special import chi2_sf_plain, chi2_tail_cuda
 
-__all__ = ["chi2_2x2_stat", "chi2_2xn_stat", "finish_chi2_pvalues"]
+__all__ = ["chi2_2x2_stat", "chi2_2xn_stat", "finish_chi2_pvalues",
+           "finish_chi2_pvalues_plain"]
 
 _DBL_MAX = 1.7976931348623157e308
 
@@ -79,9 +82,20 @@ def chi2_2xn_stat(g0, g1, col_mask
     return stat, df, invalid
 
 
-def finish_chi2_pvalues(stat, df, invalid, zero_expected) -> torch.Tensor:
-    """Tail of the statistics above: NaN when invalid, DBL_MAX when an
-    expected count is zero, else the chi-squared survival function."""
-    p = chi2_sf(stat, df)
+def finish_chi2_pvalues_plain(stat, df, invalid,
+                              zero_expected) -> torch.Tensor:
+    """Plain PyTorch version of :func:`finish_chi2_pvalues`."""
+    p = chi2_sf_plain(stat, df)
     p = torch.where(zero_expected, torch.full_like(p, _DBL_MAX), p)
     return torch.where(invalid, torch.full_like(p, float("nan")), p)
+
+
+def finish_chi2_pvalues(stat, df, invalid, zero_expected) -> torch.Tensor:
+    """Tail of the statistics above: NaN when invalid, DBL_MAX when an
+    expected count is zero, else the chi-squared survival function (K5).
+
+    CUDA tensors run csrc/chi2_tail.cu, which applies both masks in the
+    same launch; CPU tensors run the plain version."""
+    if kernels_enabled(stat.device):
+        return chi2_tail_cuda(stat, df, invalid, zero_expected)
+    return finish_chi2_pvalues_plain(stat, df, invalid, zero_expected)

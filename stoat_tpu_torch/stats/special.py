@@ -1,12 +1,14 @@
 """Distribution tails, float64 (stoat_tpu/stats/special.py).
 
-K5, the chi-squared tail (:30-50), stays a library special function,
-``torch.special.gammaincc``, as the JAX package leaves it to
-``jax.scipy.special.gammaincc``.  At or below a statistic of 85 the
-reference computes ``1 - cdf`` in double precision; ``1 - (1 - q)``
-reproduces that rounding from the accurate upper tail.  Above 85 it
-evaluates the tail in 50-digit arithmetic, which the direct upper tail
-matches in float64.
+K5, the chi-squared tail (:30-50): ``chi2_sf_plain`` takes the upper
+incomplete gamma function from ``torch.special.gammaincc``, as the JAX
+package takes it from ``jax.scipy.special.gammaincc``; CUDA tensors run the
+hand-written kernel csrc/chi2_tail.cu, a transcription of the algorithm
+behind torch's CPU op (csrc/chi2_tail_device.cuh).  At or below a
+statistic of 85 the reference computes ``1 - cdf`` in double precision;
+``1 - (1 - q)`` reproduces that rounding from the accurate upper tail.
+Above 85 it evaluates the tail in 50-digit arithmetic, which the direct
+upper tail matches in float64.
 
 K10, the two-sided Student-t tail (:53-61), needs the regularized
 incomplete beta function, which torch does not have.  ``betainc_plain``
@@ -26,8 +28,12 @@ import math
 
 import torch
 
-__all__ = ["CHI2_HIGH_PRECISION_THRESHOLD", "chi2_sf", "betainc_plain",
-           "student_t_sf2_plain", "ndtr_plain", "normal_sf2_plain"]
+from stoat_tpu_torch.device import kernels_enabled
+from stoat_tpu_torch.kernels import I64, VOIDP, check_tensor, launch
+
+__all__ = ["CHI2_HIGH_PRECISION_THRESHOLD", "chi2_sf", "chi2_sf_plain",
+           "chi2_tail_cuda", "betainc_plain", "student_t_sf2_plain",
+           "ndtr_plain", "normal_sf2_plain"]
 
 CHI2_HIGH_PRECISION_THRESHOLD = 85.0
 _DBL_MIN = 2.2250738585072014e-308
@@ -38,8 +44,8 @@ _CF_ITERATIONS = 600
 _TWO_TINY = torch.finfo(torch.float64).tiny * 2
 
 
-def chi2_sf(stat: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
-    """Survival function of the chi-squared distribution (float64)."""
+def chi2_sf_plain(stat: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`chi2_sf`."""
     stat = stat.to(torch.float64)
     df = df.to(torch.float64)
     q = torch.special.gammaincc(df * 0.5, stat * 0.5)
@@ -48,6 +54,44 @@ def chi2_sf(stat: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
     q = torch.where(q < _DBL_MIN, 0.0, q)
     low = 1.0 - (1.0 - q)
     return torch.where(stat > CHI2_HIGH_PRECISION_THRESHOLD, q, low)
+
+
+def chi2_tail_cuda(stat: torch.Tensor, df: torch.Tensor, invalid=None,
+                   zero_expected=None) -> torch.Tensor:
+    """csrc/chi2_tail.cu on CUDA tensors: :func:`chi2_sf` of the
+    broadcast ``stat`` and ``df``, one thread per element; given the bool
+    masks too, ``finish_chi2_pvalues``'s DBL_MAX where ``zero_expected``
+    and NaN where ``invalid`` (stats/chi2.py)."""
+    stat, df = torch.broadcast_tensors(stat.to(torch.float64),
+                                       df.to(torch.float64))
+    stat, df = stat.contiguous(), df.contiguous()
+    device, shape = stat.device, tuple(stat.shape)
+    check_tensor(stat, "stat", torch.float64, shape, device)
+    check_tensor(df, "df", torch.float64, shape, device)
+    masks = [None, None]
+    if invalid is not None:
+        masks = [m.expand(shape).contiguous()
+                 for m in (invalid, zero_expected)]
+        for name, m in zip(("invalid", "zero_expected"), masks):
+            check_tensor(m, name, torch.bool, shape, device)
+    p = torch.empty(shape, dtype=torch.float64, device=device)
+    launch("chi2_tail", [VOIDP] * 5 + [I64],
+           [stat.data_ptr(), df.data_ptr(),
+            *(None if m is None else m.data_ptr() for m in masks),
+            p.data_ptr(), p.numel()], device)
+    return p
+
+
+def chi2_sf(stat: torch.Tensor, df: torch.Tensor) -> torch.Tensor:
+    """Survival function of the chi-squared distribution (float64), of
+    ``stat`` and ``df`` broadcast together; subnormal p flushed to 0.
+
+    CUDA tensors run csrc/chi2_tail.cu, one thread per element, which is
+    bound by launch latency and the series' iterations, not by bytes; CPU
+    tensors run the plain version."""
+    if kernels_enabled(stat.device):
+        return chi2_tail_cuda(stat, df)
+    return chi2_sf_plain(stat, df)
 
 
 def _flush(v: torch.Tensor) -> torch.Tensor:

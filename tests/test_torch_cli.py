@@ -170,14 +170,13 @@ def _spy(real, seen):
 
 @pytest.mark.parametrize("argv", [
     ["vcf", "-g"], ["simulate"],
-    ["vcf", "-m"], ["vcf", "--permutations", "10"], ["vcf", "-T", "0.01"],
+    ["vcf", "--gaf"], ["plot", "manhattan"], ["BHcorrect", "-t", "x"],
     ["vcf", "--no-such-flag"], ["truth"], ["BHcorrect"],
-    ["vcf", "-y", "2"], ["plot", "qq"]])
+    ["simulate", "-o", "x"], ["plot", "qq"]])
 def test_unported_modes_exit_nonzero_naming_roadmap(argv, capsys):
-    """The GAF output (-g), the decomposition's flags (-y), -T tables,
-    --make-bed, a run without a phenotype and the simulate, truth,
-    BHcorrect and plot subcommands are refused before anything runs, never
-    run on another path."""
+    """The GAF output (-g/--gaf), an option stoat_tpu's vcf does not have
+    either, and the simulate, truth, BHcorrect and plot subcommands are
+    refused before anything runs, never run on another path."""
     assert torch_cli.main(argv) != 0
     assert "ROADMAP.md" in capsys.readouterr().err
 

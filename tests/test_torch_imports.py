@@ -38,8 +38,9 @@ def test_port_runs_without_jax_or_triton(tmp_path):
     module, and whole CPU runs of ``vcf -b``, ``vcf -b -c``, ``vcf -q``,
     ``vcf -q -c`` and the dual ``vcf -b -q`` (each alone and with
     ``--permutations 20``), of eQTL (``-e -G -c``), of the mixed model
-    (``-q -k --lmm -c``), of the ``-p/-d`` decomposition route and of
-    ``graph``, then importing chip_smoke.py, leave jax, jaxlib, triton and
+    (``-q -k --lmm -c``), of ``-q -c -T 1.0`` (the regression tables), of
+    the ``-p/-d`` decomposition route, alone (case 3) and with a GWAS, and
+    of ``graph``, then importing chip_smoke.py, leave jax, jaxlib, triton and
     every stoat_tpu module out of sys.modules and need no CUDA toolkit (no
     kernel is built).  The decomposition inputs are written here: the
     module that writes them imports stoat_tpu."""
@@ -105,11 +106,22 @@ def test_port_runs_without_jax_or_triton(tmp_path):
                 assert fh.readline().startswith("#CHR")
                 assert fh.readline()
         rc = stoat_tpu_torch.cli.main(
+            ["vcf", "-s", p["snarl"], "-v", p["vcf"], "-q", p["quantitative"],
+             *covar, "-T", "1.0", "-o", out, "--device", "cpu"])
+        assert rc == 0, rc
+        assert os.listdir(os.path.join(out, "regression"))
+        rc = stoat_tpu_torch.cli.main(
             ["vcf", "-p", {gfa!r}, "-d", {dist!r}, "-v", {dvcf!r}, "-b",
              {dpheno!r}, "-o", out, "--device", "cpu"])
         assert rc == 0, rc
         with open(os.path.join(out, "binary_table_vcf.tsv")) as fh:
             assert len(fh.readlines()) > 1
+        case3 = os.path.join(out, "case3")
+        rc = stoat_tpu_torch.cli.main(["vcf", "-p", {gfa!r}, "-d", {dist!r},
+                                       "-o", case3])
+        assert rc == 0, rc
+        assert sorted(os.listdir(case3)) == ["snarl_analyse.tsv",
+                                             "snarl_not_analyse.tsv"]
         import importlib.util
         spec = importlib.util.spec_from_file_location(
             "chip_smoke", os.path.join({REPO!r}, "chip_smoke.py"))
@@ -278,5 +290,5 @@ def test_launch_counts_reset():
                                      "student_t", "graph_stats", "logreg",
                                      "perm_membership", "perm_binary",
                                      "perm_ols", "score_precompute",
-                                     "score_perm", "eqtl_ols"}
+                                     "score_perm", "eqtl_ols", "chi2_tail"}
     assert all(v == 0 for v in kernels.LAUNCHES.values())

@@ -17,8 +17,9 @@ registers and spills printed.  Both then run through the port's own
 wrapper on the same inputs, the first chunk of ``vcf -q -c -C AGE,SEX`` on
 chip_smoke.py's cohort (2,504 samples; ``--snarls`` over 2 chromosomes,
 8,192 per chunk; perm_ols with the observed phenotype and 64
-Freedman-Lane permutations; quant_design's OLS design, ``all_rows`` off,
-launched with the argument list each version's source declares), in the
+Freedman-Lane permutations; quant_design's OLS design, ``all_rows`` off
+and no table view, launched with the argument list each version's source
+declares), in the
 order A B B A for ``--rounds`` rounds (A is the candidate).  It prints each version's ms per call (CUDA events,
 the median of its rounds), its device ms per call (torch.profiler) and
 whether the two versions' outputs are equal bit for bit, then the card's
@@ -75,18 +76,21 @@ def perm_ols_inputs(cs, device, snarls, work):
 
 def quant_design_inputs(cs, device, snarls, work, versions):
     """A zero-argument call of the quant_design kernel on the first ``vcf
-    -q -c`` chunk (the OLS design: all_rows off), and X's shape.  The call
-    passes ``all_rows`` only to a version whose source declares it
-    (``versions``: tag -> source directory), read from the tag that
-    ``use`` last set (STATE)."""
+    -q -c`` chunk (the OLS design: all_rows off, no table view), and X's
+    shape.  The call passes ``all_rows`` only to a version whose source
+    declares it, and the table view's two (null) output pointers only to
+    one that declares kTables (``versions``: tag -> source directory),
+    read from the tag that ``use`` last set (STATE)."""
     import torch
     from stoat_tpu_torch.kernels import F64, I64, VOIDP, launch
     from stoat_tpu_torch.pipeline.quantitative import DESIGN_KEYS
     d, chunk, _qpheno, qcovar, _case = quant_chunk(cs, device, snarls, work)
-    with_flag = {}
+    with_flag, with_tables = {}, {}
     for tag, src in versions.items():
         with open(os.path.join(src, "quant_design.cu")) as fh:
-            with_flag[tag] = "all_rows" in fh.read()
+            text = fh.read()
+        with_flag[tag] = "all_rows" in text
+        with_tables[tag] = "kTables" in text
     W = int(chunk.words.shape[1])
     K = int(chunk.path_idx.shape[1])
     S, Pmax = chunk.snarl_path_idx.shape
@@ -95,14 +99,15 @@ def quant_design_inputs(cs, device, snarls, work, versions):
     out = {key: torch.empty_like(d[key]) for key in DESIGN_KEYS}
 
     def call():
-        ints = [S, Pmax, K, W, N, C, H] + ([0] if with_flag[STATE["tag"]]
-                                           else [])
+        tag = STATE["tag"]
+        ints = [S, Pmax, K, W, N, C, H] + ([0] if with_flag[tag] else [])
+        tables = [None, None] if with_tables[tag] else []
         launch("quant_design",
-               [VOIDP] * 11 + [I64] * len(ints) + [F64] * 3,
+               [VOIDP] * (11 + len(tables)) + [I64] * len(ints) + [F64] * 3,
                [chunk.words.data_ptr(), chunk.path_idx.data_ptr(),
                 chunk.path_valid.data_ptr(), chunk.snarl_path_idx.data_ptr(),
                 qcovar.data_ptr(), *(out[k].data_ptr() for k in DESIGN_KEYS),
-                *ints, *map(float, cs.THRESHOLDS)], device)
+                *tables, *ints, *map(float, cs.THRESHOLDS)], device)
         return [out[k] for k in DESIGN_KEYS]
     return call, tuple(d["X"].shape)
 
