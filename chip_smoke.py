@@ -25,7 +25,8 @@ printing lines and each fatal on failure:
      of rotation, OLS and tail; the chi-squared tail chi2_tail on the
      tail grid, a random grid of 10^6 and the first chunk's statistics;
      quant_design's -T table view on the OLS and all-rows designs) and on
-     edge cases (tolerances printed);
+     edge cases, the permutation kernels' tile edges among them
+     (tolerances printed);
   4. main paths: the port's CLI with ``--device cuda``: ``vcf -b``, ``vcf
      -q``, ``vcf -q -c -C AGE,SEX`` and ``vcf -b -c -C AGE,SEX`` on a
      generated cohort of 2,504 samples (the 1000 Genomes phase-3 size)
@@ -59,7 +60,9 @@ printing lines and each fatal on failure:
      over its peak rate, whichever is larger), the wall of each
      permutation pass, and the mixed model's rotation (one float64 GEMM)
      beside its bound; chi2_tail beside torch.special.gammaincc on the
-     same inputs (its library_ms), and quant_design's table view.
+     same inputs (its library_ms), perm_ols and score_perm beside one
+     torch.matmul of their GEMM core alone (theirs), and quant_design's
+     table view.
 
 The last two lines of standard output are a JSON object of the kernels and
 the contract line {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -1770,6 +1773,150 @@ def compare_score(X, used, ncols, bad, Z, w, e, err, what):
     return (*got, T), (ev, et)
 
 
+# the permutation kernels' tile edges (perm_gemm_device.cuh): S not a
+# multiple of the snarl group, ragged sample steps with N P odd, one row
+# and a ragged K tile, designs of one and of two blocks of 8 columns
+TILE_S = 17
+TILE_N = (33, 37)
+TILE_K = (1, 65)
+TILE_P = (2, 5, 9, 12)
+# and the wider designs of pass B's other paths (Pp = 24, 32; P > 32 reads
+# beta from shared memory), (N, P) at K = 65
+TILE_WIDE = ((150, 17), (150, 30), (150, 40), (150, 70))
+# the wide tile (KT = 16, nt = 8): perm_ols from P = 121 (here N P odd,
+# the 8-byte copies), score_perm from P = 186; (S, N, P) at K = 65
+TILE_FALLBACK = {"perm_ols": (5, 301, 121), "score_perm": (5, 400, 190)}
+NAN_SAMPLE = 3
+
+
+def tile_case(seed, S, N, K, P, rank_deficient=True):
+    """Inputs at a tile edge, numpy: S designs X [S, N, P] (an intercept, 1
+    to P - 1 dosage fractions, rows of unused samples zero, sample
+    NAN_SAMPLE used by no snarl; with ``rank_deficient`` snarl 0 has a
+    repeated column, or a constant one at P = 2), used [S, N], ncols [S],
+    phenotype and residual rows [K, N] (with K > 1 row K // 2 NaN at
+    NAN_SAMPLE), the reduced design Z [N, 3] and weights w [N].  Returns
+    (X, used, ncols, phenos, e, Z, w)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    used = rng.random((S, N)) < 0.8
+    used[:, NAN_SAMPLE] = False
+    ncols = rng.integers(2, P + 1, S).astype(np.int32)
+    X = np.zeros((S, N, P))
+    X[:, :, 0] = 1.0
+    for s in range(S):
+        X[s, :, 1:ncols[s]] = rng.random((N, ncols[s] - 1))
+    if rank_deficient and P >= 3:
+        ncols[0] = 3
+        X[0, :, 2] = X[0, :, 1]
+    elif rank_deficient:
+        X[0, :, 1] = 0.5
+    X[~used] = 0.0
+    phenos = rng.standard_normal((K, N)) + 2.0
+    e = rng.standard_normal((K, N)) * 0.5
+    if K > 1:
+        phenos[K // 2, NAN_SAMPLE] = np.nan
+        e[K // 2, NAN_SAMPLE] = np.nan
+    Z = np.column_stack([np.ones(N), rng.standard_normal((N, 2))])
+    w = rng.random(N) * 0.25 + 0.01
+    return X, used, ncols, phenos, e, Z, w
+
+
+def perm_tile_fallback(device, err):
+    """K16a and K16c kernel vs plain on the wide tile (TILE_FALLBACK; full
+    rank): perm_ols t1 within OLS_REL against the plain version on the
+    CPU (its LDL^T is a loop of small ops), df exact; score_perm T within
+    SCORE_REL on a random symmetric V^-1; the NaN row NaN on every snarl.
+    Returns a short description."""
+    import numpy as np
+    from stoat_tpu_torch.pipeline import permutation as pm
+    K, nan_row = 65, 65 // 2
+    S, N, P = TILE_FALLBACK["perm_ols"]
+    X, used, ncols, phenos, _e, _Z, _w = tile_case(7, S, N, K, P, False)
+    t1, df = pm.perm_ols_stats(*(upload_t(a, device)
+                                 for a in (X, used, ncols, phenos)))
+    p1, pdf = pm.perm_ols_stats_plain(*(upload_t(a, "cpu")
+                                        for a in (X, used, ncols, phenos)))
+    a, b = to_np(t1), to_np(p1)
+    e_ols = stat_err("t1", a, b)
+    check(e_ols <= OLS_REL, f"perm_ols (wide tile, P = {P}): t1 error "
+          f"{e_ols:.3g} > {OLS_REL:g}")
+    check(np.array_equal(to_np(df), to_np(pdf)),
+          f"perm_ols (wide tile, P = {P}): df differs")
+    check(np.isnan(a[nan_row]).all()
+          and not np.isnan(np.delete(a, nan_row, 0)).any(),
+          f"perm_ols (wide tile, P = {P}): the NaN row is not NaN alone")
+    err["perm_ols"] = max(err["perm_ols"], max_abs_err(a, b))
+    S, N, P = TILE_FALLBACK["score_perm"]
+    D, used, _n, _p, e, _Z, _w = tile_case(8, S, N, K, P, False)
+    rng = np.random.default_rng(9)
+    M = rng.standard_normal((S, P, P)) / P
+    Vinv = M @ M.transpose(0, 2, 1) + np.eye(P)
+    args = [upload_t(x, device) for x in (D, used, Vinv, e)]
+    T, Tp = to_np(pm.score_perm_stats(*args)), \
+        to_np(pm.score_perm_stats_plain(*args))
+    fin = np.isfinite(Tp)
+    check(np.array_equal(np.isfinite(T), fin) and not fin[nan_row].any()
+          and fin[np.arange(K) != nan_row].all(),
+          f"score_perm (wide tile, P = {P}): non-finite T differ")
+    e_sc = float(np.max(np.abs(T[fin] - Tp[fin])
+                        / np.maximum(np.abs(Tp[fin]), 1.0)))
+    check(e_sc <= SCORE_REL, f"score_perm (wide tile, P = {P}): T error "
+          f"{e_sc:.3g}")
+    err["score_perm"] = max(err["score_perm"], max_abs_err(T[fin], Tp[fin]))
+    return (f"wide tile: perm_ols (S, N, P) {TILE_FALLBACK['perm_ols']} t1 "
+            f"within {e_ols:.3g}, score_perm {TILE_FALLBACK['score_perm']} T "
+            f"within {e_sc:.3g}")
+
+
+def perm_tile_grid(device, err):
+    """K16a and K16c kernel vs plain at the tile edges, every (N, K, P) of
+    TILE_N x TILE_K x TILE_P and TILE_WIDE at S = TILE_S: t1 within OLS_REL
+    (OLS_PINV_REL on the rank-deficient snarl), df exact, T within
+    SCORE_REL; with K > 1 a NaN at sample NAN_SAMPLE, which no snarl uses,
+    makes its row's t1 and T NaN on every snarl (0 x NaN, as in JAX) and
+    its score-test p +inf; then the wide tile (perm_tile_fallback).
+    Returns a short description."""
+    import numpy as np
+    import torch
+    from stoat_tpu_torch.pipeline import permutation as pm
+    worst_t1 = worst_T = 0.0
+    cases = 0
+    shapes = [(N, K, P) for N in TILE_N for K in TILE_K for P in TILE_P]
+    for N, K, P in shapes + [(N, 65, P) for N, P in TILE_WIDE]:
+        X, used, ncols, phenos, e, Z, w = (
+            upload_t(a, device) for a in tile_case(
+                1000 * N + 10 * K + P, TILE_S, N, K, P))
+        pinv, _ = pinv_rows(X, ncols)
+        nan_row = K // 2 if K > 1 else None
+        what = f"tile edge S = {TILE_S}, N = {N}, K = {K}, P = {P}"
+        t1, df, e_ols = compare_perm_ols(X, used, ncols, phenos, err, pinv,
+                                         what)
+        bad = torch.zeros(TILE_S, dtype=torch.bool, device=device)
+        got, (_ev, et) = compare_score(X, used, ncols, bad, Z, w, e, err,
+                                       what)
+        if nan_row is not None:
+            check(np.isnan(to_np(t1)[nan_row]).all()
+                  and not np.isnan(np.delete(to_np(t1), nan_row,
+                                             axis=0)).any(),
+                  f"perm_ols ({what}): a NaN at an unused sample "
+                  f"does not make row {nan_row}'s t1 NaN alone")
+            T = to_np(got[4])
+            ps = to_np(pm.score_perm_pvalues(got[4], got[2], got[3]))
+            check(np.isnan(T[nan_row]).all()
+                  and np.isinf(ps[nan_row]).all(),
+                  f"score_perm ({what}): a NaN at an unused sample "
+                  f"does not make row {nan_row}'s T NaN")
+        worst_t1, worst_T = max(worst_t1, e_ols), max(worst_T, et)
+        cases += 1
+    return (f"tile edges: {cases} shapes (S = {TILE_S}; N {TILE_N}, K "
+            f"{TILE_K}, P {TILE_P}; (N, P) {TILE_WIDE} at K = 65), perm_ols "
+            f"t1 within {worst_t1:.3g}, "
+            f"score_perm T within {worst_T:.3g}, a NaN at an unused sample "
+            f"NaN on every snarl of its row, score p +inf; "
+            f"{perm_tile_fallback(device, err)}")
+
+
 def perm_edge_cases(device, err):
     """Phase 3's permutation edge cases: rank-deficient designs (the
     pseudo-inverse) and a filtered snarl for K16a; an ill-conditioned
@@ -1831,7 +1978,7 @@ def perm_edge_cases(device, err):
             f"Z^T W Z flags all of them; V^-1 error "
             f"{max(o[1] for o in outs):.3g},"
             f" T error {max(o[2] for o in outs):.3g}; K15 on W = 3 and W = 2"
-            f" words with 40 masks bitwise)")
+            f" words with 40 masks bitwise; {perm_tile_grid(device, err)})")
 
 
 def phase_perm_kernels(torch, device, chunks, quant, logit, err):
@@ -3718,9 +3865,16 @@ def phase_graph(torch, graph, twin, work):
     return launches, wall_cuda
 
 
+# the device kernels of an entry point beside <name>_kernel (perm_ols runs
+# two; tools/kernel_ab.py times sources with either)
+DEVICE_KERNELS = {"perm_ols": ("perm_ols", "perm_ols_inverse",
+                               "perm_ols_main")}
+
+
 def device_ms(torch, calls):
-    """Device time per call of each named kernel under torch.profiler:
-    {name: ms}, None where the trace shows no device time."""
+    """Device time per call of each named kernel under torch.profiler
+    (every device kernel of its entry point): {name: ms}, None where the
+    trace shows no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     reps = 5
@@ -3737,7 +3891,8 @@ def device_ms(torch, calls):
     out = {}
     for name in calls:
         # the whole name: "ols_kernel" must not match perm_ols_kernel
-        pattern = re.compile(rf"(?<![A-Za-z0-9_]){name}_kernel\b")
+        names = "|".join(DEVICE_KERNELS.get(name, (name,)))
+        pattern = re.compile(rf"(?<![A-Za-z0-9_])({names})_kernel\b")
         us = sum(getattr(e, key) for e in averages
                  if e.device_type == DeviceType.CUDA
                  and pattern.search(e.key))
@@ -3869,6 +4024,12 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
     halves = (k5[1] * 0.5, k5[0] * 0.5)
     library = {"chi2_tail": cuda_ms(
         lambda: torch.special.gammaincc(*halves), 50)}
+    # the permutation kernels' GEMM core alone, one torch.matmul each (the
+    # port never calls them): X^T Y for K16a, D^T e for K16c
+    library["perm_ols"] = cuda_ms(
+        lambda: m["X"].transpose(1, 2) @ m["phenos"].T, 3, warmup=1)
+    library["score_perm"] = cuda_ms(
+        lambda: m["D"].transpose(1, 2) @ m["e"].T, 3, warmup=1)
     dev = device_ms(torch, calls)
     # graph_stats launches chi2_tail for its two tails: chi2_tail's own
     # device time comes from a window of its own
@@ -3882,6 +4043,8 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         cuda_ms(lambda: pm.perm_ols_stats_plain(*pols5), 1, warmup=0))
     dev[q5] = device_ms(torch, {"perm_ols": lambda: pm.perm_ols_stats(
         *pols5)})["perm_ols"]
+    library[q5] = cuda_ms(lambda: m["bX"].transpose(1, 2) @ m["phenos_q"].T,
+                          3, warmup=1)
     work = {
         "membership_counts": {"words": chunk.words,
                               "path_idx": chunk.path_idx,
@@ -3969,7 +4132,10 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
             f"{bounds[k][0]:.4f} {bounds[k][1]})"
             for k, (a, b) in times.items())
         + f"; library (one PyTorch call of the same function): chi2_tail "
-        f"{library['chi2_tail']:.4f} (torch.special.gammaincc); chi2_tail "
+        f"{library['chi2_tail']:.4f} (torch.special.gammaincc); GEMM core "
+        f"only (one torch.matmul, X^T Y or D^T e): perm_ols "
+        f"{library['perm_ols']:.4f}, {q5} {library[q5]:.4f}, score_perm "
+        f"{library['score_perm']:.4f}; chi2_tail "
         f"on the first vcf -b chunk's statistics and masks; permutation "
         f"kernels at K = {PERM_FULL + 1} rows; eqtl_ols on "
         f"{md['n_pairs']} pairs of {md['n_with']} snarls; the mixed model's "
@@ -4413,7 +4579,8 @@ def run(args):
     launches, err, times, dev, bounds, library = smoke(
         torch, device, args, smi, make_fixture)
     # library_ms: one PyTorch call computes K5's function
-    # (torch.special.gammaincc); none computes any of the others
+    # (torch.special.gammaincc); for perm_ols and score_perm it is their
+    # GEMM core alone (one torch.matmul); none computes any of the others
     kernels_json = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],

@@ -31,15 +31,18 @@
 //
 // What bounds them on the card: score_precompute reads X and writes D
 // (2 S N PT 8 bytes, 1.6 GB per chunk at S = 8,192, N = 2,504, PT = 5:
-// 0.49 ms at 3.35 TB/s); score_perm does 2 N PT flops per (k, s), 2.1e11
-// per chunk at K = 1,001, 6.1 ms at the card's 34 TFLOP/s vector float64
-// rate.
-// Design: one block per snarl for each.  score_precompute streams the rows
-// through shared memory in tiles, writes D's rows, and sums the entries of
-// D^T W D, D^T W Z and Z^T W Z, each thread owning entries and adding the
-// tile's rows in order; thread 0 does the small algebra.  score_perm
-// takes the residual rows 32 at a time, streams D and the 32 rows once for
-// U (each thread owning (k, p) entries), then one thread per k forms T.
+// 0.49 ms at 3.35 TB/s); score_perm does 2 N Pp flops per (k, s) (Pp = PT
+// rounded up to 8), 3.3e11 per chunk at K = 1,001, 4.9 ms at the card's 67
+// TFLOP/s float64 tensor-core peak.
+// Design: score_precompute, one block per snarl, streams the rows through
+// shared memory in tiles, writes D's rows, and sums the entries of D^T W D,
+// D^T W Z and Z^T W Z, each thread owning entries and adding the tile's
+// rows in order; thread 0 does the small algebra.  score_perm is the tile
+// product of perm_gemm_device.cuh with A = D and Y = e: one block per group
+// of G snarls x KT residual rows (the K tile fastest) forms U on the
+// float64 tensor cores, and one thread per (snarl, row) forms T, reading
+// V^-1 through the read-only cache.  The residual matrix is read from L2
+// once per snarl group.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC
@@ -50,11 +53,11 @@
 #include <cuda_runtime.h>
 
 #include "ldlt_device.cuh"
+#include "perm_gemm_device.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kPerms = 32;          // residual rows per pass over D
 constexpr int kMaxTileRows = 128;
 constexpr size_t kBudget = 44 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
@@ -221,69 +224,53 @@ __global__ void score_precompute_kernel(
       bad[s] || bad_g || bad_v || !isfinite(total) || df < 1.0 ? 1 : 0;
 }
 
-__global__ void score_perm_kernel(const double* __restrict__ D,
-                                  const uint8_t* __restrict__ mask,
-                                  const double* __restrict__ vinv,
-                                  const double* __restrict__ e,
-                                  double* __restrict__ T_out, int64_t N,
-                                  int PT, int64_t K, int64_t S, int TR) {
-  extern __shared__ double smem[];
-  double* ds = smem;                 // [TR * PT]
-  double* es = ds + TR * PT;         // [kPerms * TR]
-  double* U = es + kPerms * TR;      // [kPerms * PT]
-
+__global__ void __launch_bounds__(stoat::pg::kThreads, 2)
+    score_perm_kernel(const double* __restrict__ D,
+                      const uint8_t* __restrict__ mask,
+                      const double* __restrict__ vinv,
+                      const double* __restrict__ e,
+                      double* __restrict__ T_out, stoat::pg::Tile t) {
+  extern __shared__ __align__(16) char tile_smem[];
+  char* smem = tile_smem;
+  double* U = reinterpret_cast<double*>(smem + t.off_c);
   const int tid = threadIdx.x;
-  const int64_t s = blockIdx.x;
-  const double* Dsn = D + s * N * PT;
-  const uint8_t* msrc = mask + s * N;
-  const double* Vi = vinv + s * PT * PT;
+  const int PT = t.P;
+  int64_t s0, k0;
+  stoat::pg::block_coords(t, &s0, &k0);
 
-  for (int64_t k0 = 0; k0 < K; k0 += kPerms) {
-    const int nk = int(K - k0 < kPerms ? K - k0 : kPerms);
-    for (int q = tid; q < nk * PT; q += kThreads) U[q] = 0.0;
-    __syncthreads();
-    for (int64_t n0 = 0; n0 < N; n0 += TR) {
-      const int rows = int(N - n0 < TR ? N - n0 : TR);
-      for (int x = tid; x < rows * PT; x += kThreads) ds[x] = Dsn[n0 * PT + x];
-      for (int x = tid; x < nk * rows; x += kThreads) {
-        const int kk = x / rows;
-        const int r = x % rows;
-        es[kk * TR + r] =
-            (msrc[n0 + r] ? 1.0 : 0.0) * e[(k0 + kk) * N + n0 + r];
+  // U = D^T (used e_k) as the tile product
+  stoat::pg::product(t, smem, D, mask, e, s0, k0, U);
+  __syncthreads();
+  // T = U^T V^-1 U, one thread per (snarl, row), in the parent's order;
+  // V^-1 through the read-only cache
+  for (int x = tid; x < t.G * t.KT; x += stoat::pg::kThreads) {
+    const int g = x % t.G;
+    const int k = x / t.G;
+    const int64_t s = s0 + g;
+    if (s >= t.S || k0 + k >= t.K) continue;
+    const double* u = U + g * t.Pp * t.CS + k;
+    const double* Vi = vinv + s * PT * PT;
+    double T = 0.0;
+    for (int p = 0; p < PT; ++p) {
+      double vu = 0.0;
+      for (int q = 0; q < PT; ++q) {
+        vu = vu + __ldg(Vi + p * PT + q) * u[q * t.CS];
       }
-      __syncthreads();
-      for (int q = tid; q < nk * PT; q += kThreads) {
-        const double* ek = es + (q / PT) * TR;
-        const int p = q % PT;
-        double acc = 0.0;
-        for (int r = 0; r < rows; ++r) acc = acc + ds[r * PT + p] * ek[r];
-        U[q] += acc;
-      }
-      __syncthreads();
+      T = T + u[p * t.CS] * vu;
     }
-    if (tid < nk) {
-      const double* u = U + tid * PT;
-      double t = 0.0;
-      for (int p = 0; p < PT; ++p) {
-        double vu = 0.0;
-        for (int q = 0; q < PT; ++q) vu = vu + Vi[p * PT + q] * u[q];
-        t = t + u[p] * vu;
-      }
-      T_out[(k0 + tid) * S + s] = t;
-    }
-    __syncthreads();
+    T_out[(k0 + k) * t.S + s] = T;
   }
 }
 
-// rows per tile: as many as kBudget allows beside fixed, at most
+// rows per tile: as many as kBudget allows, at most
 // kMaxTileRows, at least 16; 0 when even that exceeds the card's limit
-int tile_rows(size_t fixed, size_t per_row, size_t* smem) {
+int tile_rows(size_t per_row, size_t* smem) {
   int TR = kMaxTileRows;
-  if (fixed + TR * per_row > kBudget) {
-    TR = fixed < kBudget ? int((kBudget - fixed) / per_row) : 0;
+  if (TR * per_row > kBudget) {
+    TR = int(kBudget / per_row);
     if (TR < 16) TR = 16;
   }
-  *smem = fixed + size_t(TR) * per_row;
+  *smem = size_t(TR) * per_row;
   return *smem > kMaxSmem ? 0 : TR;
 }
 
@@ -309,7 +296,7 @@ extern "C" int score_precompute_launch(const void* X, const void* mask,
   }
   if (S <= 0) return int(cudaGetLastError());
   size_t smem = 0;
-  const int TR = tile_rows(0, size_t(PT + C1 + 1) * 8, &smem);
+  const int TR = tile_rows(size_t(PT + C1 + 1) * 8, &smem);
   if (TR == 0) return int(cudaErrorInvalidValue);
   const cudaError_t err = allow_smem(score_precompute_kernel, smem);
   if (err != cudaSuccess) return int(err);
@@ -331,17 +318,18 @@ extern "C" int score_perm_launch(const void* D, const void* mask,
                                  int64_t PT, int64_t K, void* stream) {
   if (PT < 1) return int(cudaErrorInvalidValue);
   if (S <= 0 || K <= 0) return int(cudaGetLastError());
-  size_t smem = 0;
-  const int TR = tile_rows(size_t(kPerms) * PT * 8,
-                           size_t(PT + kPerms) * 8, &smem);
-  if (TR == 0) return int(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(score_perm_kernel, smem);
+  stoat::pg::Tile t;
+  if (!stoat::pg::plan_tile(&t, S, N, PT, K, D, mask, e, nullptr)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = allow_smem(score_perm_kernel, size_t(t.smem));
   if (err != cudaSuccess) return int(err);
-  score_perm_kernel<<<unsigned(S), kThreads, smem,
+  const int64_t groups = (S + t.G - 1) / t.G;
+  score_perm_kernel<<<unsigned(groups * t.n_kt), stoat::pg::kThreads, t.smem,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(D), static_cast<const uint8_t*>(mask),
       static_cast<const double*>(vinv), static_cast<const double*>(e),
-      static_cast<double*>(T_out), N, int(PT), K, S, TR);
+      static_cast<double*>(T_out), t);
   return int(cudaGetLastError());
 }
 

@@ -302,7 +302,7 @@ def _perm_ols_cuda(X, used, ncols, phenos):
     check_tensor(ncols, "ncols", torch.int32, (S,), device)
     check_tensor(phenos, "phenos", torch.float64, (K, N), device)
     # per snarl: X^T X, its factor, the inverse and Jacobi's V (P x P
-    # each), D and a solve column (P each), the used rows (1)
+    # each), D and a solve column (P each), df_res (1)
     work = torch.empty((S, 4 * P * P + 2 * P + 1), dtype=torch.float64,
                        device=device)
     t1 = torch.empty((K, S), dtype=torch.float64, device=device)
@@ -323,10 +323,11 @@ def perm_ols_stats(X: torch.Tensor, used: torch.Tensor, ncols: torch.Tensor,
     zero), with the pad-diagonal rule, the LDL^T rank probe and the
     pseudo-inverse of stoat_tpu's linear_regression_stats_batch.
 
-    CUDA tensors run csrc/perm_ols.cu, one block per snarl, which inverts
-    X^T X once and then streams X twice per block of 32 phenotypes; it is
-    bound by its ~4 K S N P float64 operations.  CPU tensors run the plain
-    version."""
+    CUDA tensors run csrc/perm_ols.cu: one warp per snarl inverts X^T X
+    once, then blocks of snarl groups x phenotype tiles form X^T Y and the
+    residuals on the float64 tensor cores (csrc/perm_gemm_device.cuh); it
+    is bound by its ~4 K S N P float64 operations.  CPU tensors run the
+    plain version."""
     if kernels_enabled(X.device):
         return _perm_ols_cuda(X, used, ncols, phenos)
     return perm_ols_stats_plain(X, used, ncols, phenos)
@@ -462,9 +463,10 @@ def score_perm_stats(D: torch.Tensor, used: torch.Tensor, Vinv: torch.Tensor,
     residual row of ``e`` (float64 [K, N]) (stoat_tpu's
     _perm_score_pvalues without its tail).
 
-    CUDA tensors run csrc/score_test.cu score_perm, one block per snarl,
-    bound by its 2 K S N PT float64 operations; CPU tensors the plain
-    version."""
+    CUDA tensors run csrc/score_test.cu score_perm, blocks of snarl groups
+    x residual tiles forming U on the float64 tensor cores
+    (csrc/perm_gemm_device.cuh), bound by its 2 K S N PT float64
+    operations; CPU tensors the plain version."""
     if kernels_enabled(D.device):
         return _score_perm_cuda(D, used, Vinv, e)
     return score_perm_stats_plain(D, used, Vinv, e)

@@ -5,25 +5,32 @@ on one card, in one process.
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/kernel_ab.py --baseline DIR [--candidate DIR]
-                               [--kernel ols|perm_ols|quant_design]
+                               [--kernel ols|perm_ols|quant_design|score_perm]
                                [--snarls 16384] [--rounds 4]
 
-Each DIR holds one version's kernel sources (its ``<kernel>.cu`` and the
-``.cuh`` headers that it includes), for example the ``csrc/`` of an
-earlier commit unpacked with ``git archive``; the candidate defaults to the
-checkout's ``stoat_tpu_torch/csrc``.  Both versions are built with the
+Each DIR holds one version's kernel sources (its ``<source>.cu`` and the
+``.cuh`` headers that it includes; score_perm is in ``score_test.cu``),
+for example the ``csrc/`` of an earlier commit unpacked with ``git
+archive``; the candidate defaults to the checkout's
+``stoat_tpu_torch/csrc``.  Both versions are built with the
 port's nvcc flags (``stoat_tpu_torch/kernels/build.py``) and their ptxas
-registers and spills printed.  Both then run through the port's own
-wrapper on the same inputs, the first chunk of ``vcf -q -c -C AGE,SEX`` on
-chip_smoke.py's cohort (2,504 samples; ``--snarls`` over 2 chromosomes,
-8,192 per chunk; perm_ols with the observed phenotype and 64
-Freedman-Lane permutations; quant_design's OLS design, ``all_rows`` off
+registers and spills printed, and the float64 tensor-core instructions in
+each library's SASS (``cuobjdump -sass``, lines with DMMA).  Both then run
+through the port's own wrapper on the same inputs, the first chunk of
+``vcf -q -c -C AGE,SEX`` on chip_smoke.py's cohort (2,504 samples;
+``--snarls`` over 2 chromosomes, 8,192 per chunk; perm_ols with the
+observed phenotype and the main path's 1,000 Freedman-Lane permutations
+(chip_smoke.PERM_FULL); score_perm on the first ``vcf -b -c`` chunk's D
+and V^-1 with the observed residual and 1,000 permuted ones; quant_design's OLS design, ``all_rows`` off
 and no table view, launched with the argument list each version's source
-declares), in the
-order A B B A for ``--rounds`` rounds (A is the candidate).  It prints each version's ms per call (CUDA events,
-the median of its rounds), its device ms per call (torch.profiler) and
-whether the two versions' outputs are equal bit for bit, then the card's
-name and power limit.  It exits non-zero when there is no card.
+declares), in the order A B B A for ``--rounds`` rounds (A is the
+candidate).  It prints each version's ms per call (CUDA events, the median
+of its rounds), its device ms per call (torch.profiler), whether the two
+versions' outputs are equal bit for bit and, where they are not, the
+largest relative difference of the first output (t1, T: |A - B| /
+max(|B|, 1), chip_smoke.stat_err; inf unless NaN and infinities agree),
+then the card's name and power limit.  It exits non-zero when there is no
+card.
 """
 
 from __future__ import annotations
@@ -64,14 +71,36 @@ def ols_inputs(cs, device, snarls, work):
 
 def perm_ols_inputs(cs, device, snarls, work):
     """A zero-argument call of perm_ols_stats on the first ``vcf -q -c``
-    chunk with 1 + 64 phenotype rows, and the design's shape."""
+    chunk with 1 + PERM_FULL phenotype rows, and the design's shape."""
     from stoat_tpu_torch.pipeline.permutation import perm_ols_stats
     d, chunk, qpheno, qcovar, case = quant_chunk(cs, device, snarls, work)
     rows = cs.perm_host_rows(cs.to_np(case) > 0.5, cs.to_np(qpheno),
-                             cs.to_np(qcovar), int(chunk.words.shape[1]), 64)
+                             cs.to_np(qcovar), int(chunk.words.shape[1]),
+                             cs.PERM_FULL)
     args = (d["X"], d["used"], d["ncols"], cs.upload_t(rows["phenos"],
                                                        device))
     return (lambda: perm_ols_stats(*args)), tuple(d["X"].shape)
+
+
+def score_perm_inputs(cs, device, snarls, work):
+    """A zero-argument call of score_perm_stats on the first ``vcf -b -c``
+    chunk (its design has no covariates; D and V^-1 from the plain
+    score_precompute) with 1 + PERM_FULL residual rows, and D's shape."""
+    import torch
+    from stoat_tpu_torch.pipeline import permutation as pm
+    from stoat_tpu_torch.pipeline.quantitative import quant_design
+    _d, chunk, qpheno, qcovar, case = quant_chunk(cs, device, snarls, work)
+    no_covar = torch.zeros((qcovar.shape[0], 0), dtype=torch.float64,
+                           device=device)
+    d = quant_design(chunk, no_covar, *cs.THRESHOLDS, 2 * qcovar.shape[0])
+    rows = cs.perm_host_rows(cs.to_np(case) > 0.5, cs.to_np(qpheno),
+                             cs.to_np(qcovar), int(chunk.words.shape[1]),
+                             cs.PERM_FULL)
+    Z, w, e = (cs.upload_t(rows[k], device) for k in ("Z", "w", "e"))
+    D, Vinv, _df, _bad = pm.score_precompute_plain(
+        d["X"], d["used"], d["ncols"], d["filtered"] | d["degenerate"], Z, w)
+    args = (D, d["used"], Vinv, e)
+    return (lambda: [pm.score_perm_stats(*args)]), tuple(D.shape)
 
 
 def quant_design_inputs(cs, device, snarls, work, versions):
@@ -113,7 +142,10 @@ def quant_design_inputs(cs, device, snarls, work, versions):
 
 
 CALLS = {"ols": ols_inputs, "perm_ols": perm_ols_inputs,
-         "quant_design": quant_design_inputs}
+         "quant_design": quant_design_inputs,
+         "score_perm": score_perm_inputs}
+# the source (and library) of each kernel
+SOURCES = {"score_perm": "score_test"}
 # the version whose library is loaded (kernel_ab's use)
 STATE = {"tag": "A"}
 
@@ -129,7 +161,20 @@ def build_version(build, name, src_dir, tag):
                          timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
-    return ctypes.CDLL(str(out)), (res.stdout + res.stderr).strip()
+    return ctypes.CDLL(str(out)), (res.stdout + res.stderr).strip(), \
+        str(out)
+
+
+def dmma_count(lib_path):
+    """Lines of the library's SASS that hold a float64 tensor-core
+    instruction (DMMA)."""
+    from stoat_tpu_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        return f"cuobjdump failed: {res.stderr.strip()[:200]}"
+    return sum("DMMA" in line for line in res.stdout.splitlines())
 
 
 def registers(ptxas):
@@ -159,13 +204,15 @@ def main():
     import chip_smoke as cs
     from stoat_tpu_torch.kernels import build
 
-    name = args.kernel
+    kernel = args.kernel
+    name = SOURCES.get(kernel, kernel)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    libs, ptxas = {}, {}
+    libs, ptxas, dmma = {}, {}, {}
     candidate = args.candidate or build.CSRC_DIR
     for tag, src_dir in (("A", candidate), ("B", args.baseline)):
-        libs[tag], ptxas[tag] = build_version(build, name, src_dir, tag)
+        libs[tag], ptxas[tag], path = build_version(build, name, src_dir, tag)
+        dmma[tag] = dmma_count(path)
 
     def use(tag):
         STATE["tag"] = tag
@@ -174,9 +221,9 @@ def main():
 
     work = tempfile.mkdtemp(prefix="ab-", dir=build.BUILD_DIR)
     extra = ({"versions": {"A": str(candidate), "B": args.baseline}}
-             if name == "quant_design" else {})
+             if kernel == "quant_design" else {})
     try:
-        call, shape = CALLS[name](cs, device, args.snarls, work, **extra)
+        call, shape = CALLS[kernel](cs, device, args.snarls, work, **extra)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     outs, ms, dev = {}, {"A": [], "B": []}, {}
@@ -189,16 +236,19 @@ def main():
             ms[tag].append(cs.cuda_ms(call, 10))
     for tag in ("A", "B"):
         use(tag)
-        dev[tag] = cs.device_ms(torch, {name: call})[name]
+        dev[tag] = cs.device_ms(torch, {kernel: call})[kernel]
     use("A")
     same = all(cs.same_bits(a, b) for a, b in zip(outs["A"], outs["B"]))
     for tag, what in (("A", candidate), ("B", args.baseline)):
-        cs.say(f"{name} {tag} ({what}): {registers(ptxas[tag])}; "
+        cs.say(f"{kernel} {tag} ({what}): {registers(ptxas[tag])}; "
+               f"DMMA lines in the SASS: {dmma[tag]}; "
                f"{statistics.median(ms[tag]):.4f} ms per call (median of "
                f"{len(ms[tag])} timings of 10 calls: "
                + ", ".join(f"{t:.4f}" for t in ms[tag])
                + f"); device {dev[tag]} ms per call")
-    cs.say(f"{name} on {shape}: outputs of A and B bitwise equal: {same}")
+    cs.say(f"{kernel} on {shape}: outputs of A and B bitwise equal: {same}; "
+           f"largest relative difference of the first output: "
+           f"{cs.stat_err('t1', outs['A'][0], outs['B'][0]):.3g}")
     cs.say(cs.nvidia_smi_line())
     return 0
 
