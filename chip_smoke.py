@@ -25,8 +25,9 @@ printing lines and each fatal on failure:
      of rotation, OLS and tail; the chi-squared tail chi2_tail on the
      tail grid, a random grid of 10^6 and the first chunk's statistics;
      quant_design's -T table view on the OLS and all-rows designs) and on
-     edge cases, the permutation kernels' tile edges among them
-     (tolerances printed);
+     edge cases, the permutation kernels' tile edges, quant_design's grid
+     in its four instantiations and logreg's grid among them (tolerances
+     printed);
   4. main paths: the port's CLI with ``--device cuda``: ``vcf -b``, ``vcf
      -q``, ``vcf -q -c -C AGE,SEX`` and ``vcf -b -c -C AGE,SEX`` on a
      generated cohort of 2,504 samples (the 1000 Genomes phase-3 size)
@@ -61,8 +62,9 @@ printing lines and each fatal on failure:
      permutation pass, and the mixed model's rotation (one float64 GEMM)
      beside its bound; chi2_tail beside torch.special.gammaincc on the
      same inputs (its library_ms), perm_ols and score_perm beside one
-     torch.matmul of their GEMM core alone (theirs), and quant_design's
-     table view.
+     torch.matmul of their GEMM core alone (theirs), quant_design's
+     table view, and X.zero_() on a tensor of quant_design's X, the rate
+     the card writes those bytes at.
 
 The last two lines of standard output are a JSON object of the kernels and
 the contract line {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -1016,30 +1018,36 @@ def compare_chi2_tail(torch, device, tables, err):
     return "; ".join(notes)
 
 
+def table_view_equal(got, want, what):
+    """Q1's -T table view against a plain version's: norm bit for bit, kept
+    exactly.  Returns norm's max abs error (0)."""
+    from stoat_tpu_torch.pipeline.quantitative import TABLE_KEYS
+    for key in TABLE_KEYS:
+        a, b = to_np(got[key]), to_np(want[key])
+        check(same_bits(a, b) if key == "norm" else bool((a == b).all()),
+              f"quant_design table view ({what}): {key} differs from the "
+              f"plain version")
+    return max_abs_err(to_np(got["norm"]), to_np(want["norm"]))
+
+
 def compare_table_view(chunk, covar, n_haplotypes, err, what, all_rows=False):
     """Q1's -T table view on the card: norm and kept bitwise against the
     plain version, and the design of the table instantiation equal to the
     OLS instantiation's.  Returns a description."""
     from stoat_tpu_torch.pipeline.quantitative import (DESIGN_KEYS,
-                                                       TABLE_KEYS,
                                                        quant_design,
                                                        quant_design_plain)
     got = quant_design(chunk, covar, *THRESHOLDS, n_haplotypes,
                        all_rows=all_rows, tables=True)
     plain = quant_design_plain(chunk, covar, *THRESHOLDS, n_haplotypes,
                                all_rows=all_rows, tables=True)
-    for key in TABLE_KEYS:
-        a, b = to_np(got[key]), to_np(plain[key])
-        check(same_bits(a, b) if key == "norm" else bool((a == b).all()),
-              f"quant_design table view ({what}): {key} differs from the "
-              f"plain version")
+    e = table_view_equal(got, plain, what)
     design = quant_design(chunk, covar, *THRESHOLDS, n_haplotypes,
                           all_rows=all_rows)
     for key in DESIGN_KEYS:
         check(bool((got[key] == design[key]).all()), f"quant_design table "
               f"view ({what}): {key} differs from the OLS instantiation's")
-    err["quant_design"] = max(err["quant_design"], max_abs_err(
-        to_np(got["norm"]), to_np(plain["norm"])))
+    err["quant_design"] = max(err["quant_design"], e)
     return (f"{what}: norm {tuple(got['norm'].shape)} bitwise, kept exact "
             f"({int(to_np(got['kept']).sum())} kept columns), design equal")
 
@@ -1271,7 +1279,6 @@ def quant_edge_chunk(device):
     haplotype), a column with no carrier, and random snarls."""
     import numpy as np
     from stoat_tpu_torch.convert import DeviceChunk
-    from stoat_tpu_torch.pipeline import packed as pk
     rng = np.random.default_rng(5)
     E, H, S, Pmax = 24, 90, 40, 4
     matrix = rng.random((E, H)) < 0.55
@@ -1293,16 +1300,135 @@ def quant_edge_chunk(device):
         n = int(rng.integers(2, Pmax + 1))
         snarl(s, *[(list(rng.integers(0, 22, int(rng.integers(1, 3)))),
                     True) for _ in range(n)])
+    chunk = DeviceChunk(*(upload_t(a, device) for a in pack_snarls(
+        matrix, paths, sidx)))
+    return chunk, H
+
+
+def pack_snarls(matrix, paths, sidx):
+    """(words as int32, path_idx, path_valid, snarl_path_idx) numpy arrays
+    of a chunk: the bool [E, H] edge matrix, each path's (edge rows, valid)
+    and the [S, Pmax] path index (-1 padding)."""
+    import numpy as np
+    from stoat_tpu_torch.pipeline import packed as pk
     coo_path = np.array([p for p, (rows, _) in enumerate(paths)
                          for _ in rows], np.int32)
     coo_row = np.array([r for rows, _ in paths for r in rows], np.int32)
-    valid = np.array([v for _, v in paths])
+    valid = np.array([v for _, v in paths], bool)
     words = pk.pack_matrix_words(matrix)
-    idx = pk.pack_path_edge_idx(coo_path, coo_row, valid, E)
-    chunk = DeviceChunk(
-        *(upload_t(a, device) for a in (words.view(np.int32), idx, valid,
-                                        sidx)))
-    return chunk, H
+    idx = pk.pack_path_edge_idx(coo_path, coo_row, valid, matrix.shape[0])
+    return words.view(np.int32), idx, valid, sidx
+
+
+def quant_grid_chunks():
+    """[(name, (words, path_idx, path_valid, snarl_path_idx), H)] numpy
+    chunks at the edges of quant_design.cu's design, from seeds:
+
+      pmax1      Pmax = 1 (kept < 2: every snarl filtered), an invalid and
+                 an edgeless path, N = 37
+      n37        N = 37 samples (H = 74: the last word holds 10 bits),
+                 Pmax = 4: merged columns in the first, middle and last
+                 positions, three of four merged, a degenerate snarl, an
+                 all-invalid snarl, an edgeless path, random snarls
+      two_tiles  Pmax = 64 at N = 2,100 (W = 132): the membership stage
+                 holds 128 words, so each pass takes two word tiles;
+                 columns equal on the first tile and not on the second,
+                 columns equal on both
+      pmax_max   Pmax = 1,966, the widest the parent design took (25
+                 bytes a column in 48 KB): an 8-word stage over W = 19
+                 (three word tiles), N = 300, 129 KB of shared memory
+    """
+    import numpy as np
+    out = []
+
+    def chunk(name, rng, N, E, Pmax, snarls, density=0.55, edit=None):
+        matrix = rng.random((E, 2 * N)) < density
+        if edit is not None:
+            edit(matrix)
+        paths = []
+        sidx = np.full((len(snarls), Pmax), -1, np.int32)
+        for s, cols in enumerate(snarls):
+            for j, col in enumerate(cols):
+                sidx[s, j] = len(paths)
+                paths.append(col)
+        out.append((name, pack_snarls(matrix, paths, sidx), 2 * N))
+
+    def rand_cols(rng, n, lo, hi, k=3):
+        return [(list(rng.integers(lo, hi, int(rng.integers(1, k)))), True)
+                for _ in range(n)]
+
+    rng = np.random.default_rng(21)
+    chunk("pmax1", rng, 37, 8, 1,
+          [[([0], True)], [([1, 2], True)], [([3], False)], [([], True)],
+           [([4, 5], True)], [([6], True)]])
+    rng = np.random.default_rng(22)
+    a, b, c, d = ([1], True), ([2, 3], True), ([4], True), ([5], True)
+    n37 = [[a, b, a, c], [b, a, c, a], [b, c, a, a], [a, a, a, b],
+           [a, a, a], [([6], False)] * 4, [([], True), d, c], [b, d]]
+    n37 += [rand_cols(rng, int(rng.integers(2, 5)), 6, 20) for _ in range(8)]
+    chunk("n37", rng, 37, 20, 4, n37)
+    rng = np.random.default_rng(23)
+
+    def split_on_tile_two(matrix):
+        # row 1 equals row 0 on the first 4,096 haplotypes (128 words)
+        # only; row 2 equals row 0 everywhere
+        matrix[1] = matrix[0]
+        matrix[1, 4100] = not matrix[0, 4100]
+        matrix[2] = matrix[0]
+    p0, p1, p2 = ([0], True), ([1], True), ([2], True)
+    wide = [[p0, p1, p2] + rand_cols(rng, 61, 3, 40),
+            rand_cols(rng, 63, 3, 40) + [p1],
+            [p1, p0, p2],
+            [p0, p1],
+            rand_cols(rng, int(rng.integers(2, 65)), 3, 40),
+            rand_cols(rng, int(rng.integers(2, 65)), 3, 40)]
+    wide[1][40] = wide[1][10]
+    chunk("two_tiles", rng, 2100, 40, 64, wide, density=0.5,
+          edit=split_on_tile_two)
+    rng = np.random.default_rng(24)
+    chunk("pmax_max", rng, 300, 64, 1966,
+          [rand_cols(rng, 1966, 0, 64, k=4), rand_cols(rng, 5, 0, 64)],
+          density=0.7)
+    return out
+
+
+def compare_quant_grid(device, err):
+    """quant_design on quant_grid_chunks, in each of its four
+    instantiations (all_rows, the table view) with C = 0 and 2, against
+    the plain version on the card: X and norm bitwise, the rest exactly.
+    Returns a description."""
+    import numpy as np
+    from stoat_tpu_torch.convert import DeviceChunk
+    from stoat_tpu_torch.pipeline.quantitative import (quant_design,
+                                                       quant_design_plain)
+    rng = np.random.default_rng(25)
+    notes = []
+    for name, arrays, H in quant_grid_chunks():
+        chunk = DeviceChunk(*(upload_t(a, device) for a in arrays))
+        merged = 0
+        for C in (0, 2):
+            covar = upload_t(rng.standard_normal((H // 2, C)), device)
+            for all_rows in (False, True):
+                for tables in (False, True):
+                    what = (f"grid {name}, C={C}, all_rows={all_rows}, "
+                            f"tables={tables}")
+                    got = quant_design(chunk, covar, *THRESHOLDS, H,
+                                       all_rows=all_rows, tables=tables)
+                    plain = quant_design_plain(chunk, covar, *THRESHOLDS, H,
+                                               all_rows=all_rows,
+                                               tables=tables)
+                    e = design_equal(got, plain, what)
+                    if tables:
+                        e = max(e, table_view_equal(got, plain, what))
+                    err["quant_design"] = max(err["quant_design"], e)
+            kept = (to_np(got["allele_paths"]) > 0).sum(axis=1)
+            merged = int(((to_np(got["ncols"]) - 1 - C) < kept - 1).sum())
+        S, Pmax = arrays[3].shape
+        notes.append(f"{name} (S {S}, Pmax {Pmax}, N {H // 2}, W "
+                     f"{arrays[0].shape[1]}: {merged} snarls with a merge, "
+                     f"{int(to_np(got['filtered']).sum())} filtered)")
+    return "quant_design grid, 4 instantiations x C = 0, 2: " + \
+        "; ".join(notes)
 
 
 def upload_t(arr, device):
@@ -1569,6 +1695,44 @@ def logreg_pt12_designs(seed=11, B=16):
     return designs, ys
 
 
+def logreg_grid_designs(seed=13):
+    """[(name, (X, y, used, ncols))] numpy batches at the edges of
+    logreg.cu's design, from seeds (the rows of each design a random
+    prefix, so the mask cuts them):
+
+      stream_p5  P = 5 at N = 3,000: past the 1,469 rows a block holds, so
+                 the rest are read from device memory at every pass
+      p7         P + 1 = 8: one 8 x 8 output tile, filled
+      p8         P + 1 = 9 at N = 2,000: three output tiles, rows streamed
+      p60        P = 60: the algebra (2 P^2 + 7 P doubles) in shared
+                 memory beside 24 resident rows of 300
+      p118       P = 118, the narrowest design whose algebra does not fit
+                 in shared memory: it runs in the wrapper's scratch, beside
+                 76 resident rows of 300; six real columns, the rest
+                 padding (the plain version, a Python loop over P^3
+                 entries, runs on the CPU)
+    """
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, B, N, P, ks in (("stream_p5", 6, 3000, 5, (4, 1, 2)),
+                              ("p7", 6, 400, 7, (6, 2, 4)),
+                              ("p8", 6, 2000, 8, (7, 3, 5)),
+                              ("p60", 4, 300, 60, (20, 3)),
+                              ("p118", 2, 300, 118, (5,))):
+        designs, ys = [], []
+        for b in range(B):
+            n = int(rng.integers(N * 5 // 6, N + 1))
+            k = ks[b % len(ks)]
+            dos = rng.random((n, k))
+            logits = -0.4 + 1.3 * dos[:, 0] - 0.5 * dos[:, -1]
+            ys.append((rng.random(n) < 1 / (1 + np.exp(-logits)))
+                      .astype(float))
+            designs.append(np.column_stack([np.ones(n), dos]))
+        out.append((name, pack_designs(designs, ys, P, N)))
+    return out
+
+
 def logit_err(a, b, bound):
     """Max errors {p, beta, se} of logistic results ``a`` against ``b``
     (dicts of numpy arrays) in their strings' scale; checks that NaN and
@@ -1581,17 +1745,19 @@ def logit_err(a, b, bound):
     return errs
 
 
-def compare_logreg(X, y, used, ncols, deg, err, what):
-    """K11 kernel vs plain on the card: NA sets and infinities equal, p,
-    beta, se within LOGREG_REL; returns (kernel results as numpy, errors,
-    snarls whose step counts differ)."""
+def compare_logreg(X, y, used, ncols, deg, err, what, plain_on_cpu=False):
+    """K11 kernel vs plain on the card (or on the CPU): NA sets and
+    infinities equal, p, beta, se within LOGREG_REL; returns (kernel
+    results as numpy, errors, snarls whose step counts differ)."""
     import numpy as np
     from stoat_tpu_torch.stats.logreg import (logistic_regression,
                                               logistic_regression_plain)
     got = {k: to_np(v) for k, v in
            logistic_regression(X, y, used, ncols, deg).items()}
+    args = [t.cpu() for t in (X, y, used, ncols, deg)] if plain_on_cpu \
+        else (X, y, used, ncols, deg)
     plain = {k: to_np(v) for k, v in
-             logistic_regression_plain(X, y, used, ncols, deg).items()}
+             logistic_regression_plain(*args).items()}
     check(np.array_equal(np.isnan(got["p"]), np.isnan(plain["p"])),
           f"logreg ({what}): NA sets differ at snarls "
           f"{np.flatnonzero(np.isnan(got['p']) != np.isnan(plain['p']))}")
@@ -1635,6 +1801,17 @@ def logreg_edge_cases(device, err):
     _, errs12, flips12 = compare_logreg(
         *(upload_t(a, device) for a in pack_designs(designs, ys, 12, 300)),
         upload_t(np.zeros(len(designs), bool), device), err, "PT = 12")
+    grid = []
+    for name, arrays in logreg_grid_designs():
+        deg = np.zeros(arrays[0].shape[0], bool)
+        got, errs_g, flips_g = compare_logreg(
+            *(upload_t(a, device) for a in (*arrays, deg)), err,
+            f"grid {name}", plain_on_cpu=name == "p118")
+        check(np.isfinite(got["p"]).all(), f"logreg: grid {name} has NA "
+              f"p {got['p']}")
+        grid.append(f"{name} {tuple(arrays[0].shape)} max err "
+                    + ", ".join(f"{k} {v:.3g}" for k, v in errs_g.items())
+                    + f", steps {got['iters'].tolist()}, flips {flips_g}")
     return (f"logistic edge designs ({', '.join(c[0] for c in cases)}: "
             f"steps {iters}, p {p.tolist()}; the same flagged degenerate "
             f"all NA) max err "
@@ -1642,7 +1819,7 @@ def logreg_edge_cases(device, err):
             + "; PT = 12 max err "
             + ", ".join(f"{k} {v:.3g}" for k, v in errs12.items())
             + f"; step counts differing from the plain version: "
-            f"{flips + flips12}")
+            f"{flips + flips12}; grid: " + "; ".join(grid))
 
 
 # ---------------------------------------------------------------- permutations
@@ -3422,6 +3599,7 @@ def phase_kernels(torch, device, chunks, err, graph):
     _, t_worst = compare_student_t(*stats[:2], d["degenerate"], *stats[2:],
                                    err, "main chunk")
     qedges = quant_edge_cases(device, err)
+    qgrid = compare_quant_grid(device, err)
     no_covar = torch.zeros((qcovar.shape[0], 0), dtype=torch.float64,
                            device=device)
     views = "; ".join(compare_table_view(qchunk, c, H, err, what, all_rows)
@@ -3440,7 +3618,7 @@ def phase_kernels(torch, device, chunks, err, graph):
         f"pivot of the others {nearest:.3g} x 1e-10); student_t max rel err "
         f"{t_worst[0]:.3g} vs the card's plain version (bound {T_REL:g}), "
         f"{t_worst[1]:.3g} vs the CPU's (bound {T_CPU_REL:g}); {qedges}; "
-        f"table view (-T) on the main chunk: {views}; max abs err "
+        f"table view (-T) on the main chunk: {views}; {qgrid}; max abs err "
         + ", ".join(f"{k}={err[k]:.3g}" for k in QUANT_KERNELS))
     quant = {"chunk": qchunk, "covar": qcovar, "H": H, "X": d["X"], "y": y,
              "used": used, "ncols": d["ncols"], "deg": d["degenerate"],
@@ -4083,6 +4261,12 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         *design, tables=True)})["quant_design"]
     bounds[qt] = bound_of("quant_design", dict(work["quant_design"],
                                                tables=True))
+    # the write rate the card reaches for X's bytes: X.zero_() on a tensor
+    # of its shape (quant_design's yardstick; the port never calls it)
+    zeros = torch.empty_like(q["X"])
+    zero_ms = cuda_ms(zeros.zero_, 10)
+    zero_gbs = zeros.numel() * 8 / zero_ms / 1e6
+    del zeros
 
     # the mixed model: Q1 with all_rows, K14's rotation, the whole chain
     d_all = md["d_all"]
@@ -4135,7 +4319,10 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         f"{library['chi2_tail']:.4f} (torch.special.gammaincc); GEMM core "
         f"only (one torch.matmul, X^T Y or D^T e): perm_ols "
         f"{library['perm_ols']:.4f}, {q5} {library[q5]:.4f}, score_perm "
-        f"{library['score_perm']:.4f}; chi2_tail "
+        f"{library['score_perm']:.4f}; X.zero_() on quant_design's X "
+        f"{tuple(q['X'].shape)} float64 {zero_ms:.4f} ms ({zero_gbs:.1f} "
+        f"GB/s), beside quant_design's bound "
+        f"{bounds['quant_design'][0]:.4f}; chi2_tail "
         f"on the first vcf -b chunk's statistics and masks; permutation "
         f"kernels at K = {PERM_FULL + 1} rows; eqtl_ols on "
         f"{md['n_pairs']} pairs of {md['n_with']} snarls; the mixed model's "

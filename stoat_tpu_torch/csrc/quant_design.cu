@@ -35,20 +35,42 @@
 // exactly when the 2-bit dosage fields of the two columns agree in every
 // word, which is what the kernel compares.  Each X and norm entry is one
 // float64 multiply of an integer by the one reciprocal of its row, so both
-// equal the plain version (pipeline/quantitative.py) bit for bit.  colsum is a
-// float64 sum in a fixed order (each thread's samples in order, then a
-// fixed tree); it feeds only the maf > threshold test.  No atomics.
+// equal the plain version (pipeline/quantitative.py) bit for bit.  colsum
+// is a float64 sum in a fixed order: the samples in tiles of kRows, in
+// order; within a tile, lane l of the column's warp adds the samples l,
+// l + 32, ... in order, then a butterfly of shuffles (xor 16, 8, 4, 2, 1)
+// sums the 32 lanes, and the tile's sum is added to the column's running
+// total.  It feeds only the maf > threshold test.  No atomics.
 //
 // What bounds it on the card: writing X, S * N * PT * 8 bytes (1.15 GB
 // per chunk at S = 8192, N = 2,504, PT = 7; 0.34 ms at 3.35 TB/s), and with
-// the table view norm too (S * N * Pmax * 8 bytes, 0.66 GB at Pmax = 4).  The
-// word gathers are P * K * W * 4 bytes per pass (41 MB at that shape) and
-// stay in L1/L2: the kernel re-derives a column's membership words from
-// the edge rows whenever it needs them instead of writing the [P, W] or
-// [P, H] membership, which the JAX program materialises.  Design: one
-// block per snarl; threads stride over words for the per-column counts
-// and merge tests (block reductions), and over samples for the column
-// masses and the rows of X, which each thread writes whole.
+// the table view norm too (S * N * Pmax * 8 bytes, 0.66 GB at Pmax = 4).
+// The word gathers are P * K * W * 4 bytes per pass (41 MB at that shape).
+//
+// Design: one block per snarl.  Each column's membership words, the K-way
+// AND of its edge rows, are computed once per (column, word) into a stage
+// in shared memory of Pmax x TW words; TW is sized from Pmax (stage_words),
+// so that the whole of W fits at the main paths' shapes (Pmax = 4, W = 157)
+// and every Pmax the kernel takes fits with TW = 8.  Every later use reads
+// that stage: the carrier counts (a warp per column, __reduce_add_sync),
+// the merge test (a warp per column, __any_sync), the row sums, the
+// dosages of X and norm and the column masses.  When W needs more than one
+// word tile, each of the three passes (counts, merges, samples) re-stages
+// the tiles in order; the merge test then refines, tile by tile, the
+// partition of the kept columns into classes of equal columns, each class
+// named by its first member, which ends as the first kept column with the
+// same dosages everywhere.  One pass over the samples, in tiles of kRows:
+// each thread takes a row (row sum, used, reciprocal into shared memory),
+// then each warp sums its columns' masses over the tile, and the block
+// writes the tile's rows of X, which form one contiguous block of rows x
+// PT doubles, in storage order: each thread computes the two entries of a
+// 16-byte pair and stores them with one st.global.v2.f64, so a warp's
+// store covers 512 contiguous bytes, whole sectors (a pair cut by the
+// block's ends is stored as single doubles).  norm is written the same
+// way.  About 2 barriers per sample tile and 7 per snarl besides.  (A
+// bulk copy of the tile's rows, built in shared memory, out with one
+// cp.async.bulk, took 0.760 ms against these stores' 0.743 at 256
+// threads, tools/kernel_ab.py.)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC
@@ -59,8 +81,16 @@
 
 namespace {
 
+// 128 threads: 0.693 ms per first `-q -c` chunk on an H100, against 0.743
+// at 256 and 0.858 at 512 (tools/kernel_ab.py)
 constexpr int kThreads = 128;
-constexpr int kColGroup = 8;  // column masses accumulated per sample pass
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = kThreads;         // samples per sample tile
+constexpr int kTileWords = kRows / 16;  // a word tile is a whole number of
+                                        // sample tiles
+constexpr int64_t kStageBytes = 32 * 1024;  // the stage's target size
+constexpr size_t kMaxSmem = 227 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint32_t tail_mask(int64_t w, int64_t H) {
   const int64_t lo = w * 32;
@@ -69,135 +99,227 @@ __device__ __forceinline__ uint32_t tail_mask(int64_t w, int64_t H) {
   return (1u << unsigned(H - lo)) - 1u;
 }
 
-struct Words {
-  const uint32_t* words;  // [E+1, W]
-  const int32_t* idx;     // [P, K]
-  int64_t K, W, H;
-
-  // membership word w of path p (valid), bits past H cleared
-  __device__ __forceinline__ uint32_t mem(int32_t p, int64_t w) const {
-    const int32_t* rows = idx + int64_t(p) * K;
-    uint32_t m = tail_mask(w, H);
-    for (int64_t k = 0; k < K; ++k) {
-      m &= __ldg(words + int64_t(rows[k]) * W + w);
-    }
-    return m;
-  }
-
-  // dosage of sample n on path p: bits 2n and 2n+1
-  __device__ __forceinline__ int dosage(int32_t p, int64_t n) const {
-    const uint32_t m = mem(p, n >> 4);
-    const unsigned b = unsigned(n & 15) * 2u;
-    return int((m >> b) & 1u) + int((m >> (b + 1u)) & 1u);
-  }
-};
-
 // per 2-bit field: the number of its set bits (a sample's dosage)
 __device__ __forceinline__ uint32_t pair_counts(uint32_t m) {
   return (m & 0x55555555u) + ((m >> 1) & 0x55555555u);
 }
 
-template <typename T>
-__device__ T block_sum(T v, T* red) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
-    __syncthreads();
+// the dosage of sample n in its membership word m: bits 2n and 2n+1
+__device__ __forceinline__ int dosage_of(uint32_t m, int64_t n) {
+  return __popc((m >> (unsigned(n & 15) * 2u)) & 3u);
+}
+
+// Words of the stage per column: the target size over Pmax, a whole number
+// of sample tiles, at least one and no more than W needs.
+__host__ int64_t stage_words(int64_t Pmax, int64_t W) {
+  int64_t tw = kStageBytes / (4 * Pmax);
+  tw -= tw % kTileWords;
+  const int64_t all = (W + kTileWords - 1) / kTileWords * kTileWords;
+  if (tw > all) tw = all;
+  return tw < kTileWords ? kTileWords : tw;
+}
+
+__host__ size_t smem_bytes(int64_t Pmax, int64_t TW) {
+  return size_t(Pmax + kRows) * 8 + size_t(Pmax) * TW * 4 +
+         size_t(6 * Pmax + 1) * 4 + size_t(Pmax);
+}
+
+// out[base + e] = value(e / width, e % width) for 0 <= e < count, by the
+// block, in the 16-byte pairs of out (out is 16-byte aligned): each thread
+// stores whole pairs with one vector store, the pairs cut by the ends as
+// single doubles.  (r, c) follow e without a division per entry.
+template <typename Value>
+__device__ __forceinline__ void store_block(double* __restrict__ out,
+                                            int64_t base, int count,
+                                            int width, Value value) {
+  const int odd = int(base & 1);
+  const int step = 2 * kThreads;
+  const int dr = step / width, dc = step % width;
+  int e = 2 * int(threadIdx.x) - odd;
+  int r, c;
+  if (e < 0) {
+    r = -1;
+    c = width - 1;
+  } else {
+    r = e / width;
+    c = e - r * width;
   }
-  const T total = red[0];
-  __syncthreads();
-  return total;
+  for (; e < count; e += step) {
+    const int r1 = c + 1 == width ? r + 1 : r;
+    const int c1 = c + 1 == width ? 0 : c + 1;
+    double* dst = out + base + e;
+    if (e >= 0 && e + 1 < count) {
+      const double v0 = value(r, c);
+      const double v1 = value(r1, c1);
+      *reinterpret_cast<double2*>(dst) = make_double2(v0, v1);
+    } else if (e >= 0) {
+      dst[0] = value(r, c);
+    } else {
+      dst[1] = value(r1, c1);
+    }
+    c += dc;
+    r += dr;
+    if (c >= width) {
+      c -= width;
+      ++r;
+    }
+  }
 }
 
 // kAllRows and kTables: template arguments, so that the OLS designs'
 // instantiation is the code without them (an int argument tested per row
-// took the kernel from 64 to 56 registers and 2.5% more time on an H100,
-// tools/kernel_ab.py)
+// took the parent design from 64 to 56 registers and 2.5% more time on an
+// H100, tools/kernel_ab.py)
 template <bool kAllRows, bool kTables>
-__global__ void quant_design_kernel(
-    Words wd, const uint8_t* __restrict__ path_valid,
-    const int32_t* __restrict__ sidx, const double* __restrict__ covar,
-    double* __restrict__ X, uint8_t* __restrict__ used_out,
-    int32_t* __restrict__ ncols_out, uint8_t* __restrict__ filtered_out,
-    uint8_t* __restrict__ degenerate_out, int32_t* __restrict__ allele_out,
-    double* __restrict__ norm_out, uint8_t* __restrict__ kept_out,
-    int Pmax, int64_t N, int C, double min_individuals,
-    double min_haplotypes, double maf_threshold) {
-  extern __shared__ double dyn[];
-  double* colsum = dyn;                                      // [Pmax]
-  int32_t* col_path = reinterpret_cast<int32_t*>(colsum + Pmax);
-  int32_t* col_rep = col_path + Pmax;   // merge representative, or Pmax+1
-  int32_t* col_slot = col_rep + Pmax;   // X slot of a variant column, or 0
-  int32_t* col_mult = col_slot + Pmax;  // columns merged into a variant one
-  uint8_t* kept = reinterpret_cast<uint8_t*>(col_mult + Pmax);
-  __shared__ double red_f[kThreads];
-  __shared__ long long red_i[kThreads];
-  __shared__ int sh_k3;
+__global__ void __launch_bounds__(kThreads) quant_design_kernel(
+    const uint32_t* __restrict__ words, const int32_t* __restrict__ path_idx,
+    const uint8_t* __restrict__ path_valid, const int32_t* __restrict__ sidx,
+    const double* __restrict__ covar, double* __restrict__ X,
+    uint8_t* __restrict__ used_out, int32_t* __restrict__ ncols_out,
+    uint8_t* __restrict__ filtered_out, uint8_t* __restrict__ degenerate_out,
+    int32_t* __restrict__ allele_out, double* __restrict__ norm_out,
+    uint8_t* __restrict__ kept_out, int Pmax, int K, int64_t W, int64_t N,
+    int C, int TW, double min_individuals, double min_haplotypes,
+    double maf_threshold) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* colsum = reinterpret_cast<double*>(smem_raw);  // [Pmax]
+  double* recip_s = colsum + Pmax;            // [kRows] the tile's 1 / row_sum
+  uint32_t* stage = reinterpret_cast<uint32_t*>(recip_s + kRows);  // [Pmax, TW]
+  int32_t* col_path = reinterpret_cast<int32_t*>(stage + int64_t(Pmax) * TW);
+  int32_t* count = col_path + Pmax;    // carrier haplotypes
+  int32_t* cls = count + Pmax;         // merge class (its first member)
+  int32_t* ncls = cls + Pmax;          // the class refined by a word tile
+  int32_t* col_mult = ncls + Pmax;     // columns merged into a variant one
+  int32_t* slot_col = col_mult + Pmax; // [Pmax + 1] X slot -> column
+  uint8_t* kept = reinterpret_cast<uint8_t*>(slot_col + Pmax + 1);
+  __shared__ int red[kWarps];
+  __shared__ int sh_k3, sh_kept_count;
 
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int64_t s = blockIdx.x;
-  const int64_t W = wd.W;
-  const int32_t* srow = sidx + s * Pmax;
+  const int64_t H = 2 * N;
+  const int n_tiles = int((W + TW - 1) / TW);
   for (int j = tid; j < Pmax; j += kThreads) {
-    const int32_t p = srow[j];
+    const int32_t p = sidx[s * Pmax + j];
     col_path[j] = (p >= 0 && path_valid[p]) ? p : -1;
+    count[j] = 0;
+    colsum[j] = 0.0;
   }
   __syncthreads();
 
-  // carrier haplotypes of each column (K1 + K7's popcount)
-  for (int j = 0; j < Pmax; ++j) {
-    const int32_t p = col_path[j];
-    long long cnt = 0;
-    if (p >= 0) {
-      for (int64_t w = tid; w < W; w += kThreads) cnt += __popc(wd.mem(p, w));
-    }
-    cnt = block_sum(cnt, red_i);
-    if (tid == 0) {
-      allele_out[s * Pmax + j] = int32_t(cnt);
-      kept[j] = cnt > 0;
-      if (kTables) kept_out[s * Pmax + j] = cnt > 0;
-    }
-  }
-  __syncthreads();
-  int kept_count = 0;
-  for (int j = 0; j < Pmax; ++j) kept_count += kept[j];
-
-  // identical-column merge, only with three or more kept columns
-  const int big = Pmax + 1;
-  for (int j = 0; j < Pmax; ++j) {
-    int rep = kept[j] ? j : big;
-    if (kept[j] && kept_count >= 3) {
-      for (int i = 0; i < j; ++i) {
-        if (!kept[i]) continue;
-        bool differs = false;
-        for (int64_t w = tid; w < W && !differs; w += kThreads) {
-          differs = pair_counts(wd.mem(col_path[i], w)) !=
-                    pair_counts(wd.mem(col_path[j], w));
-        }
-        if (!__syncthreads_or(differs)) {
-          rep = i;
-          break;
+  // words of word tile t
+  auto tile_words = [&](int t) {
+    const int64_t left = W - int64_t(t) * TW;
+    return int(left < TW ? left : TW);
+  };
+  // stage word tile t: stage[j, w] = mem_j[t TW + w]
+  auto stage_tile = [&](int t) {
+    const int64_t w0 = int64_t(t) * TW;
+    const int tw = tile_words(t);
+    for (int i = tid; i < Pmax * tw; i += kThreads) {
+      const int j = i / tw;
+      const int w = i - j * tw;
+      const int32_t p = col_path[j];
+      uint32_t m = 0u;
+      if (p >= 0) {
+        const int32_t* rows = path_idx + int64_t(p) * K;
+        m = tail_mask(w0 + w, H);
+        for (int k = 0; k < K; ++k) {
+          m &= __ldg(words + int64_t(__ldg(rows + k)) * W + w0 + w);
         }
       }
+      stage[int64_t(j) * TW + w] = m;
     }
-    if (tid == 0) col_rep[j] = rep;
+  };
+
+  // carrier haplotypes of each column (K1 + K7's popcount)
+  for (int t = 0; t < n_tiles; ++t) {
+    stage_tile(t);
+    __syncthreads();
+    const int tw = tile_words(t);
+    for (int j = warp; j < Pmax; j += kWarps) {
+      int c = 0;
+      for (int w = lane; w < tw; w += 32) c += __popc(stage[int64_t(j) * TW + w]);
+      c = __reduce_add_sync(kFull, c);
+      if (lane == 0) count[j] += c;
+    }
+    __syncthreads();
+  }
+  for (int j = tid; j < Pmax; j += kThreads) {
+    kept[j] = count[j] > 0;
+    allele_out[s * Pmax + j] = count[j];
+    if (kTables) kept_out[s * Pmax + j] = count[j] > 0;
+    cls[j] = j;
   }
   __syncthreads();
+  if (tid == 0) {
+    int kc = 0, first = -1;
+    for (int j = 0; j < Pmax; ++j) {
+      if (!kept[j]) continue;
+      ++kc;
+      if (first < 0) first = j;
+    }
+    // with three or more kept columns, they start as one class
+    if (kc >= 3) {
+      for (int j = 0; j < Pmax; ++j) {
+        if (kept[j]) cls[j] = first;
+      }
+    }
+    sh_kept_count = kc;
+  }
+  __syncthreads();
+  const int kept_count = sh_kept_count;
+
+  // identical-column merge: each word tile splits the classes by the
+  // tile's dosages; a column's new class is its class's first member with
+  // the same dosages in the tile (the column itself at the latest)
+  if (kept_count >= 3) {
+    for (int t = 0; t < n_tiles; ++t) {
+      if (n_tiles > 1) {
+        stage_tile(t);
+        __syncthreads();
+      }
+      const int tw = tile_words(t);
+      for (int j = warp; j < Pmax; j += kWarps) {
+        int rep = cls[j];
+        if (kept[j]) {
+          rep = j;
+          const uint32_t* sj = stage + int64_t(j) * TW;
+          for (int i = cls[j]; i < j; ++i) {
+            if (!kept[i] || cls[i] != cls[j]) continue;
+            const uint32_t* si = stage + int64_t(i) * TW;
+            bool differs = false;
+            for (int w = lane; w < tw && !differs; w += 32) {
+              differs = pair_counts(si[w]) != pair_counts(sj[w]);
+            }
+            if (!__any_sync(kFull, differs)) {
+              rep = i;
+              break;
+            }
+          }
+        }
+        if (lane == 0) ncls[j] = rep;
+      }
+      __syncthreads();
+      for (int j = tid; j < Pmax; j += kThreads) cls[j] = ncls[j];
+      __syncthreads();
+    }
+  }
 
   // drop the last representative; the others are the variant columns
   if (tid == 0) {
     int last_rep = -1;
+    for (int j = 0; j < Pmax; ++j) col_mult[j] = 0;
     for (int j = 0; j < Pmax; ++j) {
-      if (kept[j] && col_rep[j] == j) last_rep = j;
+      if (!kept[j]) continue;
+      ++col_mult[cls[j]];
+      if (cls[j] == j) last_rep = j;
     }
     int k3 = 0;
     for (int j = 0; j < Pmax; ++j) {
-      const bool var = kept[j] && col_rep[j] == j && j != last_rep;
-      col_slot[j] = var ? ++k3 : 0;
-      int mult = 0;
-      for (int i = 0; var && i < Pmax; ++i) mult += col_rep[i] == j;
-      col_mult[j] = mult;
+      if (kept[j] && cls[j] == j && j != last_rep) slot_col[++k3] = j;
     }
     sh_k3 = k3;
     degenerate_out[s] = last_rep >= 0 && k3 == 0;
@@ -205,70 +327,79 @@ __global__ void quant_design_kernel(
   }
   __syncthreads();
 
-  // column masses sum_n count_j(n) / row_sum(n), kColGroup columns a pass
-  for (int j0 = 0; j0 < Pmax; j0 += kColGroup) {
-    double acc[kColGroup];
-#pragma unroll
-    for (int g = 0; g < kColGroup; ++g) acc[g] = 0.0;
-    for (int64_t n = tid; n < N; n += kThreads) {
-      int rs = 0;
-      for (int j = 0; j < Pmax; ++j) {
-        if (kept[j]) rs += wd.dosage(col_path[j], n);
-      }
-      const double recip = rs == 0 ? 0.0 : 1.0 / double(rs);
-#pragma unroll
-      for (int g = 0; g < kColGroup; ++g) {
-        const int j = j0 + g;
-        if (j < Pmax && kept[j]) {
-          acc[g] = acc[g] + double(wd.dosage(col_path[j], n)) * recip;
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < kColGroup; ++g) {
-      const double total = block_sum(acc[g], red_f);
-      if (tid == 0 && j0 + g < Pmax) colsum[j0 + g] = total;
-    }
-  }
-
-  // the rows of X, and the used-row mask
+  // one pass over the samples: used, the column masses, X (and norm)
   const int k3 = sh_k3;
-  const int64_t PT = 1 + Pmax + C;
-  long long n_used_part = 0;
-  for (int64_t n = tid; n < N; n += kThreads) {
-    int rs = 0;
-    for (int j = 0; j < Pmax; ++j) {
-      if (kept[j]) rs += wd.dosage(col_path[j], n);
+  const int PT = 1 + Pmax + C;
+  int n_used = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (n_tiles > 1) {
+      stage_tile(t);
+      __syncthreads();
     }
-    const bool used = rs > 0;
-    const double recip = rs == 0 ? 0.0 : 1.0 / double(rs);
-    used_out[s * N + n] = used;
-    n_used_part += used;
-    const bool keep = kAllRows || used;
-    double* row = X + (s * N + n) * PT;
-    row[0] = keep ? 1.0 : 0.0;
-    for (int j = 0; j < Pmax; ++j) {
-      const int slot = col_slot[j];
-      if (slot) {
-        const int merged = col_mult[j] * wd.dosage(col_path[j], n);
-        row[slot] = used ? double(merged) * recip : 0.0;
+    const int64_t w0 = int64_t(t) * TW;
+    const int64_t n_end_t = (w0 + tile_words(t)) * 16;
+    const int64_t n_hi = n_end_t < N ? n_end_t : N;
+    for (int64_t n0 = w0 * 16; n0 < n_hi; n0 += kRows) {
+      const int rows = int(n_hi - n0 < kRows ? n_hi - n0 : kRows);
+      // the word of sample n0 + r for column j
+      auto word = [&](int j, int r) {
+        return stage[int64_t(j) * TW + ((n0 + r) >> 4) - w0];
+      };
+      if (tid < rows) {
+        const int64_t n = n0 + tid;
+        int rs = 0;
+        for (int j = 0; j < Pmax; ++j) {
+          if (kept[j]) rs += dosage_of(word(j, tid), n);
+        }
+        recip_s[tid] = rs == 0 ? 0.0 : 1.0 / double(rs);
+        used_out[s * N + n] = rs > 0;
+        n_used += rs > 0;
       }
-    }
-    for (int c = 0; c < C; ++c) {
-      row[1 + k3 + c] = keep ? covar[n * C + c] : 0.0;
-    }
-    for (int64_t t = 1 + k3 + C; t < PT; ++t) row[t] = 0.0;
-    if (kTables) {
-      double* nrow = norm_out + (s * N + n) * Pmax;
-      for (int j = 0; j < Pmax; ++j) {
-        nrow[j] = kept[j] ? double(wd.dosage(col_path[j], n)) * recip : 0.0;
+      __syncthreads();
+      for (int j = warp; j < Pmax; j += kWarps) {
+        if (!kept[j]) continue;
+        double v = 0.0;
+        for (int r = lane; r < rows; r += 32) {
+          v = v + double(dosage_of(word(j, r), n0 + r)) * recip_s[r];
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          v = v + __shfl_xor_sync(kFull, v, off);
+        }
+        if (lane == 0) colsum[j] = colsum[j] + v;
       }
+      store_block(X, (s * N + n0) * PT, rows * PT, PT, [&](int r, int c) {
+        const double rc = recip_s[r];
+        const bool keep = kAllRows || rc != 0.0;
+        if (c == 0) return keep ? 1.0 : 0.0;
+        if (c <= k3) {
+          const int j = slot_col[c];
+          return double(col_mult[j] * dosage_of(word(j, r), n0 + r)) * rc;
+        }
+        if (c <= k3 + C) {
+          return keep ? covar[(n0 + r) * C + (c - 1 - k3)] : 0.0;
+        }
+        return 0.0;
+      });
+      if (kTables) {
+        store_block(norm_out, (s * N + n0) * Pmax, rows * Pmax, Pmax,
+                    [&](int r, int j) {
+                      return kept[j] ? double(dosage_of(word(j, r), n0 + r)) *
+                                           recip_s[r]
+                                     : 0.0;
+                    });
+      }
+      __syncthreads();
     }
   }
-  const long long n_used = block_sum(n_used_part, red_i);
+  n_used = __reduce_add_sync(kFull, n_used);
+  if (lane == 0) red[warp] = n_used;
+  __syncthreads();
 
   if (tid == 0) {
-    const double total = double(n_used);
+    int total_i = 0;
+    for (int w = 0; w < kWarps; ++w) total_i += red[w];
+    const double total = double(total_i);
     const double safe_total = total == 0.0 ? 1.0 : total;
     int maf_count = 0;
     for (int j = 0; j < Pmax; ++j) {
@@ -282,6 +413,34 @@ __global__ void quant_design_kernel(
   }
 }
 
+template <bool kAllRows, bool kTables>
+cudaError_t launch_design(size_t smem, unsigned blocks, cudaStream_t stream,
+                          const void* words, const void* path_idx,
+                          const void* path_valid, const void* sidx,
+                          const void* covar, void* X, void* used, void* ncols,
+                          void* filtered, void* degenerate, void* allele_paths,
+                          void* norm, void* kept, int Pmax, int K, int64_t W,
+                          int64_t N, int C, int TW, double min_individuals,
+                          double min_haplotypes, double maf_threshold) {
+  auto kernel = quant_design_kernel<kAllRows, kTables>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      static_cast<const uint32_t*>(words),
+      static_cast<const int32_t*>(path_idx),
+      static_cast<const uint8_t*>(path_valid),
+      static_cast<const int32_t*>(sidx), static_cast<const double*>(covar),
+      static_cast<double*>(X), static_cast<uint8_t*>(used),
+      static_cast<int32_t*>(ncols), static_cast<uint8_t*>(filtered),
+      static_cast<uint8_t*>(degenerate), static_cast<int32_t*>(allele_paths),
+      static_cast<double*>(norm), static_cast<uint8_t*>(kept), Pmax, K, W, N,
+      C, TW, min_individuals, min_haplotypes, maf_threshold);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int quant_design_launch(
@@ -291,32 +450,25 @@ extern "C" int quant_design_launch(
     void* kept, int64_t S, int64_t Pmax, int64_t K, int64_t W, int64_t N,
     int64_t C, int64_t H, int64_t all_rows, double min_individuals,
     double min_haplotypes, double maf_threshold, void* stream) {
-  const size_t smem = size_t(Pmax) * (sizeof(double) + 4 * sizeof(int32_t) +
-                                      sizeof(uint8_t));
-  if (Pmax < 1 || K < 1 || smem > 48 * 1024 || H != 2 * N ||
+  if (Pmax < 1 || K < 1 || H != 2 * N ||
       (norm == nullptr) != (kept == nullptr)) {
     return int(cudaErrorInvalidValue);
   }
-  if (S > 0) {
-    const Words wd{static_cast<const uint32_t*>(words),
-                   static_cast<const int32_t*>(path_idx), K, W, H};
-    // the table view when given its outputs
-    auto kernel = norm != nullptr
-                      ? (all_rows ? quant_design_kernel<true, true>
-                                  : quant_design_kernel<false, true>)
-                      : (all_rows ? quant_design_kernel<true, false>
-                                  : quant_design_kernel<false, false>);
-    kernel<<<unsigned(S), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        wd, static_cast<const uint8_t*>(path_valid),
-        static_cast<const int32_t*>(sidx), static_cast<const double*>(covar),
-        static_cast<double*>(X), static_cast<uint8_t*>(used),
-        static_cast<int32_t*>(ncols), static_cast<uint8_t*>(filtered),
-        static_cast<uint8_t*>(degenerate),
-        static_cast<int32_t*>(allele_paths), static_cast<double*>(norm),
-        static_cast<uint8_t*>(kept), int(Pmax), N, int(C),
-        min_individuals, min_haplotypes, maf_threshold);
-  }
-  return int(cudaGetLastError());
+  const int64_t TW = stage_words(Pmax, W);
+  const size_t smem = smem_bytes(Pmax, TW);
+  if (smem > kMaxSmem) return int(cudaErrorInvalidValue);
+  if (S == 0) return int(cudaGetLastError());
+  // the table view when given its outputs
+  auto launch = norm != nullptr
+                    ? (all_rows ? launch_design<true, true>
+                                : launch_design<false, true>)
+                    : (all_rows ? launch_design<true, false>
+                                : launch_design<false, false>);
+  return int(launch(smem, unsigned(S), static_cast<cudaStream_t>(stream),
+                    words, path_idx, path_valid, sidx, covar, X, used, ncols,
+                    filtered, degenerate, allele_paths, norm, kept, int(Pmax),
+                    int(K), W, N, int(C), int(TW), min_individuals,
+                    min_haplotypes, maf_threshold));
 }
 
 extern "C" const char* quant_design_error_string(int err) {

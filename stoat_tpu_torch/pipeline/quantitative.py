@@ -247,9 +247,10 @@ def quant_design(chunk: DeviceChunk, covar: torch.Tensor, min_individuals,
     ``tables``, the -T table view ``TABLE_KEYS`` too).
 
     CUDA tensors run csrc/quant_design.cu, one block per snarl, which
-    never writes the [P, W] or [P, H] membership: it is bound by writing X
-    (S * N * (1 + Pmax + C) * 8 bytes), and norm (S * N * Pmax * 8) with
-    the table view.  CPU tensors run the plain version."""
+    stages each column's membership words in shared memory and never
+    writes the [P, W] or [P, H] membership to device memory: it is bound by
+    writing X (S * N * (1 + Pmax + C) * 8 bytes), and norm (S * N * Pmax *
+    8) with the table view.  CPU tensors run the plain version."""
     if kernels_enabled(chunk.words.device):
         return _quant_design_cuda(chunk, covar, min_individuals,
                                   min_haplotypes, maf_threshold,

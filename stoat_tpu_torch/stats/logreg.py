@@ -177,9 +177,9 @@ def logistic_regression(X: torch.Tensor, y: torch.Tensor,
     X float64 [S, N, P] (rows of unused samples and padded columns zero),
     y float64 [S, N] (0 on unused rows), row_mask bool [S, N], ncols int32
     [S], degenerate bool [S].  CUDA tensors run csrc/logreg.cu, one block
-    per snarl, which reads X once per Newton step: it is bound by those
-    S * N * P * 8 bytes times the steps of its slowest snarls.  CPU tensors
-    run the plain version."""
+    per snarl, which holds the snarl's rows of X in shared memory across
+    its Newton steps: it is bound by reading X once, S * N * P * 8 bytes.
+    CPU tensors run the plain version."""
     if kernels_enabled(X.device):
         return _logreg_cuda(X, y, row_mask, ncols, degenerate)
     return logistic_regression_plain(X, y, row_mask, ncols, degenerate)

@@ -98,6 +98,19 @@ def test_logreg_pt12_matches_jax():
     _check(*_pack(designs, ys, P=12, N=300))
 
 
+@pytest.mark.parametrize("case", ["stream_p5", "p7", "p8", "p60", "p118"])
+def test_logreg_grid_matches_jax(case):
+    """chip_smoke.py's grid at the edges of the kernel's design: rows past
+    the ones a block holds, P + 1 = 8 and 9 (one and three output tiles),
+    the algebra beside few rows (P = 60) and in the scratch (P = 118)."""
+    designs = dict(SMOKE.logreg_grid_designs())
+    assert sorted(designs) == sorted(["stream_p5", "p7", "p8", "p60",
+                                      "p118"])
+    got = _check(*designs[case])
+    assert np.isfinite(got["p"].numpy()).all()
+    assert (got["iters"].numpy() < 20).all()
+
+
 def test_logreg_wrapper_masks_degenerate_and_counts_steps():
     X, y, mask, ncols = _pack(*_oracle_designs(4, 6, 2), P=4, N=80)
     deg = np.array([False, True, False, False, True, False])

@@ -132,6 +132,47 @@ def test_design_from_membership_matches_jax(seed, C):
     assert ((got["ncols"] - 1 - C) < kept - 1).any()     # a merge fired
 
 
+GRID_CASES = ["pmax1", "n37", "two_tiles", "pmax_max"]
+
+
+@pytest.mark.parametrize("all_rows", [False, True])
+@pytest.mark.parametrize("C", [0, 2])
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_design_grid_matches_jax(case, C, all_rows):
+    """chip_smoke.py's grid at the edges of the kernel's design (Pmax = 1,
+    a part-filled last word, merges in every position, an all-invalid
+    snarl, two word tiles, the widest Pmax), from the packed words through
+    K1, K7 and K8 with the table view: X and norm bit for bit, the rest
+    exactly."""
+    from stoat_tpu.pipeline import quantitative as jq
+    from stoat_tpu_torch.convert import DeviceChunk
+    from stoat_tpu_torch.pipeline.quantitative import (TABLE_KEYS,
+                                                       quant_design_plain)
+    from test_torch_cli import _chip_smoke
+    grid = {name: (arrays, H)
+            for name, arrays, H in _chip_smoke().quant_grid_chunks()}
+    assert sorted(grid) == sorted(GRID_CASES)
+    (words, idx, valid, sidx), H = grid[case]
+    covar = np.random.default_rng(C).standard_normal((H // 2, C))
+    want = jq._design_packed_body(
+        jnp.asarray(words.view(np.uint32)), jnp.asarray(idx),
+        jnp.asarray(valid), jnp.asarray(sidx), jnp.asarray(covar),
+        *map(jnp.float64, THRESHOLDS), n_haplotypes=H, with_covar=C > 0,
+        all_rows=all_rows)
+    chunk = DeviceChunk(*(torch.from_numpy(a) for a in (words, idx, valid,
+                                                        sidx)))
+    got = quant_design_plain(chunk, torch.from_numpy(covar), *THRESHOLDS, H,
+                             all_rows=all_rows, tables=True)
+    for key in DESIGN_KEYS + TABLE_KEYS:
+        g, w = got[key].numpy(), np.asarray(want[key])
+        assert g.shape == w.shape, key
+        if g.dtype == np.float64:
+            np.testing.assert_array_equal(g.view(np.uint64),
+                                          w.view(np.uint64), key)
+        else:
+            np.testing.assert_array_equal(g, w.astype(g.dtype), key)
+
+
 def _fixture_chunks(tmp_path, seed, n_samples, n_snarls, chunk):
     from fixtures import make_fixture
     from stoat_tpu.io.phenotype import (parse_covariates,

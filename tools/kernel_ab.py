@@ -4,8 +4,9 @@ on one card, in one process.
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
-    python3 tools/kernel_ab.py --baseline DIR [--candidate DIR]
-                               [--kernel ols|perm_ols|quant_design|score_perm]
+    python3 tools/kernel_ab.py --baseline DIR [--candidate DIR ...]
+                               [--kernel logreg|ols|perm_ols|quant_design|
+                                         score_perm]
                                [--snarls 16384] [--rounds 4]
 
 Each DIR holds one version's kernel sources (its ``<source>.cu`` and the
@@ -23,12 +24,18 @@ observed phenotype and the main path's 1,000 Freedman-Lane permutations
 (chip_smoke.PERM_FULL); score_perm on the first ``vcf -b -c`` chunk's D
 and V^-1 with the observed residual and 1,000 permuted ones; quant_design's OLS design, ``all_rows`` off
 and no table view, launched with the argument list each version's source
-declares), in the order A B B A for ``--rounds`` rounds (A is the
-candidate).  It prints each version's ms per call (CUDA events, the median
+declares; logreg on the first ``vcf -b -c`` chunk's design and case
+indicator, chip_smoke.py phase 5's ``fit``), in the order A B B A for
+``--rounds`` rounds (A is the candidate).  With ``--candidate`` given
+more than once, the candidates A1, A2, ... and B run in that order and
+back in each round, and each candidate is compared with B.  It prints
+each version's ms per call (CUDA events, the median
 of its rounds), its device ms per call (torch.profiler), whether the two
 versions' outputs are equal bit for bit and, where they are not, the
 largest relative difference of the first output (t1, T: |A - B| /
-max(|B|, 1), chip_smoke.stat_err; inf unless NaN and infinities agree),
+max(|B|, 1); logreg's p in units of max(|B|, 1e-5); chip_smoke.stat_err;
+inf unless NaN and infinities agree) and, for logreg, the snarls whose
+Newton step counts differ,
 then the card's name and power limit.  It exits non-zero when there is no
 card.
 """
@@ -103,6 +110,26 @@ def score_perm_inputs(cs, device, snarls, work):
     return (lambda: [pm.score_perm_stats(*args)]), tuple(D.shape)
 
 
+def logreg_inputs(cs, device, snarls, work):
+    """A zero-argument call of logistic_regression on the first ``vcf -b
+    -c`` chunk (its design has no covariates, y the case indicator times
+    the used rows), and X's shape."""
+    import torch
+    from stoat_tpu_torch.pipeline.quantitative import quant_design
+    from stoat_tpu_torch.stats.logreg import LOGREG_KEYS, logistic_regression
+    _d, chunk, _qpheno, qcovar, case = quant_chunk(cs, device, snarls, work)
+    no_covar = torch.zeros((qcovar.shape[0], 0), dtype=torch.float64,
+                           device=device)
+    d = quant_design(chunk, no_covar, *cs.THRESHOLDS, 2 * qcovar.shape[0])
+    args = (d["X"], case[None, :] * d["used"], d["used"], d["ncols"],
+            d["degenerate"])
+
+    def call():
+        out = logistic_regression(*args)
+        return [out[k] for k in LOGREG_KEYS]
+    return call, tuple(d["X"].shape)
+
+
 def quant_design_inputs(cs, device, snarls, work, versions):
     """A zero-argument call of the quant_design kernel on the first ``vcf
     -q -c`` chunk (the OLS design: all_rows off, no table view), and X's
@@ -141,9 +168,11 @@ def quant_design_inputs(cs, device, snarls, work, versions):
     return call, tuple(d["X"].shape)
 
 
-CALLS = {"ols": ols_inputs, "perm_ols": perm_ols_inputs,
+CALLS = {"logreg": logreg_inputs, "ols": ols_inputs, "perm_ols": perm_ols_inputs,
          "quant_design": quant_design_inputs,
          "score_perm": score_perm_inputs}
+# the first output's statistic and p floor in chip_smoke.stat_err
+FIRST = {"logreg": ("p", 1e-5)}
 # the source (and library) of each kernel
 SOURCES = {"score_perm": "score_test"}
 # the version whose library is loaded (kernel_ab's use)
@@ -187,9 +216,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", required=True,
                     help="directory of the other version's kernel sources")
-    ap.add_argument("--candidate",
-                    help="directory of the version to test (default: the "
-                         "checkout's stoat_tpu_torch/csrc)")
+    ap.add_argument("--candidate", action="append",
+                    help="directory of a version to test (default: the "
+                         "checkout's stoat_tpu_torch/csrc); repeat it to "
+                         "time several versions in turn")
     ap.add_argument("--kernel", default="ols", choices=sorted(CALLS))
     ap.add_argument("--snarls", type=int, default=16384)
     ap.add_argument("--rounds", type=int, default=4)
@@ -209,8 +239,12 @@ def main():
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     libs, ptxas, dmma = {}, {}, {}
-    candidate = args.candidate or build.CSRC_DIR
-    for tag, src_dir in (("A", candidate), ("B", args.baseline)):
+    candidates = args.candidate or [str(build.CSRC_DIR)]
+    sources = {("A" if len(candidates) == 1 else f"A{i + 1}"): str(c)
+               for i, c in enumerate(candidates)}
+    sources["B"] = args.baseline
+    tags = list(sources)
+    for tag, src_dir in sources.items():
         libs[tag], ptxas[tag], path = build_version(build, name, src_dir, tag)
         dmma[tag] = dmma_count(path)
 
@@ -220,35 +254,41 @@ def main():
             build._LIBS[name] = libs[tag]
 
     work = tempfile.mkdtemp(prefix="ab-", dir=build.BUILD_DIR)
-    extra = ({"versions": {"A": str(candidate), "B": args.baseline}}
-             if kernel == "quant_design" else {})
+    extra = {"versions": sources} if kernel == "quant_design" else {}
     try:
         call, shape = CALLS[kernel](cs, device, args.snarls, work, **extra)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    outs, ms, dev = {}, {"A": [], "B": []}, {}
-    for tag in ("A", "B"):
+    outs, ms, dev = {}, {tag: [] for tag in tags}, {}
+    for tag in tags:
         use(tag)
         outs[tag] = [cs.to_np(t) for t in call()]
     for _ in range(args.rounds):
-        for tag in ("A", "B", "B", "A"):
+        for tag in tags + tags[::-1]:
             use(tag)
             ms[tag].append(cs.cuda_ms(call, 10))
-    for tag in ("A", "B"):
+    for tag in tags:
         use(tag)
         dev[tag] = cs.device_ms(torch, {kernel: call})[kernel]
-    use("A")
-    same = all(cs.same_bits(a, b) for a, b in zip(outs["A"], outs["B"]))
-    for tag, what in (("A", candidate), ("B", args.baseline)):
-        cs.say(f"{kernel} {tag} ({what}): {registers(ptxas[tag])}; "
+    use(tags[0])
+    for tag in tags:
+        cs.say(f"{kernel} {tag} ({sources[tag]}): {registers(ptxas[tag])}; "
                f"DMMA lines in the SASS: {dmma[tag]}; "
                f"{statistics.median(ms[tag]):.4f} ms per call (median of "
                f"{len(ms[tag])} timings of 10 calls: "
                + ", ".join(f"{t:.4f}" for t in ms[tag])
                + f"); device {dev[tag]} ms per call")
-    cs.say(f"{kernel} on {shape}: outputs of A and B bitwise equal: {same}; "
-           f"largest relative difference of the first output: "
-           f"{cs.stat_err('t1', outs['A'][0], outs['B'][0]):.3g}")
+    stat, floor = FIRST.get(kernel, ("t1", 0.0))
+    for tag in tags[:-1]:
+        same = all(cs.same_bits(a, b) for a, b in zip(outs[tag], outs["B"]))
+        first = cs.stat_err(stat, outs[tag][0], outs["B"][0], p_floor=floor)
+        flips = ""
+        if kernel == "logreg":
+            diff = (outs[tag][3] != outs["B"][3]).nonzero()[0].tolist()
+            flips = f"; snarls whose Newton step counts differ: {diff}"
+        cs.say(f"{kernel} on {shape}: outputs of {tag} and B bitwise equal: "
+               f"{same}; largest relative difference of the first output: "
+               f"{first:.3g}" + flips)
     cs.say(cs.nvidia_smi_line())
     return 0
 
