@@ -26,8 +26,9 @@ printing lines and each fatal on failure:
      tail grid, a random grid of 10^6 and the first chunk's statistics;
      quant_design's -T table view on the OLS and all-rows designs) and on
      edge cases, the permutation kernels' tile edges, quant_design's grid
-     in its four instantiations and logreg's grid among them (tolerances
-     printed);
+     in its four instantiations, logreg's grid and the two OLS kernels'
+     grid among them (tolerances printed; the OLS's phenotype row bit for
+     bit its [S, N] y);
   4. main paths: the port's CLI with ``--device cuda``: ``vcf -b``, ``vcf
      -q``, ``vcf -q -c -C AGE,SEX`` and ``vcf -b -c -C AGE,SEX`` on a
      generated cohort of 2,504 samples (the 1000 Genomes phase-3 size)
@@ -1143,18 +1144,28 @@ def compare_quant_design(chunk, covar, n_haplotypes, err, all_rows=False):
 OLS_NAMES = ("t1", "df_res", "beta1", "se1", "r2")
 
 
-def compare_ols(X, y, mask, ncols, err, bound, what, noise_rows=(),
-                pinv=(), pinv_bound=None):
-    """Q2 kernel vs plain on the card: each output's max error (stat_err),
+def compare_ols(X, row, mask, ncols, err, bound, what, noise_rows=(),
+                pinv=(), pinv_bound=None, plain_on_cpu=False):
+    """Q2 kernel vs plain on the card (or on the CPU: the grid's wide
+    designs' Jacobi sweeps are a minute of small launches on the card):
+    each output's max error (stat_err),
     held to ``bound``, and to ``pinv_bound`` on the ``pinv`` rows (those
     that take the pseudo-inverse).  ``noise_rows`` have a constant
     phenotype (tss = 0): there r2 must not be finite in either, and beta1
     and se1 are rounding noise (below 1e-9) whose ratio t1 no summation
-    order reproduces."""
-    from stoat_tpu_torch.stats.linreg import (linear_regression_stats,
+    order reproduces.  ``row`` is the phenotype row [N] as the pipelines
+    pass it (linear_regression_row_stats: the kernel forms y = row * mask;
+    ``mask`` None uses every row); the plain version takes that [S, N]
+    y."""
+    import torch
+    from stoat_tpu_torch.stats.linreg import (linear_regression_row_stats,
                                               linear_regression_stats_plain)
-    got = linear_regression_stats(X, y, mask, ncols)
-    plain = linear_regression_stats_plain(X, y, mask, ncols)
+    got = linear_regression_row_stats(X, row, mask, ncols)
+    if mask is None:
+        mask = torch.ones(X.shape[:2], dtype=torch.bool, device=X.device)
+    args = (X, row[None, :] * mask, mask, ncols)
+    plain = linear_regression_stats_plain(
+        *(t.cpu() for t in args) if plain_on_cpu else args)
     return got, hold_ols_stats(got, plain, "ols", err, bound, what,
                                noise_rows, pinv, pinv_bound)
 
@@ -1220,19 +1231,27 @@ def compare_student_t(t1, df, deg, beta, se, r2, err, what):
 
 
 def ols_cases(device, seed, B, N, P, C=1):
+    """ols_case_arrays' (X, phenotype row, mask, ncols) on ``device``."""
+    import torch
+    X, mask, ncols, pheno, _dense = ols_case_arrays(seed, B, N, P, C)
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in (X, pheno, mask, ncols))
+
+
+def ols_case_arrays(seed, B, N, P, C=1):
     """B OLS designs [1 | dosage fractions | covariates], padded to
     [B, N, P] with their own used rows: snarl 0 has two equal dosage
     columns and snarl 1 a covariate collinear with a dosage (both take the
-    pseudo-inverse), snarl 2 a constant phenotype (tss = 0)."""
+    pseudo-inverse).  numpy (X, mask, ncols, the phenotype row [N], the
+    dense [N, ncols] design of each snarl before masking)."""
     import numpy as np
-    import torch
     rng = np.random.default_rng(seed)
     X = np.zeros((B, N, P))
-    y = np.zeros((B, N))
     mask = rng.random((B, N)) < 0.8
     ncols = np.zeros(B, np.int32)
     pheno = rng.standard_normal(N) * 2.0 + 5.0
     covar = rng.standard_normal((N, C))
+    dense = []
     for b in range(B):
         k = 2 if b == 0 else int(rng.integers(1, P - C))
         counts = rng.integers(0, 3, (N, k + 1)).astype(float)
@@ -1244,12 +1263,156 @@ def ols_cases(device, seed, B, N, P, C=1):
         if b == 1:
             cols[-1] = 2.0 * cols[1] - 0.5
         Xb = np.stack(cols, axis=1)
+        dense.append(Xb)
         ncols[b] = Xb.shape[1]
         X[b, :, :ncols[b]] = Xb
-        y[b] = 3.0 if b == 2 else pheno
     X[~mask] = 0.0
-    y[~mask] = 0.0
-    return tuple(torch.from_numpy(a).to(device) for a in (X, y, mask, ncols))
+    return X, mask, ncols, pheno, dense
+
+
+def ols_grid_designs():
+    """[(name, X [S, N, P], row, mask, ncols, noise_rows)] numpy OLS
+    designs at the edges of ols_block_device.cuh, from seeds.  ``row`` is
+    the phenotype row [N] as the pipelines pass it (y = row * mask);
+    ``mask`` None uses every row; ``noise_rows`` have a constant y (tss =
+    0).  Snarls 0 and 1 of every case but p2 take the pseudo-inverse
+    (equal dosage columns, a covariate collinear with a dosage):
+
+      p2, p5_n37, p8, p12  P = 2 (a constant dosage on snarl 0), 5, 8 and
+                 12: [X | m] and [X | y] in one, two and two 8-wide tiles
+                 (three output tiles at P = 8 and 12); N = 37 at P = 5,
+                 not a multiple of 32
+      p7_over_r  P = 7, [X | y] exactly one tile, at N = 3,000: past the
+                 rows a block holds (about 1,200), not a multiple of 32
+      p7         P = 7 at N = 300, the main path's width
+      const_row  a constant phenotype row: tss = 0 on every (full-rank)
+                 snarl
+      no_used    a snarl with no used row (every statistic but df NaN or 0)
+      rotated    the mixed model's: dense rotated rows, every row used (no
+                 mask), the rotated phenotype row
+      p40, p90   wide designs: the algebra in shared memory beside fewer
+                 rows (P = 40), and in the wrapper's scratch (P = 90)
+    """
+    import numpy as np
+    out = []
+
+    def case(name, seed, S, N, P, edit=None):
+        X, mask, ncols, row, dense = ols_case_arrays(seed, S, N, P, C=2)
+        noise = ()
+        if edit is not None:
+            X, row, mask, ncols, noise = edit(X, row, mask, ncols, dense)
+        out.append((name, X, row, mask, ncols, noise))
+
+    def const_row(X, row, mask, ncols, dense):
+        # the full-rank snarls only: on a rank-deficient design the fit of
+        # a constant is exact but its beta1 is no noise, so t1 is noise
+        return X[2:].copy(), np.full_like(row, 3.0), mask[2:].copy(), \
+            ncols[2:].copy(), tuple(range(X.shape[0] - 2))
+
+    def no_used(X, row, mask, ncols, dense):
+        mask[0] = False
+        X[0] = 0.0
+        return X, row, mask, ncols, ()
+
+    def rotated(X, row, mask, ncols, dense):
+        N = X.shape[1]
+        rng = np.random.default_rng(37)
+        Q = np.linalg.qr(rng.standard_normal((N, N)))[0]
+        X = np.zeros_like(X)
+        for b, Xb in enumerate(dense):
+            X[b, :, :Xb.shape[1]] = Q @ Xb
+        return X, Q @ row, None, ncols, ()
+
+    # P = 2, [1 | dosage]; snarl 0's dosage is constant (the
+    # pseudo-inverse)
+    rng = np.random.default_rng(41)
+    S, N = 12, 300
+    mask = rng.random((S, N)) < 0.8
+    X = np.zeros((S, N, 2))
+    X[:, :, 0] = 1.0
+    X[:, :, 1] = rng.integers(0, 3, (S, N)) / 2.0
+    X[0, :, 1] = 0.5
+    X[~mask] = 0.0
+    out.append(("p2", X, rng.standard_normal(N) * 2.0 + 5.0, mask,
+                np.full(S, 2, np.int32), ()))
+    case("p5_n37", 42, 16, 37, 5)
+    case("p8", 43, 16, 301, 8)
+    case("p12", 44, 16, 300, 12)
+    case("p7_over_r", 45, 8, 3000, 7)
+    case("p7", 46, 16, 300, 7)
+    case("const_row", 47, 8, 200, 5, edit=const_row)
+    case("no_used", 48, 8, 200, 7, edit=no_used)
+    case("rotated", 49, 12, 200, 7, edit=rotated)
+    case("p40", 50, 6, 400, 40)
+    case("p90", 51, 4, 400, 90)
+    return out
+
+
+def eqtl_grid_designs():
+    """[(name, X [S, N, P], mask, ncols, pair_snarl, pair_gene, expr [G, N],
+    noise_genes)] numpy eQTL chunks at the edges of eqtl_ols.cu's gene
+    batches (16 genes, 4 a residual pass), from seeds: snarls with 0, 1, 8,
+    9 and 33 genes, in
+    (snarl, gene) order; the rank-deficient snarls 0 and 1 (the
+    pseudo-inverse) with genes; a gene of constant expression (3.0: tss =
+    0) on full-rank snarls.  At P = 7 (N = 300), P = 12 (two tiles of
+    [X | m], the genes' tiles in two passes) and P = 7 at N = 3,000 (rows
+    past the ones a block holds)."""
+    import numpy as np
+    out = []
+    counts = [9, 33, 0, 1, 8, 9, 33, 0, 1, 8]
+    for name, seed, N, P in (("p7", 61, 300, 7), ("p12", 62, 300, 12),
+                             ("p7_over_r", 63, 3000, 7)):
+        S = len(counts)
+        X, mask, ncols, _pheno, _dense = ols_case_arrays(seed, S, N, P,
+                                                         C=2)
+        rng = np.random.default_rng(seed + 100)
+        G = 40
+        expr = rng.standard_normal((G, N)) + 1.0
+        expr[G - 1] = 3.0
+        pair_snarl, pair_gene = [], []
+        for s, k in enumerate(counts):
+            genes = sorted(rng.choice(G - 1, k, replace=False).tolist())
+            if k and s >= 2 and s % 2 == 0:
+                genes[-1] = G - 1
+            pair_snarl += [s] * k
+            pair_gene += genes
+        out.append((name, X, mask, ncols, pair_snarl, pair_gene, expr,
+                    (G - 1,)))
+    return out
+
+
+def compare_ols_grid(device, err):
+    """ols and eqtl_ols on ols_grid_designs and eqtl_grid_designs against
+    their plain versions on the CPU, as compare_ols and compare_eqtl hold
+    them (the pseudo-inverse rows from pinv_rows).  Returns a
+    description."""
+    from stoat_tpu_torch.convert import to_eqtl_pairs
+    t0 = time.perf_counter()
+    notes = []
+    for name, X, row, mask, ncols, noise in ols_grid_designs():
+        Xt = upload_t(X, device)
+        nc = upload_t(ncols, device)
+        bad, _ = pinv_rows(Xt, nc)
+        _, errs = compare_ols(Xt, upload_t(row, device),
+                              None if mask is None else upload_t(mask, device),
+                              nc, err, OLS_REL, f"grid {name}",
+                              noise_rows=noise, pinv=bad,
+                              pinv_bound=OLS_PINV_REL, plain_on_cpu=True)
+        notes.append(f"{name} {X.shape} (pinv {len(bad)}): t1 "
+                     f"{errs.get('t1', 0.0):.3g}")
+    for name, X, mask, ncols, pair_snarl, pair_gene, expr, noise in \
+            eqtl_grid_designs():
+        d = {"X": upload_t(X, device), "used": upload_t(mask, device),
+             "ncols": upload_t(ncols, device)}
+        pairs = to_eqtl_pairs(pair_snarl, pair_gene, X.shape[0], device)
+        _, errs, n_pinv = compare_eqtl(d, pairs, upload_t(expr, device), err,
+                                       f"grid {name}", noise_genes=noise,
+                                       plain_on_cpu=True)
+        notes.append(f"eqtl {name} {X.shape}, {len(pair_snarl)} pairs "
+                     f"({n_pinv} pinv): t1 {errs.get('t1', 0.0):.3g}")
+    return (f"OLS grid in {time.perf_counter() - t0:.1f}s (bounds as above): "
+            + "; ".join(notes))
 
 
 def pinv_rows(X, ncols):
@@ -1463,11 +1626,10 @@ def quant_edge_cases(device, err):
               and to_np(d["allele_paths"])[5, 1] == 0,
               "quant_design: invalid / edgeless / empty path counts")
         used = d["used"]
-        y = pheno[None, :] * used
         bad, _ = pinv_rows(d["X"], d["ncols"])
         check(2 in bad, f"ols: snarl 2 (constant variant column) did not "
               f"take the pseudo-inverse ({bad})")
-        stats, _ = compare_ols(d["X"], y, used, d["ncols"], err, OLS_REL,
+        stats, _ = compare_ols(d["X"], pheno, used, d["ncols"], err, OLS_REL,
                                f"edge chunk, C={C}", pinv=bad,
                                pinv_bound=OLS_PINV_REL)
         out, _ = compare_student_t(*stats[:2], d["degenerate"], *stats[2:],
@@ -1476,17 +1638,22 @@ def quant_edge_cases(device, err):
               "student_t: a degenerate snarl is not NA")
         notes.append(f"C={C}: pinv rows {bad}")
 
-    # Q2: rank-deficient designs, PT = 7 and PT = 12, constant phenotype
+    # Q2: rank-deficient designs, PT = 7 and PT = 12, and a constant
+    # phenotype on the full-rank ones
     ols_errs = {}
     for seed, P in ((1, 7), (2, 12)):
-        X, y, mask, ncols = ols_cases(device, seed, 64, 300, P)
+        X, row, mask, ncols = ols_cases(device, seed, 64, 300, P)
         bad, _ = pinv_rows(X, ncols)
         check(0 in bad and 1 in bad, f"ols: PT={P} designs 0 and 1 did "
               f"not take the pseudo-inverse ({bad})")
-        _, errs = compare_ols(X, y, mask, ncols, err, OLS_REL, f"PT={P}",
-                              noise_rows=(2,), pinv=bad,
-                              pinv_bound=OLS_PINV_REL)
-        for name, e in errs.items():
+        _, errs = compare_ols(X, row, mask, ncols, err, OLS_REL, f"PT={P}",
+                              pinv=bad, pinv_bound=OLS_PINV_REL)
+        full = [r for r in range(X.shape[0]) if r not in bad]
+        _, errs_c = compare_ols(X[full], torch.full_like(row, 3.0),
+                                mask[full], ncols[full], err, OLS_REL,
+                                f"PT={P}, constant phenotype",
+                                noise_rows=range(len(full)))
+        for name, e in (*errs.items(), *errs_c.items()):
             ols_errs[name] = max(ols_errs.get(name, 0.0), e)
 
     # Q3: the df x |t| grid, non-finite t, subnormal p, a degenerate row
@@ -2522,7 +2689,8 @@ def gene_pairs(snarls, filtered, genes, window=1000000):
     return pair_snarl, pair_gene
 
 
-def compare_eqtl(d, pairs, expr, err, what, noise_genes=()):
+def compare_eqtl(d, pairs, expr, err, what, noise_genes=(),
+                 plain_on_cpu=False):
     """K13 kernel vs plain on the card: t1, beta, se and r2 within OLS_REL
     (OLS_PINV_REL on the pairs of rank-deficient snarls), df exact; pairs
     of the ``noise_genes`` (a constant expression: tss = 0) have r2 not
@@ -2532,7 +2700,8 @@ def compare_eqtl(d, pairs, expr, err, what, noise_genes=()):
     from stoat_tpu_torch.pipeline import quantitative as tq
     args = (d["X"], d["used"], d["ncols"], *pairs, expr)
     got = tq.eqtl_ols_stats(*args)
-    plain = tq.eqtl_ols_stats_plain(*args)
+    plain = tq.eqtl_ols_stats_plain(
+        *(t.cpu() for t in args) if plain_on_cpu else args)
     ps = to_np(tq.pair_snarls(pairs[0], int(pairs[1].shape[0])))
     bad, _ = pinv_rows(d["X"], d["ncols"])
     pinv = np.flatnonzero(np.isin(ps, bad)).tolist()
@@ -3285,8 +3454,12 @@ def kernel_work(name, x):
                 + S * N * PT * f8 + S * N + S * (3 + Pmax) * i4 + tables
                 ), 4 * S * N * Pmax, "float64"
     if name == "ols":
+        # X, the mask (none for the mixed model's designs) and the phenotype
+        # row, or y_rows rows of y
         S, N, P = x["X"].shape
-        return S * N * (P * f8 + f8 + 1) + S * i4 + 5 * S * f8, \
+        mask = S * N if x.get("mask", True) else 0
+        return (S * N * P * f8 + mask + x.get("y_rows", 1) * N * f8
+                + S * i4 + 5 * S * f8), \
             S * N * (P * (P + 1) + 2 * P + 2 * P + 6), "float64"
     if name == "student_t":
         S = x["t1"].shape[0]
@@ -3589,17 +3762,18 @@ def phase_kernels(torch, device, chunks, err, graph):
     from stoat_tpu_torch.pipeline.quantitative import quant_design
     d = compare_quant_design(qchunk, qcovar, H, err)
     used = d["used"]
-    y = qpheno[None, :] * used
+    y = qpheno[None, :] * used   # the plain version's, for its time
     bad, nearest = pinv_rows(d["X"], d["ncols"])
     filtered = to_np(d["filtered"])
     bad_kept = [r for r in bad if not filtered[r]]
-    stats, ols_errs = compare_ols(d["X"], y, used, d["ncols"], err, OLS_REL,
-                                  "main chunk", pinv=bad,
+    stats, ols_errs = compare_ols(d["X"], qpheno, used, d["ncols"], err,
+                                  OLS_REL, "main chunk", pinv=bad,
                                   pinv_bound=OLS_PINV_REL)
     _, t_worst = compare_student_t(*stats[:2], d["degenerate"], *stats[2:],
                                    err, "main chunk")
     qedges = quant_edge_cases(device, err)
     qgrid = compare_quant_grid(device, err)
+    ogrid = compare_ols_grid(device, err)
     no_covar = torch.zeros((qcovar.shape[0], 0), dtype=torch.float64,
                            device=device)
     views = "; ".join(compare_table_view(qchunk, c, H, err, what, all_rows)
@@ -3618,11 +3792,13 @@ def phase_kernels(torch, device, chunks, err, graph):
         f"pivot of the others {nearest:.3g} x 1e-10); student_t max rel err "
         f"{t_worst[0]:.3g} vs the card's plain version (bound {T_REL:g}), "
         f"{t_worst[1]:.3g} vs the CPU's (bound {T_CPU_REL:g}); {qedges}; "
-        f"table view (-T) on the main chunk: {views}; {qgrid}; max abs err "
+        f"table view (-T) on the main chunk: {views}; {qgrid}; {ogrid}; "
+        f"max abs err "
         + ", ".join(f"{k}={err[k]:.3g}" for k in QUANT_KERNELS))
     quant = {"chunk": qchunk, "covar": qcovar, "H": H, "X": d["X"], "y": y,
-             "used": used, "ncols": d["ncols"], "deg": d["degenerate"],
-             "filtered": d["filtered"], "stats": stats}
+             "row": qpheno, "used": used, "ncols": d["ncols"],
+             "deg": d["degenerate"], "filtered": d["filtered"],
+             "stats": stats}
     del d
 
     # K6 on the main graph's partition counts, then its edge rows
@@ -4102,7 +4278,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
                                               fisher_exact_2x2_plain)
     from stoat_tpu_torch.graph.association import (graph_stats,
                                                    graph_stats_plain)
-    from stoat_tpu_torch.stats.linreg import (linear_regression_stats,
+    from stoat_tpu_torch.stats.linreg import (linear_regression_row_stats,
                                               linear_regression_stats_plain,
                                               student_t_pvalues,
                                               student_t_pvalues_plain)
@@ -4115,7 +4291,8 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
     abcd = (tables["a"], tables["b"], tables["c"], tables["d"])
     q = quant
     design = (q["chunk"], q["covar"], *THRESHOLDS, q["H"])
-    ols = (q["X"], q["y"], q["used"], q["ncols"])
+    ols = (q["X"], q["row"], q["used"], q["ncols"])
+    ols_plain = (q["X"], q["y"], q["used"], q["ncols"])
     tail = (*q["stats"][:2], q["deg"], *q["stats"][2:])
     counts = logit["graph"]
     fit = (logit["X"], logit["y"], logit["used"], logit["ncols"],
@@ -4135,7 +4312,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "binary_tables": lambda: binary_tables(g0p, g1p, sidx, *thr),
         "fisher": lambda: fisher_exact_2x2(*abcd),
         "quant_design": lambda: quant_design(*design),
-        "ols": lambda: linear_regression_stats(*ols),
+        "ols": lambda: linear_regression_row_stats(*ols),
         "student_t": lambda: student_t_pvalues(*tail),
         "graph_stats": lambda: graph_stats(*counts),
         "logreg": lambda: logistic_regression(*fit),
@@ -4162,7 +4339,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
             cuda_ms(lambda: quant_design_plain(*design), 3, warmup=1)),
         "ols": (
             cuda_ms(calls["ols"], 10),
-            cuda_ms(lambda: linear_regression_stats_plain(*ols), 3,
+            cuda_ms(lambda: linear_regression_stats_plain(*ols_plain), 3,
                     warmup=1)),
         "student_t": (
             cuda_ms(calls["student_t"], 20),
@@ -4208,6 +4385,10 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         lambda: m["X"].transpose(1, 2) @ m["phenos"].T, 3, warmup=1)
     library["score_perm"] = cuda_ms(
         lambda: m["D"].transpose(1, 2) @ m["e"].T, 3, warmup=1)
+    # the OLS kernels' GEMM core alone: X^T X of the chunk's design (the
+    # same X for both)
+    library["ols"] = library["eqtl_ols"] = cuda_ms(
+        lambda: torch.einsum("snp,snq->spq", q["X"], q["X"]), 10)
     dev = device_ms(torch, calls)
     # graph_stats launches chi2_tail for its two tails: chi2_tail's own
     # device time comes from a window of its own
@@ -4234,6 +4415,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
                          "sidx": q["chunk"].snarl_path_idx,
                          "covar": q["covar"]},
         "ols": {"X": q["X"]},
+        "ols (y [S, N])": {"X": q["X"], "y_rows": q["X"].shape[0]},
         "student_t": {"t1": q["stats"][0], "df": q["stats"][1]},
         "graph_stats": {"G0": counts[0], "G1": counts[1]},
         "logreg": {"X": logit["X"], "iters": logit["iters"]},
@@ -4249,6 +4431,8 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "chi2_tail": {"stat": k5[0], "df": k5[1]},
     }
     bounds = {name: bound_of(name, work[name]) for name in calls}
+    # K9's bound as the parent's call needed it: a [S, N] y read besides
+    ols_y_bound = bound_of("ols", work.pop("ols (y [S, N])"))[0]
     bounds[q5] = bound_of("perm_ols", {"X": m["bX"], "phenos": pols5[3]})
 
     # Q1's table view (-T) on the same chunk
@@ -4303,7 +4487,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
     lc = "lmm chain (rotation, ols, student_t)"
     times[lc] = (cuda_ms(chain, 5), cuda_ms(chain_plain, 2, warmup=1))
     dev[lc] = device_total_ms(torch, chain)
-    b_ols = bound_of("ols", {"X": d_all["X"]})[0]
+    b_ols = bound_of("ols", {"X": d_all["X"], "mask": False})[0]
     b_t = bound_of("student_t", {"t1": q["stats"][0],
                                  "df": q["stats"][1]})[0]
     bounds[lc] = (bounds[gemm][0] + b_ols + b_t, "operations"
@@ -4319,7 +4503,10 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         f"{library['chi2_tail']:.4f} (torch.special.gammaincc); GEMM core "
         f"only (one torch.matmul, X^T Y or D^T e): perm_ols "
         f"{library['perm_ols']:.4f}, {q5} {library[q5]:.4f}, score_perm "
-        f"{library['score_perm']:.4f}; X.zero_() on quant_design's X "
+        f"{library['score_perm']:.4f}; ols and eqtl_ols: X^T X alone "
+        f"(torch.einsum snp,snq->spq) {library['ols']:.4f}; ols bound with "
+        f"an [S, N] y read besides X (the parent's call) {ols_y_bound:.4f}; "
+        f"X.zero_() on quant_design's X "
         f"{tuple(q['X'].shape)} float64 {zero_ms:.4f} ms ({zero_gbs:.1f} "
         f"GB/s), beside quant_design's bound "
         f"{bounds['quant_design'][0]:.4f}; chi2_tail "
@@ -4356,7 +4543,7 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
     from stoat_tpu_torch.pipeline.fetch import fetch_async
     from stoat_tpu_torch.pipeline.quantitative import quant_design
     from stoat_tpu_torch.pipeline.runner import iter_chromosome_matrices
-    from stoat_tpu_torch.stats.linreg import (linear_regression_stats,
+    from stoat_tpu_torch.stats.linreg import (linear_regression_row_stats,
                                               student_t_pvalues)
     from stoat_tpu_torch.stats.logreg import logistic_regression
 
@@ -4400,8 +4587,8 @@ def profile_main_path(torch, device, paths, work, out_dir, mode):
             del out["iters"]
             return {"filtered": d["filtered"],
                     "allele_paths": d["allele_paths"], **out}
-        stats = linear_regression_stats(d.pop("X"), consts[0][None, :] *
-                                        used, used, d["ncols"])
+        stats = linear_regression_row_stats(d.pop("X"), consts[0], used,
+                                            d["ncols"])
         return {"filtered": d["filtered"],
                 "allele_paths": d["allele_paths"],
                 **student_t_pvalues(*stats[:2], d["degenerate"],
@@ -4767,7 +4954,8 @@ def run(args):
         torch, device, args, smi, make_fixture)
     # library_ms: one PyTorch call computes K5's function
     # (torch.special.gammaincc); for perm_ols and score_perm it is their
-    # GEMM core alone (one torch.matmul); none computes any of the others
+    # GEMM core alone (one torch.matmul), for ols and eqtl_ols X^T X alone
+    # (torch.einsum); none computes any of the others
     kernels_json = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],

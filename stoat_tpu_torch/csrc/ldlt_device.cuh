@@ -1,5 +1,6 @@
 // The unpivoted LDL^T factor and solve of a small symmetric P x P matrix
-// on one thread, shared by ols.cu (K9) and logreg.cu (K11).
+// on one thread, shared by the OLS kernels (ols_device.cuh,
+// ols_block_device.cuh), logreg.cu (K11) and score_test.cu.
 //
 // The operation order is that of stats/linalg.py ldlt_factor and
 // ldlt_solve in the port (stoat_tpu/stats/linreg.py _ols_unrolled_body's

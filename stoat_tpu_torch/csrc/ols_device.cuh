@@ -1,5 +1,7 @@
-// The normal equations of one masked OLS on one thread, and a fixed-order
-// block sum: shared by ols.cu (K9) and perm_ols.cu (K16a).
+// The normal equations of one masked OLS: the inverse of X^T X by LDL^T,
+// or the Jacobi pseudo-inverse of a rank-deficient snarl.  Shared by
+// perm_ols.cu (K16a, normal_inverse on one thread) and
+// ols_block_device.cuh (K9 and K13, the same steps spread over a warp).
 //
 // From A = X^T X (the padded columns' diagonal already set to 1), the
 // inverse by the unpivoted LDL^T of ldlt_device.cuh solved against the
@@ -21,23 +23,6 @@ namespace stoat {
 constexpr double kLdltTol = 1e-10;  // stats_test.cpp:401
 constexpr double kPinvTol = 1e-6;   // stats_test.cpp:386
 constexpr int kSweeps = 12;
-
-// The sum of v over the block's kThreads threads (a power of two, red
-// kThreads doubles of shared memory), as a fixed tree.  The count is a
-// compile-time one: a loop from blockDim.x took ols.cu's kernel from 80 to
-// 96 registers and 12% more time on an H100 (tools/kernel_ab.py).
-template <int kThreads>
-__device__ inline double block_sum(double v, double* red) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int half = kThreads / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
-    __syncthreads();
-  }
-  const double total = red[0];
-  __syncthreads();
-  return total;
-}
 
 // one Jacobi rotation of rows/columns p, q of A (P x P), accumulated in V
 __device__ inline void jacobi_rotate(double* A, double* V, int P, int p,
@@ -78,69 +63,61 @@ __device__ inline void jacobi_rotate(double* A, double* V, int P, int p,
   }
 }
 
-// inv = A^-1 or its pseudo-inverse (P x P each; L, V, D and col are
-// scratch of P x P, P x P, P and P doubles).  Returns whether the
-// pseudo-inverse was taken.
-__device__ inline bool normal_inverse(const double* A, double* L,
-                                      double* inv, double* V, double* D,
-                                      double* col, int P, int nc) {
-  ldlt_factor(A, L, D, P);
+// Whether the factor's pivots call for the pseudo-inverse: a real pivot
+// (j < nc) below kLdltTol in magnitude, or not finite.
+__device__ inline bool rank_deficient(const double* D, int P, int nc) {
   bool bad = false;
   for (int j = 0; j < nc && j < P; ++j) {
     bad = bad || fabs(D[j]) < kLdltTol || !isfinite(D[j]);
   }
+  return bad;
+}
+
+// inv = the Jacobi pseudo-inverse of A (sym_pinv; L, V and col are
+// scratch of P x P, P x P and P doubles)
+__device__ inline void jacobi_pinv(const double* A, double* L, double* inv,
+                                   double* V, double* col, int P) {
+  for (int e = 0; e < P * P; ++e) {
+    L[e] = A[e];
+    V[e] = (e / P == e % P) ? 1.0 : 0.0;
+  }
+  for (int sweep = 0; sweep < kSweeps; ++sweep) {
+    for (int p = 0; p < P - 1; ++p) {
+      for (int q = p + 1; q < P; ++q) jacobi_rotate(L, V, P, p, q);
+    }
+  }
+  for (int p = 0; p < P; ++p) {
+    const double w = L[p * P + p];
+    col[p] = fabs(w) > kPinvTol ? 1.0 / (w == 0.0 ? 1.0 : w) : 0.0;
+  }
+  for (int i = 0; i < P; ++i) {
+    for (int j = 0; j < P; ++j) {
+      double acc = 0.0;
+      for (int p = 0; p < P; ++p) {
+        acc = acc + V[i * P + p] * col[p] * V[j * P + p];
+      }
+      inv[i * P + j] = acc;
+    }
+  }
+}
+
+// inv = A^-1 or its pseudo-inverse (P x P each; L, V, D and col are
+// scratch of P x P, P x P, P and P doubles), on one thread.  Returns
+// whether the pseudo-inverse was taken.
+__device__ inline bool normal_inverse(const double* A, double* L,
+                                      double* inv, double* V, double* D,
+                                      double* col, int P, int nc) {
+  ldlt_factor(A, L, D, P);
+  const bool bad = rank_deficient(D, P, nc);
   // the inverse, one identity column at a time (ldlt_solve)
   for (int m = 0; m < P; ++m) {
     for (int i = 0; i < P; ++i) col[i] = i == m ? 1.0 : 0.0;
     ldlt_solve(L, D, col, P);
     for (int i = 0; i < P; ++i) inv[i * P + m] = col[i];
   }
-  if (bad) {
-    // Jacobi pseudo-inverse (sym_pinv): L becomes the working copy of A
-    for (int e = 0; e < P * P; ++e) {
-      L[e] = A[e];
-      V[e] = (e / P == e % P) ? 1.0 : 0.0;
-    }
-    for (int sweep = 0; sweep < kSweeps; ++sweep) {
-      for (int p = 0; p < P - 1; ++p) {
-        for (int q = p + 1; q < P; ++q) jacobi_rotate(L, V, P, p, q);
-      }
-    }
-    for (int p = 0; p < P; ++p) {
-      const double w = L[p * P + p];
-      col[p] = fabs(w) > kPinvTol ? 1.0 / (w == 0.0 ? 1.0 : w) : 0.0;
-    }
-    for (int i = 0; i < P; ++i) {
-      for (int j = 0; j < P; ++j) {
-        double acc = 0.0;
-        for (int p = 0; p < P; ++p) {
-          acc = acc + V[i * P + p] * col[p] * V[j * P + p];
-        }
-        inv[i * P + j] = acc;
-      }
-    }
-  }
+  // Jacobi pseudo-inverse (sym_pinv): L becomes the working copy of A
+  if (bad) jacobi_pinv(A, L, inv, V, col, P);
   return bad;
-}
-
-// beta[i] = sum_m inv[i, m] xty[m], in m order
-__device__ inline void apply_inverse(const double* inv, const double* xty,
-                                     double* beta, int P) {
-  for (int i = 0; i < P; ++i) {
-    double acc = 0.0;
-    for (int m = 0; m < P; ++m) acc = acc + inv[i * P + m] * xty[m];
-    beta[i] = acc;
-  }
-}
-
-// Thread 0's part of K9: the inverse (or pseudo-inverse) in inv and beta.
-__device__ inline void solve_normal_equations(double* A, double* L,
-                                              double* inv, double* V,
-                                              double* D, double* xty,
-                                              double* beta, double* col,
-                                              int P, int nc) {
-  normal_inverse(A, L, inv, V, D, col, P, nc);
-  apply_inverse(inv, xty, beta, P);
 }
 
 }  // namespace stoat

@@ -9,7 +9,9 @@ Each kernel has a wrapper beside its plain PyTorch version:
 ``pipeline/quantitative.py quant_design`` (csrc/quant_design.cu; with
 ``all_rows`` for the mixed model's designs) and ``eqtl_ols_stats``
 (csrc/eqtl_ols.cu),
-``stats/linreg.py linear_regression_stats`` (csrc/ols.cu),
+``stats/linreg.py linear_regression_row_stats`` (csrc/ols.cu; both OLS
+sources on csrc/ols_block_device.cuh; ``linear_regression_stats``, with
+the JAX package's signature, takes CPU tensors only),
 ``stats/linreg.py student_t_pvalues`` and ``linear_pvalues``
 (csrc/student_t.cu), ``graph/association.py graph_stats``
 (csrc/graph_stats.cu), ``stats/logreg.py logistic_regression``

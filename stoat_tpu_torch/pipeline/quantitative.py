@@ -16,7 +16,8 @@ snarl of a chunk (``_design_from_membership``, :122-259):
                  rows of unused samples all zero, width 1 + Pmax + C
   degenerate     no variant column survives (NA in the output)
 
-then OLS on y = phenotype * used (K9), the Student-t tail (K10) and the NA
+then OLS on y = phenotype * used (K9; the kernel forms y from the
+phenotype row and the mask), the Student-t tail (K10) and the NA
 masking of degenerate snarls (``_fused_packed_analysis``, :305-350).  A
 binary phenotype with covariates (``vcf -b -c``) takes the same design
 without the covariates, which the reference never puts in its model, and
@@ -55,14 +56,15 @@ import torch
 
 from stoat_tpu_torch.convert import DeviceChunk, to_device_chunk
 from stoat_tpu_torch.device import kernels_enabled
-from stoat_tpu_torch.kernels import F64, I64, VOIDP, check_tensor, launch
+from stoat_tpu_torch.kernels import (F64, I64, VOIDP, build, check_tensor,
+                                     launch)
 from stoat_tpu_torch.pipeline.binary import binary_from_path_counts
 from stoat_tpu_torch.pipeline.fetch import (DeviceTables, HostResult,
                                             fetch_async)
 from stoat_tpu_torch.pipeline.packed import (membership_counts,
                                              membership_words_plain,
                                              unpack_membership_plain)
-from stoat_tpu_torch.stats.linreg import (linear_regression_stats,
+from stoat_tpu_torch.stats.linreg import (linear_regression_row_stats,
                                           linear_regression_stats_plain,
                                           student_t_pvalues)
 from stoat_tpu_torch.stats.lmm import lmm_regression_batch
@@ -290,10 +292,8 @@ def quantitative_analyze_chromosome(packed, pheno: torch.Tensor,
     chunk = to_device_chunk(packed, None, device, words=words)
     d = quant_design(chunk, covar, min_individuals, min_haplotypes,
                      maf_threshold, packed.n_haplotypes, tables=tables)
-    used = d["used"]
-    y = pheno[None, :] * used
-    t1, df_res, beta, se, r2 = linear_regression_stats(d.pop("X"), y, used,
-                                                       d["ncols"])
+    t1, df_res, beta, se, r2 = linear_regression_row_stats(
+        d.pop("X"), pheno, d["used"], d["ncols"])
     # X ([S, N, PT] float64, the chunk's largest buffer) is released here;
     # the allocator hands its memory to the next chunk's X only behind the
     # OLS launch on the same stream
@@ -360,9 +360,8 @@ def dual_analyze_chromosome(packed, pheno: Tuple[torch.Tensor, torch.Tensor],
     out = binary_from_path_counts(g0p, g1p, chunk.snarl_path_idx, *th)
     shared = DeviceChunk(mem, rows, chunk.path_valid, chunk.snarl_path_idx)
     d = quant_design(shared, covar, *th, packed.n_haplotypes)
-    used = d["used"]
-    t1, df_res, beta, se, r2 = linear_regression_stats(
-        d.pop("X"), qpheno[None, :] * used, used, d["ncols"])
+    t1, df_res, beta, se, r2 = linear_regression_row_stats(
+        d.pop("X"), qpheno, d["used"], d["ncols"])
     q = student_t_pvalues(t1, df_res, d["degenerate"], beta, se, r2)
     q.update(filtered=d["filtered"], allele_paths=d["allele_paths"])
     out.update({"q_" + key: v for key, v in q.items()})
@@ -472,10 +471,11 @@ def _eqtl_ols_cuda(X, used, ncols, pair_off, pair_gene, expr) -> Stats:
     check_tensor(pair_off, "pair_off", torch.int32, (S + 1,), device)
     check_tensor(pair_gene, "pair_gene", torch.int32, (B,), device)
     check_tensor(expr, "expr", torch.float64, (G, N), device)
-    # per snarl: X^T X, its factor, the inverse and Jacobi's V (P x P
-    # each), D and a solve column (P each), the used rows (1)
-    work = torch.empty((S, 4 * P * P + 2 * P + 1), dtype=torch.float64,
-                       device=device)
+    lib = build.load("eqtl_ols")
+    lib.eqtl_ols_work_doubles.argtypes = [I64]
+    lib.eqtl_ols_work_doubles.restype = I64
+    work = torch.empty((S, lib.eqtl_ols_work_doubles(P)),
+                       dtype=torch.float64, device=device)
     out = [torch.empty(B, dtype=torch.float64, device=device)
            for _ in range(5)]
     launch("eqtl_ols", [VOIDP] * 12 + [I64] * 3,
@@ -496,9 +496,11 @@ def eqtl_ols_stats(X: torch.Tensor, used: torch.Tensor, ncols: torch.Tensor,
     pad-diagonal rule, the LDL^T rank probe and the pseudo-inverse of
     stoat_tpu's linear_regression_stats_batch.
 
-    CUDA tensors run csrc/eqtl_ols.cu, one block per snarl, which inverts
-    X^T X once and then streams X twice per 32 genes of the snarl; it is
-    bound by reading X once.  CPU tensors run the plain version."""
+    CUDA tensors run csrc/eqtl_ols.cu (ols_block_device.cuh), one block
+    per snarl, which holds the snarl's first rows of X in shared memory,
+    inverts X^T X once and takes the genes 16 at a time, each pair's
+    expression row read from L2 in its passes over the rows; it is bound
+    by reading X once.  CPU tensors run the plain version."""
     if kernels_enabled(X.device):
         return _eqtl_ols_cuda(X, used, ncols, pair_off, pair_gene, expr)
     return eqtl_ols_stats_plain(X, used, ncols, pair_off, pair_gene, expr)

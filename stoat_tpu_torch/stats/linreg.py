@@ -16,22 +16,25 @@ The plain version follows ``_ols_unrolled_body`` (linreg.py:47-137) for
 every P: the JAX matrix branch for P > 8 (:150-202) is the same recursion
 summed in another order.  CUDA tensors run csrc/ols.cu, and the p-values
 and NA masking that follow (``student_t_pvalues``) csrc/student_t.cu.
+The pipelines pass the phenotype as one row and the mask
+(:func:`linear_regression_row_stats`); the kernel forms y on chip.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from stoat_tpu_torch.device import kernels_enabled
-from stoat_tpu_torch.kernels import I64, VOIDP, check_tensor, launch
+from stoat_tpu_torch.kernels import I64, VOIDP, build, check_tensor, launch
 from stoat_tpu_torch.stats.linalg import ldlt_factor, ldlt_solve, sym_pinv
 from stoat_tpu_torch.stats.special import student_t_sf2_plain
 
 __all__ = ["LDLT_TOL", "PINV_TOL", "normal_inverse_plain",
            "ols_from_inverse_plain", "linear_regression_stats",
-           "linear_regression_stats_plain", "finish_linear_pvalues",
+           "linear_regression_row_stats", "linear_regression_stats_plain",
+           "finish_linear_pvalues",
            "linear_pvalues", "STUDENT_T_KEYS", "student_t_pvalues",
            "student_t_pvalues_plain"]
 
@@ -102,21 +105,26 @@ def linear_regression_stats_plain(X: torch.Tensor, y: torch.Tensor,
                                   normal_inverse_plain(X, ncols))
 
 
-def _ols_cuda(X, y, row_mask, ncols) -> Stats:
+def _ols_cuda(X, row, row_mask, ncols) -> Stats:
+    """csrc/ols.cu on the phenotype row [N] that every snarl shares;
+    ``row_mask`` None uses every row."""
     device = X.device
     B, N, P = X.shape
     check_tensor(X, "X", torch.float64, (B, N, P), device)
-    check_tensor(y, "y", torch.float64, (B, N), device)
-    check_tensor(row_mask, "row_mask", torch.bool, (B, N), device)
+    check_tensor(row, "row", torch.float64, (N,), device)
+    if row_mask is not None:
+        check_tensor(row_mask, "row_mask", torch.bool, (B, N), device)
     check_tensor(ncols, "ncols", torch.int32, (B,), device)
-    # per snarl: X^T X, its factor, the inverse and Jacobi's V (P x P
-    # each), then D, X^T y, beta and a solve column (P each), sums (4)
-    work = torch.empty((B, 4 * P * P + 4 * P + 4), dtype=torch.float64,
+    lib = build.load("ols")
+    lib.ols_work_doubles.argtypes = [I64]
+    lib.ols_work_doubles.restype = I64
+    work = torch.empty((B, lib.ols_work_doubles(P)), dtype=torch.float64,
                        device=device)
     out = [torch.empty(B, dtype=torch.float64, device=device)
            for _ in range(5)]
     launch("ols", [VOIDP] * 10 + [I64] * 3,
-           [X.data_ptr(), y.data_ptr(), row_mask.data_ptr(),
+           [X.data_ptr(), row.data_ptr(),
+            None if row_mask is None else row_mask.data_ptr(),
             ncols.data_ptr(), work.data_ptr(),
             *(t.data_ptr() for t in out), B, N, P], device)
     return tuple(out)
@@ -129,15 +137,38 @@ def linear_regression_stats(X: torch.Tensor, y: torch.Tensor,
 
     X float64 [B, N, P] (rows of unused samples and padded columns all
     zero), y float64 [B, N] (0 on unused rows), row_mask bool [B, N],
-    ncols int32 [B].  stoat_tpu's linear_regression_stats_batch.
-
-    CUDA tensors run csrc/ols.cu, one block per snarl: it reads X twice
-    (the normal equations, then the residuals), so it is bound by those
-    2 * B * N * P * 8 bytes; the P x P algebra runs on one thread per
-    snarl.  CPU tensors run the plain version."""
+    ncols int32 [B].  stoat_tpu's linear_regression_stats_batch, with its
+    signature, for the parity tests: it runs the plain version on CPU
+    tensors and raises on CUDA tensors, whose y the kernel forms on chip
+    from one row (the pipelines' :func:`linear_regression_row_stats`)."""
     if kernels_enabled(X.device):
-        return _ols_cuda(X, y, row_mask, ncols)
+        raise ValueError("linear_regression_stats runs on CPU tensors; "
+                         "CUDA tensors go through "
+                         "linear_regression_row_stats")
     return linear_regression_stats_plain(X, y, row_mask, ncols)
+
+
+def linear_regression_row_stats(X: torch.Tensor, row: torch.Tensor,
+                                row_mask: Optional[torch.Tensor],
+                                ncols: torch.Tensor) -> Stats:
+    """:func:`linear_regression_stats` of y = row * row_mask, the
+    statistics of one phenotype row float64 [N] against every design,
+    without the [B, N] y: the entry point of the pipelines.  ``row_mask``
+    bool [B, N], or None when every row is used (the mixed model's rotated
+    designs: no all-true mask either).
+
+    CUDA tensors run csrc/ols.cu on the row and the mask (a null pointer
+    for None): the kernel forms y = row[n] * (used ? 1 : 0) on chip, bit
+    for bit ``row[None, :] * row_mask``.  It reads each snarl's X once (the
+    rows it cannot hold in shared memory twice), so it is bound by those
+    B * N * P * 8 bytes.  CPU tensors run the plain version on that y."""
+    if kernels_enabled(X.device):
+        return _ols_cuda(X, row, row_mask, ncols)
+    B, N, _ = X.shape
+    if row_mask is None:
+        row_mask = torch.ones((B, N), dtype=torch.bool, device=X.device)
+    return linear_regression_stats_plain(X, row[None, :] * row_mask,
+                                         row_mask, ncols)
 
 
 def finish_linear_pvalues(t1: torch.Tensor,

@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from stoat_tpu_torch.stats.linreg import linear_regression_stats
+from stoat_tpu_torch.stats.linreg import linear_regression_row_stats
 
 __all__ = ["LmmContext", "fit_null_reml", "lmm_regression_batch",
            "lmm_rotate", "reml_loglik"]
@@ -169,11 +169,9 @@ def lmm_regression_batch(X: torch.Tensor, rot: torch.Tensor,
     X float64 [S, N, PT]: EMMAX designs over all samples (intercept 1
     everywhere, genotype 0 where uncalled, padded columns zero); ``rot``
     [N, N] and ``y_rot`` [N] from :func:`fit_null_reml`; ``ncols`` int32
-    [S].  The rotated rows are all used: the row mask is all true and
-    every design's y is y_rot, materialised as a contiguous [S, N] (what
-    the OLS kernel takes).  The p-values follow in the caller."""
-    Xr = lmm_rotate(rot, X)
-    S, N, _ = Xr.shape
-    y = y_rot[None, :].expand(S, N).contiguous()
-    mask = torch.ones((S, N), dtype=torch.bool, device=X.device)
-    return linear_regression_stats(Xr, y, mask, ncols)
+    [S].  The rotated rows are all used and every design's y is y_rot:
+    the OLS takes the row and no mask (linear_regression_row_stats), so
+    neither an [S, N] y nor an all-true mask is built.  The p-values
+    follow in the caller."""
+    return linear_regression_row_stats(lmm_rotate(rot, X), y_rot, None,
+                                       ncols)

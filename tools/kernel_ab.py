@@ -5,8 +5,8 @@ on one card, in one process.
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/kernel_ab.py --baseline DIR [--candidate DIR ...]
-                               [--kernel logreg|ols|perm_ols|quant_design|
-                                         score_perm]
+                               [--kernel eqtl_ols|logreg|ols|perm_ols|
+                                         quant_design|score_perm]
                                [--snarls 16384] [--rounds 4]
 
 Each DIR holds one version's kernel sources (its ``<source>.cu`` and the
@@ -22,10 +22,16 @@ through the port's own wrapper on the same inputs, the first chunk of
 ``--snarls`` over 2 chromosomes, 8,192 per chunk; perm_ols with the
 observed phenotype and the main path's 1,000 Freedman-Lane permutations
 (chip_smoke.PERM_FULL); score_perm on the first ``vcf -b -c`` chunk's D
-and V^-1 with the observed residual and 1,000 permuted ones; quant_design's OLS design, ``all_rows`` off
-and no table view, launched with the argument list each version's source
-declares; logreg on the first ``vcf -b -c`` chunk's design and case
-indicator, chip_smoke.py phase 5's ``fit``), in the order A B B A for
+and V^-1 with the observed residual and 1,000 permuted ones; quant_design's
+OLS design, ``all_rows`` off and no table view; logreg on the first ``vcf
+-b -c`` chunk's design and case indicator, chip_smoke.py phase 5's
+``fit``; eqtl_ols on the same design with chip_smoke.write_genes' gene
+set and the chunk's (snarl, gene) pairs, phase 5's ``eq``: with
+``--snarls 65536`` phase 5's 85,159 pairs).  quant_design and ols launch
+each version with the argument list its source declares: ols the
+phenotype row and the mask where the launch declares ``pheno``, else
+the [S, N] y = pheno * used that the earlier callers built.  They run in
+the order A B B A for
 ``--rounds`` rounds (A is the candidate).  With ``--candidate`` given
 more than once, the candidates A1, A2, ... and B run in that order and
 back in each round, and each candidate is compared with B.  It prints
@@ -55,25 +61,96 @@ import tempfile
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def quant_chunk(cs, device, snarls, work):
-    """The first ``vcf -q -c`` chunk's design, phenotype and covariates."""
+def quant_chunk(cs, device, snarls, work, genes=False):
+    """The first ``vcf -q -c`` chunk's design, phenotype and covariates;
+    with ``genes``, also the eQTL mode's (snarl, gene) pairs of that chunk
+    (CSR by snarl) and its chromosome's [G, N] expression, from
+    chip_smoke.write_genes."""
     from fixtures import make_fixture
     from stoat_tpu_torch.pipeline.quantitative import quant_design
     paths = make_fixture(os.path.join(work, "data"), n_samples=cs.N_SAMPLES,
                          n_snarls=snarls, seed=0, n_chroms=cs.N_CHROMS)
-    chunk, qchunk, qpheno, qcovar, H, case, _ = cs.main_path_chunks(paths,
-                                                                    device)
+    chunk, qchunk, qpheno, qcovar, H, case, (chrom, packed) = \
+        cs.main_path_chunks(paths, device)
     d = quant_design(qchunk, qcovar, *cs.THRESHOLDS, H)
-    return d, chunk, qpheno, qcovar, case
+    if not genes:
+        return d, chunk, qpheno, qcovar, case
+    import numpy as np
+    from stoat_tpu_torch.convert import to_eqtl_pairs
+    gene_set = cs.write_genes(paths)[chrom]
+    pair_snarl, pair_gene = cs.gene_pairs(packed.snarls,
+                                          cs.to_np(d["filtered"]), gene_set)
+    pairs = to_eqtl_pairs(pair_snarl, pair_gene, int(d["X"].shape[0]),
+                          device)
+    expr = cs.upload_t(np.stack([g[3] for g in gene_set]), device)
+    return d, pairs, expr
 
 
-def ols_inputs(cs, device, snarls, work):
-    """A zero-argument call of linear_regression_stats on the first
-    ``vcf -q -c`` chunk, and its design's shape."""
-    from stoat_tpu_torch.stats.linreg import linear_regression_stats
+def declares(versions, source, word):
+    """tag -> whether that version's ``source``.cu holds ``word`` (a
+    parameter its launch function declares)."""
+    out = {}
+    for tag, src in versions.items():
+        with open(os.path.join(src, f"{source}.cu")) as fh:
+            out[tag] = word in fh.read()
+    return out
+
+
+def ols_inputs(cs, device, snarls, work, versions):
+    """A zero-argument call of the ols kernel on the first ``vcf -q -c``
+    chunk, as each version's caller feeds it: a version whose launch
+    declares ``pheno`` gets the phenotype row [N] and the used-row mask,
+    an earlier one the [S, N] y = pheno * used.  Returns
+    the call and the design's shape."""
+    import torch
+    from stoat_tpu_torch.kernels import I64, VOIDP, launch
     d, _, qpheno, _, _ = quant_chunk(cs, device, snarls, work)
-    args = (d["X"], qpheno[None, :] * d["used"], d["used"], d["ncols"])
-    return (lambda: linear_regression_stats(*args)), tuple(d["X"].shape)
+    X, used, ncols = d["X"], d["used"], d["ncols"]
+    S, N, P = X.shape
+    row = declares(versions, "ols", "const void* pheno")
+    y = qpheno[None, :] * used
+    # the parent's scratch (4 P^2 + 4 P + 4 doubles a snarl) covers both
+    scratch = torch.empty((S, 4 * P * P + 4 * P + 4), dtype=torch.float64,
+                          device=device)
+    out = [torch.empty(S, dtype=torch.float64, device=device)
+           for _ in range(5)]
+
+    def call():
+        by_row = row[STATE["tag"]]
+        launch("ols", [VOIDP] * 10 + [I64] * 3,
+               [X.data_ptr(), (qpheno if by_row else y).data_ptr(),
+                used.data_ptr(), ncols.data_ptr(), scratch.data_ptr(),
+                *(t.data_ptr() for t in out), S, N, P], device)
+        return out
+    return call, tuple(X.shape)
+
+
+def eqtl_ols_inputs(cs, device, snarls, work):
+    """A zero-argument call of the eqtl_ols kernel on the first eQTL chunk
+    (the ``vcf -q -c`` chunk's design with chip_smoke.py's gene set: phase
+    5's inputs), and (S, N, P, pairs).  The versions since the kernel came
+    take the same arguments; the scratch is the first one's size, which
+    covers them all."""
+    import torch
+    from stoat_tpu_torch.kernels import I64, VOIDP, launch
+    d, (pair_off, pair_gene), expr = quant_chunk(cs, device, snarls, work,
+                                                 genes=True)
+    X, used, ncols = d["X"], d["used"], d["ncols"]
+    S, N, P = X.shape
+    B = int(pair_gene.shape[0])
+    scratch = torch.empty((S, 4 * P * P + 4 * P + 4), dtype=torch.float64,
+                          device=device)
+    out = [torch.empty(B, dtype=torch.float64, device=device)
+           for _ in range(5)]
+
+    def call():
+        launch("eqtl_ols", [VOIDP] * 12 + [I64] * 3,
+               [X.data_ptr(), used.data_ptr(), ncols.data_ptr(),
+                pair_off.data_ptr(), pair_gene.data_ptr(), expr.data_ptr(),
+                scratch.data_ptr(), *(t.data_ptr() for t in out), S, N, P],
+               device)
+        return out
+    return call, (S, N, P, B)
 
 
 def perm_ols_inputs(cs, device, snarls, work):
@@ -141,12 +218,8 @@ def quant_design_inputs(cs, device, snarls, work, versions):
     from stoat_tpu_torch.kernels import F64, I64, VOIDP, launch
     from stoat_tpu_torch.pipeline.quantitative import DESIGN_KEYS
     d, chunk, _qpheno, qcovar, _case = quant_chunk(cs, device, snarls, work)
-    with_flag, with_tables = {}, {}
-    for tag, src in versions.items():
-        with open(os.path.join(src, "quant_design.cu")) as fh:
-            text = fh.read()
-        with_flag[tag] = "all_rows" in text
-        with_tables[tag] = "kTables" in text
+    with_flag = declares(versions, "quant_design", "all_rows")
+    with_tables = declares(versions, "quant_design", "kTables")
     W = int(chunk.words.shape[1])
     K = int(chunk.path_idx.shape[1])
     S, Pmax = chunk.snarl_path_idx.shape
@@ -168,9 +241,12 @@ def quant_design_inputs(cs, device, snarls, work, versions):
     return call, tuple(d["X"].shape)
 
 
-CALLS = {"logreg": logreg_inputs, "ols": ols_inputs, "perm_ols": perm_ols_inputs,
+CALLS = {"eqtl_ols": eqtl_ols_inputs, "logreg": logreg_inputs,
+         "ols": ols_inputs, "perm_ols": perm_ols_inputs,
          "quant_design": quant_design_inputs,
          "score_perm": score_perm_inputs}
+# the calls that launch each version with the arguments its source declares
+BY_SOURCE = ("ols", "quant_design")
 # the first output's statistic and p floor in chip_smoke.stat_err
 FIRST = {"logreg": ("p", 1e-5)}
 # the source (and library) of each kernel
@@ -254,7 +330,7 @@ def main():
             build._LIBS[name] = libs[tag]
 
     work = tempfile.mkdtemp(prefix="ab-", dir=build.BUILD_DIR)
-    extra = {"versions": sources} if kernel == "quant_design" else {}
+    extra = {"versions": sources} if kernel in BY_SOURCE else {}
     try:
         call, shape = CALLS[kernel](cs, device, args.snarls, work, **extra)
     finally:
