@@ -25,10 +25,11 @@ printing lines and each fatal on failure:
      of rotation, OLS and tail; the chi-squared tail chi2_tail on the
      tail grid, a random grid of 10^6 and the first chunk's statistics;
      quant_design's -T table view on the OLS and all-rows designs) and on
-     edge cases, the permutation kernels' tile edges, quant_design's grid
-     in its four instantiations, logreg's grid and the two OLS kernels'
-     grid among them (tolerances printed; the OLS's phenotype row bit for
-     bit its [S, N] y);
+     edge cases, the permutation kernels' tile edges, perm_binary's and
+     score_precompute's grids, quant_design's grid in its four
+     instantiations, logreg's grid and the two OLS kernels' grid among
+     them (tolerances printed; the OLS's phenotype row bit for bit its
+     [S, N] y);
   4. main paths: the port's CLI with ``--device cuda``: ``vcf -b``, ``vcf
      -q``, ``vcf -q -c -C AGE,SEX`` and ``vcf -b -c -C AGE,SEX`` on a
      generated cohort of 2,504 samples (the 1000 Genomes phase-3 size)
@@ -63,7 +64,9 @@ printing lines and each fatal on failure:
      permutation pass, and the mixed model's rotation (one float64 GEMM)
      beside its bound; chi2_tail beside torch.special.gammaincc on the
      same inputs (its library_ms), perm_ols and score_perm beside one
-     torch.matmul of their GEMM core alone (theirs), quant_design's
+     torch.matmul of their GEMM core alone (theirs), perm_binary beside
+     torch._int_mm of its 0/1 count product and score_precompute beside
+     torch.bmm of its weighted Gram (theirs), quant_design's
      table view, and X.zero_() on a tensor of quant_design's X, the rate
      the card writes those bytes at.
 
@@ -199,13 +202,18 @@ LARGE_DF = "large-df grid"
 # -T: the full-size runs' threshold, and the sub-cohort's
 T_FULL = "0.01"
 T_SUB = "0.05"
-# the bound of a kernel's time: the H100 SXM's 3.35 TB/s of HBM3 and its
-# float64 peak, 67 TFLOP/s (the tensor cores; NVIDIA's data sheet), and
-# for int32 work (AND, popcount)
-# 132 SMs x 64 int32 lanes x 1.98 GHz (the Hopper white paper)
+# the bound of a kernel's time: the H100 SXM's 3.35 TB/s of HBM3, its
+# float64 peak, 67 TFLOP/s (the tensor cores), and its dense int8
+# tensor-core peak, 1,979 TOP/s (NVIDIA's data sheet); for int32 work
+# (AND, shifts) 132 SMs x 64 int32 lanes x 1.98 GHz (the Hopper white
+# paper), and for population counts 16 an SM a clock (the CUDA C
+# Programming Guide's throughput table, compute capability 9.0)
 HBM_BYTES_S = 3.35e12
 F64_FLOPS = 67e12
+INT8_OPS = 1979e12
 INT32_OPS = 132 * 64 * 1.98e9
+POPC_OPS = 132 * 16 * 1.98e9
+PEAKS = {"float64": F64_FLOPS, "int8": INT8_OPS, "int32": INT32_OPS}
 COVAR_NAMES = ["AGE", "SEX"]
 THRESHOLDS = (3, 5, 0.05)
 # the Student-t grid of tests/test_torch_linreg.py
@@ -2261,6 +2269,131 @@ def perm_tile_grid(device, err):
             f"{perm_tile_fallback(device, err)}")
 
 
+# perm_binary's tile edges (csrc/perm_binary.cu): (name, Pmax, S,
+# haplotypes H, K).  Row tiles of floor(64 / Pmax) snarls at Pmax = 1, 3
+# and 4 (S not a multiple of them), one snarl over four 32-row units in
+# two rounds at Pmax = 65, tiles of 32 masks at Pmax = 400 and of 8 at
+# Pmax = 1,966;
+# mask tiles of 128 with K = 1, 33 and 129; W = 1 word, ragged last words
+# (H = 20, 90, 150) and full ones (H = 128, 256).  Every case has a snarl
+# whose columns are all -1, invalid paths, and with K > 1 an all-zero
+# mask (row 0) and an all-ones one (row 1, set past H too).
+PB_GRID = (("pmax1_w1_k33", 1, 70, 20, 33), ("pmax3_k129", 3, 45, 150, 129),
+           ("pmax4_k1", 4, 37, 90, 1), ("pmax65_k33", 65, 3, 128, 33),
+           ("pmax400_k33", 400, 2, 256, 33), ("pmax1966_k9", 1966, 2, 64, 9))
+
+
+def perm_binary_grid_cases(seed=31):
+    """numpy inputs at perm_binary's tile edges, PB_GRID: (name, words
+    uint32 [P, W] (path p's membership words, random past H as well), valid
+    bool [P], tail uint32 [W], masks uint32 [K, W], sidx int32 [S, Pmax])
+    per case; snarl 1 has only -1 columns, the other snarls 1 to Pmax
+    distinct paths and -1 padding."""
+    import numpy as np
+    from stoat_tpu_torch.pipeline.packed import (pack_hap_mask_words,
+                                                 tail_mask_words)
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, Pmax, S, H, K in PB_GRID:
+        W = (H + 31) // 32
+        P = S * Pmax + 3
+        words = rng.integers(0, 2 ** 32, (P, W), dtype=np.uint64) \
+            .astype(np.uint32)
+        density = rng.random((P, 1)) * 0.8 + 0.1
+        keep = rng.random((P, W * 32)) < density
+        words &= np.packbits(keep, axis=1, bitorder="little").view("<u4")
+        valid = rng.random(P) < 0.9
+        sidx = np.full((S, Pmax), -1, np.int32)
+        for s in range(S):
+            n = int(rng.integers(1, Pmax + 1))
+            sidx[s, :n] = rng.choice(P, n, replace=False)
+        sidx[1] = -1
+        masks = np.stack([pack_hap_mask_words(rng.random(H) < 0.45, W)
+                          for _ in range(K)])
+        if K > 1:
+            masks[0] = 0
+            masks[1] = 0xFFFFFFFF
+        out.append((name, words, valid, tail_mask_words(H, W), masks, sidx))
+    return out
+
+
+def perm_binary_grid(device, err):
+    """K15 (and K1 alone) kernel vs plain on perm_binary_grid_cases, as
+    compare_perm_binary holds them: statistic and df bitwise and flags
+    exact on the card and on the CPU, row 0's statistic bitwise equal to
+    K3's.  Returns a short description."""
+    import numpy as np
+    from stoat_tpu_torch.convert import DeviceChunk
+    for name, words, valid, tail, masks, sidx in perm_binary_grid_cases():
+        idx = np.arange(words.shape[0], dtype=np.int32)[:, None]
+        chunk = DeviceChunk(*(upload_t(a, device) for a in (
+            words.view(np.int32), idx, valid, sidx, tail.view(np.int32))))
+        compare_perm_binary(chunk, upload_t(masks.view(np.int32), device),
+                            err)
+    return (f"perm_binary grid: {len(PB_GRID)} cases (Pmax, S, H, K) "
+            + ", ".join(f"{c[1:]}" for c in PB_GRID) + " bitwise")
+
+
+# score_precompute's tile edges (csrc/score_test.cu): (name, PT, C1, N,
+# S).  PT + C1 = 8 (one 8 x 8 tile of the Gram), 10 and 17 (two and three
+# tile columns), 3; N not a multiple of 4 nor of the 8-row steps; 8 snarls
+# a block, S not a multiple of it.  Snarl 0 has no used row, snarl 1
+# ncols = 1, snarl 2 is flagged bad; "singular_g" repeats a column of Z.
+SCORE_GRID = (("one_tile", 5, 3, 37, 9), ("two_tiles", 7, 3, 41, 9),
+              ("three_tiles", 12, 5, 50, 6), ("narrow", 2, 1, 30, 5),
+              ("singular_g", 5, 3, 36, 6))
+
+
+def score_grid_cases(seed=41):
+    """numpy inputs at score_precompute's tile edges, SCORE_GRID: (name, X
+    [S, N, PT] (an intercept, 1 to PT - 1 dosage fractions, rows of unused
+    samples zero), used [S, N], ncols [S], bad [S], Z [N, C1] (an
+    intercept and standard normals), w [N], e [3, N] residual rows)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, PT, C1, N, S in SCORE_GRID:
+        used = rng.random((S, N)) < 0.8
+        used[0] = False
+        ncols = rng.integers(2, PT + 1, S).astype(np.int32)
+        ncols[1] = 1
+        X = np.zeros((S, N, PT))
+        X[:, :, 0] = 1.0
+        for s in range(S):
+            X[s, :, 1:ncols[s]] = rng.random((N, ncols[s] - 1))
+        X[~used] = 0.0
+        bad = np.zeros(S, bool)
+        bad[2] = True
+        Z = np.column_stack([np.ones(N), rng.standard_normal((N, C1 - 1))])
+        if name == "singular_g":
+            Z[:, 2] = Z[:, 1]
+        w = rng.random(N) * 0.25 + 0.01
+        e = rng.standard_normal((3, N)) * 0.5
+        out.append((name, X, used, ncols, bad, Z, w, e))
+    return out
+
+
+def score_grid(device, err):
+    """K16b (and K16c on its output) kernel vs plain on score_grid_cases,
+    as compare_score holds them: D bitwise, df and allbad exact, V^-1 and T
+    within SCORE_REL; the snarls with no used row, ncols = 1 or bad, and
+    every snarl of "singular_g", flagged.  Returns a short description."""
+    worst_v = worst_T = 0.0
+    for name, *arrays in score_grid_cases():
+        X, used, ncols, bad, Z, w, e = (upload_t(a, device) for a in arrays)
+        got, (ev, et) = compare_score(X, used, ncols, bad, Z, w, e, err,
+                                      f"score grid {name}")
+        flags = to_np(got[3])
+        check(flags[:3].all() and (flags.all() or name != "singular_g"),
+              f"score_precompute (score grid {name}): a degenerate snarl "
+              f"is not flagged")
+        worst_v, worst_T = max(worst_v, ev), max(worst_T, et)
+    return (f"score grid: {len(SCORE_GRID)} cases (PT, C1, N, S) "
+            + ", ".join(f"{c[1:]}" for c in SCORE_GRID)
+            + f", D bitwise, V^-1 within {worst_v:.3g}, T within "
+            f"{worst_T:.3g}")
+
+
 def perm_edge_cases(device, err):
     """Phase 3's permutation edge cases: rank-deficient designs (the
     pseudo-inverse) and a filtered snarl for K16a; an ill-conditioned
@@ -2322,7 +2455,8 @@ def perm_edge_cases(device, err):
             f"Z^T W Z flags all of them; V^-1 error "
             f"{max(o[1] for o in outs):.3g},"
             f" T error {max(o[2] for o in outs):.3g}; K15 on W = 3 and W = 2"
-            f" words with 40 masks bitwise; {perm_tile_grid(device, err)})")
+            f" words with 40 masks bitwise; {perm_binary_grid(device, err)}; "
+            f"{score_grid(device, err)}; {perm_tile_grid(device, err)})")
 
 
 def phase_perm_kernels(torch, device, chunks, quant, logit, err):
@@ -3472,12 +3606,15 @@ def kernel_work(name, x):
         return S * N * (P * f8 + f8 + 1) + S * (i4 + 1) + 3 * S * f8, \
             steps * N * (P * (P + 1) + 4 * P + 30), "float64"
     if name == "perm_binary":
+        # the case counts as a 0/1 product at the int8 tensor-core rate
+        # (the binary AND + POPC rate the kernel runs at is not published):
+        # a multiply and an add per (real path, mask, haplotype bit)
         P, W = x["mem"].shape
         K = x["masks"].shape[0]
         S, Pmax = x["sidx"].shape
         real = int((to_np(x["sidx"]) >= 0).sum())
         return (P * W * i4 + P * i4 + K * W * i4 + S * Pmax * i4
-                + K * S * (2 * f8 + 1)), 2 * K * real * W, "int32"
+                + K * S * (2 * f8 + 1)), 2 * K * real * 32 * W, "int8"
     if name == "perm_ols":
         S, N, P = x["X"].shape
         K = x["phenos"].shape[0]
@@ -3608,7 +3745,7 @@ def bound_of(name, x):
     rate and operations over its peak rate for their type."""
     nbytes, ops, kind = kernel_work(name, x)
     t_bytes = nbytes / HBM_BYTES_S
-    t_ops = ops / (F64_FLOPS if kind == "float64" else INT32_OPS)
+    t_ops = ops / PEAKS[kind]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -4389,6 +4526,27 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
     # same X for both)
     library["ols"] = library["eqtl_ols"] = cuda_ms(
         lambda: torch.einsum("snp,snq->spq", q["X"], q["X"]), 10)
+    # K15's count product alone: torch._int_mm of the chunk's membership
+    # bits [P, 32 W] and the masks' bits [32 W, K] as 0/1 int8 (K padded to
+    # a multiple of 8, as the op asks)
+    shifts = torch.arange(32, dtype=torch.int32, device=m["mem"].device)
+
+    def bits(words):
+        return ((words.unsqueeze(-1) >> shifts) & 1).to(torch.int8) \
+            .reshape(words.shape[0], -1)
+    a8, b8 = bits(m["mem"]), bits(m["masks"])
+    kp = (b8.shape[0] + 7) // 8 * 8
+    b8 = torch.nn.functional.pad(b8, (0, 0, 0, kp - b8.shape[0])).t() \
+        .contiguous()
+    library["perm_binary"] = cuda_ms(lambda: torch._int_mm(a8, b8), 10)
+    del a8, b8
+    # K16b's Gram alone: torch.bmm of ([D | Z] w used)^T and [D | Z]
+    S_b, N_b, _ = m["D"].shape
+    dz = torch.cat([m["D"], m["Z"].expand(S_b, N_b, m["Z"].shape[1])], 2)
+    dzw = (dz * (m["w"][None, :] * m["bused"])[:, :, None]).transpose(
+        1, 2).contiguous()
+    library["score_precompute"] = cuda_ms(lambda: torch.bmm(dzw, dz), 10)
+    del dz, dzw
     dev = device_ms(torch, calls)
     # graph_stats launches chi2_tail for its two tails: chi2_tail's own
     # device time comes from a window of its own
@@ -4431,6 +4589,10 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "chi2_tail": {"stat": k5[0], "df": k5[1]},
     }
     bounds = {name: bound_of(name, work[name]) for name in calls}
+    # the parent design of K15: a population count per (mask, real path,
+    # word), at 16 an SM a clock
+    popc_ms = 1e3 * int(m["masks"].shape[0]) * int(
+        (to_np(sidx) >= 0).sum()) * int(m["mem"].shape[1]) / POPC_OPS
     # K9's bound as the parent's call needed it: a [S, N] y read besides
     ols_y_bound = bound_of("ols", work.pop("ols (y [S, N])"))[0]
     bounds[q5] = bound_of("perm_ols", {"X": m["bX"], "phenos": pols5[3]})
@@ -4504,7 +4666,13 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         f"only (one torch.matmul, X^T Y or D^T e): perm_ols "
         f"{library['perm_ols']:.4f}, {q5} {library[q5]:.4f}, score_perm "
         f"{library['score_perm']:.4f}; ols and eqtl_ols: X^T X alone "
-        f"(torch.einsum snp,snq->spq) {library['ols']:.4f}; ols bound with "
+        f"(torch.einsum snp,snq->spq) {library['ols']:.4f}; perm_binary: "
+        f"the count product alone (torch._int_mm, 0/1 int8) "
+        f"{library['perm_binary']:.4f}, bound by the int8 tensor cores' "
+        f"operations {bounds['perm_binary'][0]:.4f}, the parent design's "
+        f"popcount ceiling (16 an SM a clock) {popc_ms:.4f}; "
+        f"score_precompute: the weighted Gram of [D | Z] alone (torch.bmm) "
+        f"{library['score_precompute']:.4f}; ols bound with "
         f"an [S, N] y read besides X (the parent's call) {ols_y_bound:.4f}; "
         f"X.zero_() on quant_design's X "
         f"{tuple(q['X'].shape)} float64 {zero_ms:.4f} ms ({zero_gbs:.1f} "
@@ -4955,7 +5123,9 @@ def run(args):
     # library_ms: one PyTorch call computes K5's function
     # (torch.special.gammaincc); for perm_ols and score_perm it is their
     # GEMM core alone (one torch.matmul), for ols and eqtl_ols X^T X alone
-    # (torch.einsum); none computes any of the others
+    # (torch.einsum), for perm_binary the count product alone
+    # (torch._int_mm), for score_precompute the weighted Gram alone
+    # (torch.bmm); none computes any of the others
     kernels_json = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],

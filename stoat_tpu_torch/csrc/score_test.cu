@@ -27,17 +27,37 @@
 // The chi-squared tail of max(T, 0) on df (csrc/chi2_tail.cu) and the
 // +inf of allbad or a non-finite T (torch ops) follow
 // (pipeline/permutation.py).  The LDL^T
-// is ldlt_device.cuh (Q2, K11), a zero pivot divided as 1.
+// is ldlt_device.cuh (Q2, K11), a zero pivot divided as 1.  The Gram's sums
+// run on the tensor cores in another order than the plain version's, so
+// V^-1 is held to it by a relative bound; D, df and allbad are exact.
 //
 // What bounds them on the card: score_precompute reads X and writes D
 // (2 S N PT 8 bytes, 1.6 GB per chunk at S = 8,192, N = 2,504, PT = 5:
-// 0.49 ms at 3.35 TB/s); score_perm does 2 N Pp flops per (k, s) (Pp = PT
+// 0.49 ms at 3.35 TB/s; its Gram, 2 S N (PT + C1)^2 flops, 0.04 ms on the
+// float64 tensor cores); score_perm does 2 N Pp flops per (k, s) (Pp = PT
 // rounded up to 8), 3.3e11 per chunk at K = 1,001, 4.9 ms at the card's 67
 // TFLOP/s float64 tensor-core peak.
-// Design: score_precompute, one block per snarl, streams the rows through
-// shared memory in tiles, writes D's rows, and sums the entries of D^T W D,
-// D^T W Z and Z^T W Z, each thread owning entries and adding the tile's
-// rows in order; thread 0 does the small algebra.  score_perm is the tile
+// Design: score_precompute takes a snarl a warp, 8 snarls a block.  The
+// block streams tiles of RT rows (32 at PT = 5, C1 = 3) through a
+// two-stage cp.async ring in shared memory, 16-byte copies where aligned:
+// each warp its own snarl's X rows (contiguous, RT PT doubles), and the
+// block once the rows of Z and w that its 8 warps share (the parent read
+// them from L2 for every snarl).  A warp writes D = X x (1 or 0) back to
+// the stage and to D_out (16-byte stores, bit for bit a product by 1.0 or
+// 0.0), forms w x used for the tile's rows, and sums the upper 8 x 8 tiles
+// of the Gram F = [D | Z]^T diag(w used) [D | Z] with mma.sync.m8n8k4
+// float64, the A fragment the row times w used, two chains summed in a
+// fixed order (rows past N and columns past PT + C1 an exact 0, never
+// skipped: 0 x NaN); at PT + C1 = 8 F is one tile, wider designs loop over
+// tiles.  F's entries are added tile after tile in the rows' order, then
+// mirrored.  The algebra runs on the warp: lane 0 factors G = Z^T W Z and
+// V, the PT solves for G^-1 Z^T W D and against the identity go one a
+// lane, V one entry a lane, and the pivot tests and the sum of V^-1 are
+// reduced by shuffles.  It works in shared memory (4 blocks an SM), or in
+// the wrapper's per-snarl scratch where PT or C1 is too wide.  The step 0
+// variants of the parent (tools/kernel_ab.py on an H100) put its time in
+// the per-entry sums (36 of 128 threads busy) and thread 0's algebra.
+// score_perm is the tile
 // product of perm_gemm_device.cuh with A = D and Y = e: one block per group
 // of G snarls x KT residual rows (the K tile fastest) forms U on the
 // float64 tensor cores, and one thread per (snarl, row) forms T, reading
@@ -57,15 +77,88 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kMaxTileRows = 128;
-constexpr size_t kBudget = 44 * 1024;
+using stoat::pg::cp_async16;
+using stoat::pg::cp_async8;
+using stoat::pg::cp_async_commit;
+using stoat::pg::cp_async_wait;
+using stoat::pg::mma884;
+
+constexpr int kSpWarps = 8;   // score_precompute: a snarl a warp
+constexpr int kSpThreads = kSpWarps * 32;
+// at most 72 KB a block, three blocks an SM (3 (smem + 1 KB reserved)
+// within the SM's 228 KB); tiles of 32 rows (36 KB at PT = 5, C1 = 3) run
+// four, as many as 64 registers a thread allow, and took 0.757 ms a chunk
+// against 0.809 at 64 rows (three) and 1.206 at 16 (tools/kernel_ab.py on
+// an H100)
+constexpr size_t kSpBudget = 72 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-__device__ bool ldlt_ill(const double* Dpiv, int n) {
+// doubles of a snarl's algebra (shared memory or the wrapper's scratch):
+// the Gram F [Q, Q] of [D | Z], Q = PT + C1; G and L_g [C1, C1] and D_g
+// [C1]; G^-1 Z^T W D, a row [C1] per column of D; V, L_v and V^-1's
+// columns [PT, PT] each and D_v [PT]
+__host__ __device__ int64_t precompute_work(int64_t PT, int64_t C1) {
+  const int64_t Q = PT + C1;
+  return Q * Q + 2 * C1 * C1 + C1 + PT * C1 + 3 * PT * PT + PT;
+}
+
+// score_precompute's geometry, planned on the host and passed by value;
+// offsets in doubles of dynamic shared memory
+struct SPlan {
+  int64_t S, N, work_stride;
+  int PT, C1, Q;
+  int RT;             // rows a tile, a multiple of 8
+  int n_tiles;        // 8 x 8 tiles of F's upper triangle
+  int alg_smem;       // the algebra in shared memory (else the scratch)
+  int off_z, off_w;   // in a stage: X [kSpWarps, RT, PT], Z [RT, C1], w [RT]
+  int stage;          // doubles of a stage
+  int off_wu, off_alg;
+  int smem;           // bytes
+};
+
+bool plan_precompute(SPlan* pl, int64_t S, int64_t N, int64_t PT,
+                     int64_t C1, int64_t work_stride) {
+  pl->S = S;
+  pl->N = N;
+  pl->work_stride = work_stride;
+  pl->PT = int(PT);
+  pl->C1 = int(C1);
+  pl->Q = int(PT + C1);
+  const int nq = (pl->Q + 7) / 8;
+  pl->n_tiles = nq * (nq + 1) / 2;
+  const int64_t alg = precompute_work(PT, C1);
+  // the largest tile of rows within the budget, the algebra in shared
+  // memory if it can be; else 8 rows a tile within the card's limit
+  for (int pass = 0; pass < 3; ++pass) {
+    const int alg_smem = pass == 0 ? 1 : 0;
+    const size_t limit = pass < 2 ? kSpBudget : kMaxSmem;
+    for (int64_t RT = pass < 2 ? 32 : 8; RT >= 8; RT -= 8) {
+      const int64_t stage = kSpWarps * RT * PT + RT * C1 + RT;
+      const int64_t total = 2 * stage + kSpWarps * RT +
+                            (alg_smem ? kSpWarps * alg : 0);
+      if (size_t(total) * 8 <= limit) {
+        pl->RT = int(RT);
+        pl->alg_smem = alg_smem;
+        pl->off_z = int(kSpWarps * RT * PT);
+        pl->off_w = int(pl->off_z + RT * C1);
+        pl->stage = int(stage);
+        pl->off_wu = int(2 * stage);
+        pl->off_alg = int(2 * stage + kSpWarps * RT);
+        pl->smem = int(total * 8);
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// The pivot test of stoat_tpu's _ldlt_ill over a warp: some |D_j| <= 1e-10
+// max(max |D_j|, 1e-300), false when a pivot is NaN (jnp.min and jnp.max
+// propagate NaN)
+__device__ bool warp_ill(const double* Dpiv, int n, int lane) {
   bool nan = false;
   double amax = 0.0, amin = INFINITY;
-  for (int i = 0; i < n; ++i) {
+  for (int i = lane; i < n; i += 32) {
     const double a = fabs(Dpiv[i]);
     if (isnan(a)) {
       nan = true;
@@ -74,154 +167,254 @@ __device__ bool ldlt_ill(const double* Dpiv, int n) {
       amin = a < amin ? a : amin;
     }
   }
+  nan = __any_sync(0xffffffffu, nan);
+  for (int off = 16; off > 0; off >>= 1) {
+    const double hi = __shfl_xor_sync(0xffffffffu, amax, off);
+    const double lo = __shfl_xor_sync(0xffffffffu, amin, off);
+    amax = hi > amax ? hi : amax;
+    amin = lo < amin ? lo : amin;
+  }
   amax = amax > 1e-300 ? amax : 1e-300;
   return !nan && amin <= 1e-10 * amax;
 }
 
-// scratch doubles per snarl of score_precompute
-int64_t precompute_work(int64_t PT, int64_t C1) {
-  return 2 * PT * PT + 2 * PT * C1 + 2 * C1 * C1 + C1 + PT
-         + (PT > C1 ? PT : C1);
+// the upper-triangle tile at index idx: (mt, nt), mt <= nt, nt outermost
+__device__ inline void upper_tile(int idx, int* mt, int* nt) {
+  int n = 0;
+  while (idx > n) {
+    idx -= n + 1;
+    ++n;
+  }
+  *mt = idx;
+  *nt = n;
 }
 
-__global__ void score_precompute_kernel(
+__global__ void __launch_bounds__(kSpThreads) score_precompute_kernel(
     const double* __restrict__ X, const uint8_t* __restrict__ mask,
     const int32_t* __restrict__ ncols, const uint8_t* __restrict__ bad,
     const double* __restrict__ Z, const double* __restrict__ w,
     double* __restrict__ work, double* __restrict__ D_out,
     double* __restrict__ vinv_out, double* __restrict__ df_out,
-    uint8_t* __restrict__ allbad_out, int64_t N, int PT, int C1,
-    int64_t work_stride, int TR) {
-  extern __shared__ double smem[];
-  double* xs = smem;                 // [TR * PT]
-  double* zs = xs + TR * PT;         // [TR * C1]
-  double* ws = zs + TR * C1;         // [TR] the weights on used rows
-
+    uint8_t* __restrict__ allbad_out, SPlan pl) {
+  extern __shared__ __align__(16) double sp_smem[];
   const int tid = threadIdx.x;
-  const int64_t s = blockIdx.x;
-  const int nc = ncols[s];
-  const double* Xs = X + s * N * PT;
-  double* Ds = D_out + s * N * PT;
-  const uint8_t* msrc = mask + s * N;
-  double* Vf = work + s * work_stride;               // [PT, PT]
-  double* Az = Vf + PT * PT;                          // [PT, C1]
-  double* G = Az + PT * C1;                           // [C1, C1]
-  double* Lg = G + C1 * C1;                           // [C1, C1]
-  double* Dg = Lg + C1 * C1;                          // [C1]
-  double* GinvAt = Dg + C1;                           // [C1, PT]
-  double* Lv = GinvAt + C1 * PT;                      // [PT, PT]
-  double* Dv = Lv + PT * PT;                          // [PT]
-  double* col = Dv + PT;                              // [max(PT, C1)]
-  double* vinv = vinv_out + s * PT * PT;
-
-  // entries: D^T W D (upper triangle), D^T W Z, Z^T W Z (upper triangle)
-  const int n_v = PT * (PT + 1) / 2;
-  const int n_a = PT * C1;
-  const int n_g = C1 * (C1 + 1) / 2;
-  const int n_entries = n_v + n_a + n_g;
-  auto upper = [](int q, int n, int& i, int& j) {
-    i = 0;
-    j = q;
-    while (j >= n - i) {
-      j -= n - i;
-      ++i;
-    }
-    j += i;
-  };
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gq = lane >> 2;   // the fragment's column of [D | Z]
+  const int tq = lane & 3;    // its row of 4
+  const int64_t s = int64_t(blockIdx.x) * kSpWarps + warp;
+  const bool active = s < pl.S;
+  const int64_t sa = active ? s : 0;
+  const int64_t N = pl.N;
+  const int PT = pl.PT, C1 = pl.C1, Q = pl.Q, RT = pl.RT;
+  const int nc = ncols[sa];
+  const double* Xs = X + sa * N * PT;
+  double* Ds = D_out + sa * N * PT;
+  const uint8_t* ms = mask + sa * N;
+  double* F = pl.alg_smem
+                  ? sp_smem + pl.off_alg + warp * precompute_work(PT, C1)
+                  : work + sa * pl.work_stride;
+  double* wu = sp_smem + pl.off_wu + warp * RT;   // [RT] w x used
+  const bool vec_x =
+      ((reinterpret_cast<uintptr_t>(Xs) | reinterpret_cast<uintptr_t>(Ds)) &
+       15) == 0;
+  const bool vec_z = (reinterpret_cast<uintptr_t>(Z) & 15) == 0;
+  const bool vec_w = (reinterpret_cast<uintptr_t>(w) & 15) == 0;
   auto vm = [&](int t) { return t >= 1 && t < nc ? 1.0 : 0.0; };
-  for (int q = tid; q < n_entries; q += kThreads) {
-    int i, j;
-    if (q < n_v) {
-      upper(q, PT, i, j);
-      Vf[i * PT + j] = 0.0;
-    } else if (q < n_v + n_a) {
-      Az[q - n_v] = 0.0;
-    } else {
-      upper(q - n_v - n_a, C1, i, j);
-      G[i * C1 + j] = 0.0;
-    }
-  }
-  __syncthreads();
-  for (int64_t n0 = 0; n0 < N; n0 += TR) {
-    const int rows = int(N - n0 < TR ? N - n0 : TR);
-    for (int e = tid; e < rows * PT; e += kThreads) {
-      const double d = Xs[n0 * PT + e] * vm(e % PT);
-      xs[e] = d;
-      Ds[n0 * PT + e] = d;
-    }
-    for (int e = tid; e < rows * C1; e += kThreads) zs[e] = Z[n0 * C1 + e];
-    for (int r = tid; r < rows; r += kThreads) {
-      ws[r] = w[n0 + r] * (msrc[n0 + r] ? 1.0 : 0.0);
-    }
-    __syncthreads();
-    for (int q = tid; q < n_entries; q += kThreads) {
-      double acc = 0.0;
-      int i, j;
-      if (q < n_v) {
-        upper(q, PT, i, j);
-        for (int r = 0; r < rows; ++r) {
-          acc = acc + xs[r * PT + i] * ws[r] * xs[r * PT + j];
-        }
-        Vf[i * PT + j] += acc;
-      } else if (q < n_v + n_a) {
-        i = (q - n_v) / C1;
-        j = (q - n_v) % C1;
-        for (int r = 0; r < rows; ++r) {
-          acc = acc + xs[r * PT + i] * ws[r] * zs[r * C1 + j];
-        }
-        Az[q - n_v] += acc;
-      } else {
-        upper(q - n_v - n_a, C1, i, j);
-        for (int r = 0; r < rows; ++r) {
-          acc = acc + ws[r] * zs[r * C1 + i] * zs[r * C1 + j];
-        }
-        G[i * C1 + j] += acc;
-      }
-    }
-    __syncthreads();
-  }
-  if (tid != 0) return;
 
-  for (int i = 0; i < PT; ++i) {
-    for (int j = i + 1; j < PT; ++j) Vf[j * PT + i] = Vf[i * PT + j];
+  if (active) {
+    for (int e = lane; e < Q * Q; e += 32) F[e] = 0.0;
   }
-  for (int i = 0; i < C1; ++i) {
-    for (int j = i + 1; j < C1; ++j) G[j * C1 + i] = G[i * C1 + j];
-  }
-  stoat::ldlt_factor(G, Lg, Dg, C1);
-  const bool bad_g = ldlt_ill(Dg, C1);
-  // G^-1 (D^T W Z)^T, one column of Z^T W D at a time
-  for (int p = 0; p < PT; ++p) {
-    for (int c = 0; c < C1; ++c) col[c] = Az[p * C1 + c];
-    stoat::ldlt_solve(Lg, Dg, col, C1);
-    for (int c = 0; c < C1; ++c) GinvAt[c * PT + p] = col[c];
-  }
-  // V, padded; Vf becomes V in place
-  for (int p = 0; p < PT; ++p) {
-    for (int q = 0; q < PT; ++q) {
-      double acc = 0.0;
-      for (int c = 0; c < C1; ++c) {
-        acc = acc + Az[p * C1 + c] * GinvAt[c * PT + q];
+
+  // stage b: rows r0 .. r0 + RT of the warp's X (its own snarl) and of the
+  // shared Z and w, 16-byte copies where aligned
+  auto copy = [&](double* dst, const double* src, int64_t n, bool vec,
+                  int first, int step) {
+    if (vec) {
+      for (int64_t e = 2 * first; e < n; e += 2 * step) {
+        if (e + 1 < n) {
+          cp_async16(dst + e, src + e, 16);
+        } else {
+          cp_async8(dst + e, src + e, 8);
+        }
       }
-      Vf[p * PT + q] = Vf[p * PT + q] - acc;
+    } else {
+      for (int64_t e = first; e < n; e += step) cp_async8(dst + e, src + e, 8);
     }
-    Vf[p * PT + p] = Vf[p * PT + p] + (1.0 - vm(p));
+  };
+  auto stage = [&](int b, int64_t r0) {
+    double* st = sp_smem + b * pl.stage;
+    const int64_t rows = N - r0 < RT ? N - r0 : RT;
+    if (active) {
+      copy(st + warp * RT * PT, Xs + r0 * PT, rows * PT, vec_x, lane, 32);
+    }
+    copy(st + pl.off_z, Z + r0 * C1, rows * C1, vec_z, tid, kSpThreads);
+    copy(st + pl.off_w, w + r0, rows, vec_w, tid, kSpThreads);
+    cp_async_commit();
+  };
+
+  const int64_t n_rt = (N + RT - 1) / RT;
+  if (n_rt > 0) stage(0, 0);
+  for (int64_t it = 0; it < n_rt; ++it) {
+    const int64_t r0 = it * RT;
+    if (it + 1 < n_rt) {
+      stage(int((it + 1) & 1), r0 + RT);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (active) {
+      double* st = sp_smem + int(it & 1) * pl.stage;
+      double* xs = st + warp * RT * PT;
+      const double* zs = st + pl.off_z;
+      const double* ws = st + pl.off_w;
+      const int rows = int(N - r0 < RT ? N - r0 : RT);
+      // D = X x (1 on the variant columns, 0 elsewhere): in the stage and
+      // to D_out, 16-byte streaming stores where aligned (0.739 against
+      // 0.760 ms a chunk with plain ones, tools/kernel_ab.py on an H100)
+      const int n = rows * PT;
+      double* dst = Ds + r0 * PT;
+      if (vec_x) {
+        for (int e = 2 * lane; e < n; e += 64) {
+          if (e + 1 < n) {
+            double2 v = *reinterpret_cast<double2*>(xs + e);
+            v.x = v.x * vm(e % PT);
+            v.y = v.y * vm((e + 1) % PT);
+            *reinterpret_cast<double2*>(xs + e) = v;
+            __stcs(reinterpret_cast<double2*>(dst + e), v);
+          } else {
+            const double d = xs[e] * vm(e % PT);
+            xs[e] = d;
+            dst[e] = d;
+          }
+        }
+      } else {
+        for (int e = lane; e < n; e += 32) {
+          const double d = xs[e] * vm(e % PT);
+          xs[e] = d;
+          dst[e] = d;
+        }
+      }
+      for (int r = lane; r < RT; r += 32) {
+        wu[r] = r < rows ? ws[r] * (ms[r0 + r] ? 1.0 : 0.0) : 0.0;
+      }
+      __syncwarp();
+      // the upper tiles of F += [D | Z]^T diag(wu) [D | Z] over the tile's
+      // rows, on the float64 tensor cores: two chains of m8n8k4, summed in a
+      // fixed order; rows past N and columns past Q give an exact 0
+      for (int tile = 0; tile < pl.n_tiles; ++tile) {
+        int mt, nt;
+        upper_tile(tile, &mt, &nt);
+        const int ca = 8 * mt + gq;
+        const int cb = 8 * nt + gq;
+        const double* pa = ca < PT ? xs + ca : zs + (ca - PT);
+        const double* pb = cb < PT ? xs + cb : zs + (cb - PT);
+        int sa_ = ca < PT ? PT : C1;
+        int sb_ = cb < PT ? PT : C1;
+        if (ca >= Q) {
+          pa = xs;
+          sa_ = 0;
+        }
+        if (cb >= Q) {
+          pb = xs;
+          sb_ = 0;
+        }
+        double c0[2] = {0.0, 0.0}, c1[2] = {0.0, 0.0};
+        for (int k = 0; k < RT; k += 8) {
+          const int r = k + tq;
+          const int r4 = r + 4;
+          const double a0 = pa[r * sa_], b0 = pb[r * sb_];
+          const double a1 = pa[r4 * sa_], b1 = pb[r4 * sb_];
+          const double fa0 = r < rows && ca < Q ? a0 * wu[r] : 0.0;
+          const double fb0 = r < rows && cb < Q ? b0 : 0.0;
+          const double fa1 = r4 < rows && ca < Q ? a1 * wu[r4] : 0.0;
+          const double fb1 = r4 < rows && cb < Q ? b1 : 0.0;
+          mma884(c0, fa0, fb0);
+          mma884(c1, fa1, fb1);
+        }
+        // C[gq][2 tq + e] of the tile, the upper entries
+        const int i = 8 * mt + gq;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * nt + 2 * tq + e;
+          if (i < Q && j < Q && i <= j) F[i * Q + j] += c0[e] + c1[e];
+        }
+      }
+    }
+    __syncthreads();
   }
-  stoat::ldlt_factor(Vf, Lv, Dv, PT);
-  const bool bad_v = ldlt_ill(Dv, PT);
+  if (!active) return;
+  __syncwarp();
+
+  // the algebra, spread over the warp
+  double* Gm = F + Q * Q;       // [C1, C1]
+  double* Lg = Gm + C1 * C1;    // [C1, C1]
+  double* Dg = Lg + C1 * C1;    // [C1]
+  double* GA = Dg + C1;         // [PT, C1]: G^-1 (Z^T W D)[:, p] in row p
+  double* V = GA + PT * C1;     // [PT, PT]
+  double* Lv = V + PT * PT;     // [PT, PT]
+  double* Dv = Lv + PT * PT;    // [PT]
+  double* VT = Dv + PT;         // [PT, PT]: V^-1 e_m in row m
+  for (int e = lane; e < Q * Q; e += 32) {
+    const int i = e / Q;
+    const int j = e - i * Q;
+    if (i > j) F[e] = F[j * Q + i];
+  }
+  __syncwarp();
+  for (int e = lane; e < C1 * C1; e += 32) {
+    Gm[e] = F[(PT + e / C1) * Q + PT + e % C1];
+  }
+  for (int e = lane; e < PT * PT; e += 32) V[e] = F[(e / PT) * Q + e % PT];
+  __syncwarp();
+  if (lane == 0) stoat::ldlt_factor(Gm, Lg, Dg, C1);
+  __syncwarp();
+  const bool bad_g = warp_ill(Dg, C1, lane);
+  // G^-1 (D^T W Z)^T, a column of Z^T W D a lane
+  for (int p = lane; p < PT; p += 32) {
+    double* x = GA + p * C1;
+    for (int c = 0; c < C1; ++c) x[c] = F[p * Q + PT + c];
+    stoat::ldlt_solve(Lg, Dg, x, C1);
+  }
+  __syncwarp();
+  // V, padded, an entry a lane
+  for (int e = lane; e < PT * PT; e += 32) {
+    const int p = e / PT;
+    const int q = e - p * PT;
+    double acc = 0.0;
+    for (int c = 0; c < C1; ++c) {
+      acc = acc + F[p * Q + PT + c] * GA[q * C1 + c];
+    }
+    double v = V[e] - acc;
+    if (p == q) v = v + (1.0 - vm(p));
+    V[e] = v;
+  }
+  __syncwarp();
+  if (lane == 0) stoat::ldlt_factor(V, Lv, Dv, PT);
+  __syncwarp();
+  const bool bad_v = warp_ill(Dv, PT, lane);
+  // V^-1 by solves against the identity, a column a lane
   double total = 0.0;
-  for (int m = 0; m < PT; ++m) {
-    for (int i = 0; i < PT; ++i) col[i] = i == m ? 1.0 : 0.0;
-    stoat::ldlt_solve(Lv, Dv, col, PT);
-    for (int i = 0; i < PT; ++i) {
-      vinv[i * PT + m] = col[i];
-      total = total + col[i];
-    }
+  for (int m = lane; m < PT; m += 32) {
+    double* x = VT + m * PT;
+    for (int i = 0; i < PT; ++i) x[i] = i == m ? 1.0 : 0.0;
+    stoat::ldlt_solve(Lv, Dv, x, PT);
+    for (int i = 0; i < PT; ++i) total = total + x[i];
   }
-  const double df = double(nc - 1);
-  df_out[s] = df > 1.0 ? df : 1.0;
-  allbad_out[s] =
-      bad[s] || bad_g || bad_v || !isfinite(total) || df < 1.0 ? 1 : 0;
+  __syncwarp();
+  double* vinv = vinv_out + s * PT * PT;
+  for (int e = lane; e < PT * PT; e += 32) {
+    vinv[e] = VT[(e % PT) * PT + e / PT];
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    total = total + __shfl_xor_sync(0xffffffffu, total, off);
+  }
+  if (lane == 0) {
+    const double df = double(nc - 1);
+    df_out[s] = df > 1.0 ? df : 1.0;
+    allbad_out[s] =
+        bad[s] || bad_g || bad_v || !isfinite(total) || df < 1.0 ? 1 : 0;
+  }
 }
 
 __global__ void __launch_bounds__(stoat::pg::kThreads, 2)
@@ -262,18 +455,6 @@ __global__ void __launch_bounds__(stoat::pg::kThreads, 2)
   }
 }
 
-// rows per tile: as many as kBudget allows, at most
-// kMaxTileRows, at least 16; 0 when even that exceeds the card's limit
-int tile_rows(size_t per_row, size_t* smem) {
-  int TR = kMaxTileRows;
-  if (TR * per_row > kBudget) {
-    TR = int(kBudget / per_row);
-    if (TR < 16) TR = 16;
-  }
-  *smem = size_t(TR) * per_row;
-  return *smem > kMaxSmem ? 0 : TR;
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -291,24 +472,26 @@ extern "C" int score_precompute_launch(const void* X, const void* mask,
                                        void* allbad_out, int64_t S,
                                        int64_t N, int64_t PT, int64_t C1,
                                        int64_t work_stride, void* stream) {
-  if (PT < 1 || C1 < 1 || work_stride < precompute_work(PT, C1)) {
+  if (PT < 1 || C1 < 1 || N < 0 || work_stride < precompute_work(PT, C1)) {
     return int(cudaErrorInvalidValue);
   }
   if (S <= 0) return int(cudaGetLastError());
-  size_t smem = 0;
-  const int TR = tile_rows(size_t(PT + C1 + 1) * 8, &smem);
-  if (TR == 0) return int(cudaErrorInvalidValue);
-  const cudaError_t err = allow_smem(score_precompute_kernel, smem);
+  SPlan pl;
+  if (!plan_precompute(&pl, S, N, PT, C1, work_stride)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = allow_smem(score_precompute_kernel,
+                                     size_t(pl.smem));
   if (err != cudaSuccess) return int(err);
-  score_precompute_kernel<<<unsigned(S), kThreads, smem,
+  const int64_t blocks = (S + kSpWarps - 1) / kSpWarps;
+  score_precompute_kernel<<<unsigned(blocks), kSpThreads, pl.smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const double*>(X), static_cast<const uint8_t*>(mask),
       static_cast<const int32_t*>(ncols), static_cast<const uint8_t*>(bad),
       static_cast<const double*>(Z), static_cast<const double*>(w),
       static_cast<double*>(work), static_cast<double*>(D_out),
       static_cast<double*>(vinv_out), static_cast<double*>(df_out),
-      static_cast<uint8_t*>(allbad_out), N, int(PT), int(C1), work_stride,
-      TR);
+      static_cast<uint8_t*>(allbad_out), pl);
   return int(cudaGetLastError());
 }
 

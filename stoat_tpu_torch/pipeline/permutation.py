@@ -234,6 +234,10 @@ def _perm_binary_cuda(mem, g_all, masks, snarl_path_idx, min_individuals,
     check_tensor(masks, "masks", torch.int32, (K, W), device)
     check_tensor(snarl_path_idx, "snarl_path_idx", torch.int32, (S, Pmax),
                  device)
+    # the kernel copies 16-byte blocks from the word buffers' starts on: a
+    # view that starts elsewhere goes as a fresh copy
+    mem, masks = (t if t.data_ptr() % 16 == 0 else t.clone()
+                  for t in (mem, masks))
     stat = torch.empty((K, S), dtype=torch.float64, device=device)
     df = torch.empty((K, S), dtype=torch.float64, device=device)
     bad = torch.empty((K, S), dtype=torch.bool, device=device)
@@ -256,10 +260,11 @@ def perm_binary_stats(mem: torch.Tensor, g_all: torch.Tensor,
     table, filter and statistic per snarl, bad = filtered | invalid |
     zero expected (stoat_tpu's _perm_binary_pvalues without its tail).
 
-    CUDA tensors run csrc/perm_binary.cu perm_binary, bound by its
-    K * S * Pmax * W AND + popcount pairs, with K3's device code, so the
-    statistic has K3's and the plain version's bits; CPU tensors the plain
-    version."""
+    CUDA tensors run csrc/perm_binary.cu perm_binary: the case counts as
+    a product of 0/1 matrices on the tensor cores' binary AND + POPC
+    product (exact), bound by its 2 * (real paths) * K * 32 W operations,
+    then K3's device code, so the statistic has K3's and the plain
+    version's bits; CPU tensors the plain version."""
     if kernels_enabled(mem.device):
         return _perm_binary_cuda(mem, g_all, masks, snarl_path_idx,
                                  min_individuals, min_haplotypes,
@@ -391,11 +396,12 @@ def _score_precompute_cuda(X, used, ncols, bad, Z, w):
     check_tensor(bad, "bad", torch.bool, (S,), device)
     check_tensor(Z, "Z", torch.float64, (N, C1), device)
     check_tensor(w, "w", torch.float64, (N,), device)
-    # per snarl: V and L_v (PT x PT each), D^T W Z and G^-1 Z^T W D
-    # (PT x C1 each), G and L_g (C1 x C1 each), the pivots (C1 + PT) and a
-    # solve column
-    stride = (2 * PT * PT + 2 * PT * C1 + 2 * C1 * C1 + C1 + PT
-              + max(PT, C1))
+    # per snarl, where the kernel's shared memory cannot hold its algebra:
+    # the Gram of [D | Z] ((PT + C1)^2), G and L_g (C1 x C1 each), G^-1 Z^T
+    # W D (PT x C1), V, L_v and V^-1's columns (PT x PT each) and the
+    # pivots (C1 + PT)
+    stride = ((PT + C1) ** 2 + 2 * C1 * C1 + C1 + PT * C1 + 3 * PT * PT
+              + PT)
     work = torch.empty((S, stride), dtype=torch.float64, device=device)
     D = torch.empty_like(X)
     Vinv = torch.empty((S, PT, PT), dtype=torch.float64, device=device)
@@ -422,9 +428,10 @@ def score_precompute(X: torch.Tensor, used: torch.Tensor,
     pivot test), a non-finite Vinv or no variant column.  Z float64 [N,
     1 + C] and w float64 [N] come from :func:`logistic_null_context`.
 
-    CUDA tensors run csrc/score_test.cu score_precompute, one block per
-    snarl, bound by reading X and writing D; CPU tensors the plain
-    version."""
+    CUDA tensors run csrc/score_test.cu score_precompute, one warp per
+    snarl (the Gram of [D | Z] on the float64 tensor cores, the algebra
+    spread over the warp), bound by reading X and writing D; CPU tensors
+    the plain version."""
     if kernels_enabled(X.device):
         return _score_precompute_cuda(X, used, ncols, bad, Z, w)
     return score_precompute_plain(X, used, ncols, bad, Z, w)
