@@ -23,7 +23,9 @@ printing lines and each fatal on failure:
      and the ``-q -c`` design; quant_design with ``all_rows``, eqtl_ols on
      the first chunk's (snarl, gene) pairs and the mixed model's chain
      of rotation, OLS and tail; the chi-squared tail chi2_tail on the
-     tail grid, a random grid of 10^6 and the first chunk's statistics;
+     tail grid, a random grid of 10^6, a grid of large df, fault 3.2's
+     draw of 4 x 10^6 (df 1-400), the first chunk's statistics and the
+     permutation pass's [K, S] statistics of K15 and of the score test;
      quant_design's -T table view on the OLS and all-rows designs) and on
      edge cases, the permutation kernels' tile edges, perm_binary's and
      score_precompute's grids, quant_design's grid in its four
@@ -55,15 +57,17 @@ printing lines and each fatal on failure:
      CPU on the sub-cohort in five modes, the ``regression/`` files
      included; then the decomposition alone (``vcf -p -d``).  While the
      CUDA CLI runs the binary, graph and permutation paths,
-     torch.special.gammaincc must not be called: every chi-squared tail
-     runs on chi2_tail;
+     the plain chi-squared tail must not be called: every chi-squared
+     tail runs on chi2_tail;
   5. each kernel's time and its plain version's, on the card, at the main
      paths' shapes (CUDA events, after a warm-up, and profiler device
      time), its bound (bytes over the card's memory rate or operations
      over its peak rate, whichever is larger), the wall of each
      permutation pass, and the mixed model's rotation (one float64 GEMM)
-     beside its bound; chi2_tail beside torch.special.gammaincc on the
-     same inputs (its library_ms), perm_ols and score_perm beside one
+     beside its bound; chi2_tail and student_t at both of their launch
+     shapes, a chunk's [S] and the permutation pass's [K, S]; chi2_tail
+     beside torch.special.gammaincc on the same inputs (its library_ms,
+     a yardstick on another algorithm), perm_ols and score_perm beside one
      torch.matmul of their GEMM core alone (theirs), perm_binary beside
      torch._int_mm of its 0/1 count product and score_precompute beside
      torch.bmm of its weighted Gram (theirs), quant_design's
@@ -192,11 +196,11 @@ SUB_SNARLS = 2048
 # the p-values resolve within TIE_REL
 SCORE_REL = 1e-10
 TIE_REL = 1e-9
-# the chi-squared tail, kernel vs plain (torch.special.gammaincc): one
-# algorithm, the same rounding where torch's build fuses multiply-adds,
-# the card's math library on both sides; checked where p > 1e-300, with
-# the same strings, zeros, NaNs and DBL_MAX.  Against the CPU's op (glibc)
-# the strings and the special values must agree.
+# the chi-squared tail, kernel vs plain (JAX's igammac, run on the card's
+# tensors): one algorithm, every operation separately rounded, the card's
+# math library on both sides; checked where p > 1e-300, with the same
+# strings, zeros, NaNs and DBL_MAX, on every grid.  Against the plain
+# version on the CPU (glibc's logarithms) the special values must agree.
 CHI2_REL = 1e-13
 LARGE_DF = "large-df grid"
 # -T: the full-size runs' threshold, and the sub-cohort's
@@ -310,25 +314,26 @@ def to_np(t):
     return t.detach().cpu().numpy()
 
 
-class GammainccCounter:
-    """Counts the calls of torch.special.gammaincc while entered: on the
-    CUDA CLI every chi-squared tail runs on chi2_tail, so the count stays
-    0 (the plain version, chi2_sf_plain, is its one caller)."""
+class PlainTailCounter:
+    """Counts the calls of the plain chi-squared tail (stats/special.py
+    igammac_plain, JAX's igammac, which chi2_sf_plain runs) while entered:
+    on the CUDA CLI every chi-squared tail runs on chi2_tail, so the count
+    stays 0."""
 
     def __enter__(self):
-        import torch
-        self.special = torch.special
-        self.real = torch.special.gammaincc
+        from stoat_tpu_torch.stats import special
+        self.special = special
+        self.real = special.igammac_plain
         self.calls = 0
 
         def counted(*a, **k):
             self.calls += 1
             return self.real(*a, **k)
-        torch.special.gammaincc = counted
+        special.igammac_plain = counted
         return self
 
     def __exit__(self, *exc):
-        self.special.gammaincc = self.real
+        self.special.igammac_plain = self.real
         return False
 
 
@@ -930,13 +935,14 @@ def edge_cases(device, err):
             f"overflow + 12288 random Fisher tables, zero-margin 2x2/2xN)")
 
 
-def chi2_grids(seed=0, n=1_000_000):
+def chi2_grids(seed=0, n=1_000_000, draw=4_000_000):
     """The chi-squared tail's test grids: tests/test_extreme_tails.py's
     TAIL_STATS x TAIL_DFS, and n statistics uniform in [0, 1500] on df
     1-8 (the binary tables' and the graph's dfs) with zeros, NaNs and
-    85 +- 1e-9 (both sides of the tail's switch).  The third grid, df up
-    to 2,000 with statistics near df, reaches the uniform asymptotic
-    expansion (df > 40), where torch's CUDA op is not its CPU op."""
+    85 +- 1e-9 (both sides of the tail's switch); df up to 2,000 with
+    statistics near df, where both loops of JAX's igammac run long; and
+    the draw of fault 3.2 (ROADMAP.md): ``draw`` pairs, df uniform on
+    1-400, stat = |df + 4 z sqrt(2 df)|, numpy default_rng(0)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     stat = rng.uniform(0.0, 1500.0, n)
@@ -946,12 +952,17 @@ def chi2_grids(seed=0, n=1_000_000):
     stat[1100:1600] = 85.0 + 1e-9
     stat[1600:2100] = 85.0 - 1e-9
     big_df = rng.integers(1, 2001, n // 5).astype(np.float64)
+    big_stat = big_df * rng.uniform(0.3, 1.7, big_df.size)
+    rng = np.random.default_rng(0)
+    fault_df = rng.integers(1, 401, draw).astype(np.float64)
+    fault_stat = np.abs(fault_df + 4.0 * rng.standard_normal(draw)
+                        * np.sqrt(2.0 * fault_df))
     return {"tail grid": (np.repeat(TAIL_STATS, len(TAIL_DFS)),
                           np.tile(np.asarray(TAIL_DFS, np.float64),
                                   len(TAIL_STATS))),
             f"random grid of {n}": (stat, df),
-            LARGE_DF: (big_df * rng.uniform(0.3, 1.7, big_df.size),
-                       big_df)}
+            LARGE_DF: (big_stat, big_df),
+            f"fault 3.2's draw of {draw}": (fault_stat, fault_df)}
 
 
 def hold_tail(got, want, what, rel_bound, strings=True):
@@ -959,7 +970,7 @@ def hold_tail(got, want, what, rel_bound, strings=True):
     the same places and (with ``strings``) the same format_p strings
     (compared where the bits differ); where p > 1e-300, relative
     ``rel_bound`` (None: report only).  Returns (max relative error, max
-    ulps, elements whose bits differ)."""
+    ulps, elements whose bits differ, elements whose strings differ)."""
     import numpy as np
     from stoat_tpu_torch.writer import format_p
     dbl_max = np.finfo(np.float64).max
@@ -970,30 +981,30 @@ def hold_tail(got, want, what, rel_bound, strings=True):
     both_nan = np.isnan(got) & np.isnan(want)
     differ = np.nonzero((got.view(np.uint64) != want.view(np.uint64))
                         & ~both_nan)[0]
-    bad = [i for i in differ if strings
-           and format_p(got[i]) != format_p(want[i])]
-    check(not bad, f"chi2_tail ({what}): {len(bad)} strings differ, first "
-          f"{got[bad[0]]!r} / {want[bad[0]]!r}" if bad else "")
+    bad = [i for i in differ if format_p(got[i]) != format_p(want[i])]
+    check(not (strings and bad), f"chi2_tail ({what}): {len(bad)} strings "
+          f"differ, first {got[bad[0]]!r} / {want[bad[0]]!r}" if bad else "")
     big = want > 1e-300
     rel = np.abs(got[big] - want[big]) / want[big]
     worst = float(rel.max()) if rel.size else 0.0
+    at = np.nonzero(big)[0][int(np.argmax(rel))] if rel.size else 0
     check(rel_bound is None or worst <= rel_bound,
-          f"chi2_tail ({what}): relative error {worst:.3g} > {rel_bound}")
+          f"chi2_tail ({what}): relative error {worst:.3g} > {rel_bound} at "
+          f"element {at}: {got[at]!r} against {want[at]!r}")
     fin = np.isfinite(got) & np.isfinite(want)
     ulps = int(np.abs(got[fin].view(np.int64)
                       - want[fin].view(np.int64)).max()) if fin.any() else 0
-    return worst, ulps, len(differ)
+    return worst, ulps, len(differ), len(bad)
 
 
 def compare_chi2_tail(torch, device, tables, err):
-    """K5: chi2_tail against chi2_sf_plain (torch.special.gammaincc) on the
-    card at CHI2_REL, and against the CPU's op (strings and special values),
-    on chi2_grids and on the main chunk's statistics with their masks
-    (finish_chi2_pvalues against its plain version).  On the large-df grid
-    chi2_tail follows the CPU's algorithm, which the card's op does not:
-    there it is held to the CPU's op, and its distance to the card's op is
-    reported.  Returns a description."""
-    import numpy as np
+    """K5: chi2_tail against its plain version, chi2_sf_plain (JAX's
+    igammac), run on the card's tensors, at CHI2_REL with the same strings,
+    zeros, NaNs and DBL_MAX, on every grid of chi2_grids and on the main
+    chunk's statistics with their masks (finish_chi2_pvalues against its
+    plain version); the plain version on the CPU (the C library's
+    logarithms and exponentials, not CUDA's) is reported beside it, but
+    on the fault's draw.  Returns a description."""
     from stoat_tpu_torch.stats.chi2 import (finish_chi2_pvalues,
                                             finish_chi2_pvalues_plain)
     from stoat_tpu_torch.stats.special import chi2_sf, chi2_sf_plain
@@ -1005,25 +1016,21 @@ def compare_chi2_tail(torch, device, tables, err):
     for what, args in cases.items():
         card_args = [a.to(device) for a in args]
         cpu_args = [a.cpu() for a in args]
-        if len(args) == 2:
-            got = to_np(chi2_sf(*card_args))
-            plain = to_np(chi2_sf_plain(*card_args))
-            cpu = chi2_sf_plain(*cpu_args).numpy()
-        else:
-            got = to_np(finish_chi2_pvalues(*card_args))
-            plain = to_np(finish_chi2_pvalues_plain(*card_args))
-            cpu = finish_chi2_pvalues_plain(*cpu_args).numpy()
-        large = what == LARGE_DF
-        r_card = hold_tail(got, plain, f"{what}, card",
-                           None if large else CHI2_REL, strings=not large)
-        r_cpu = hold_tail(got, cpu, f"{what}, CPU", None)
-        if not large:
-            err["chi2_tail"] = max(err["chi2_tail"], max_abs_err(got,
-                                                                 plain))
-        notes.append(f"{what} ({got.size}): vs the card's op max rel "
-                     f"{r_card[0]:.3g}, {r_card[1]} ulps, {r_card[2]} differing"
-                     f"; vs the CPU's op max rel {r_cpu[0]:.3g}, {r_cpu[1]} "
-                     f"ulps, {r_cpu[2]} differing")
+        tail = chi2_sf if len(args) == 2 else finish_chi2_pvalues
+        plain = chi2_sf_plain if len(args) == 2 else finish_chi2_pvalues_plain
+        got = to_np(tail(*card_args))
+        want = to_np(plain(*card_args))
+        r_card = hold_tail(got, want, f"{what}, card", CHI2_REL)
+        err["chi2_tail"] = max(err["chi2_tail"], max_abs_err(got, want))
+        note = (f"{what} ({got.size}): max rel {r_card[0]:.3g}, "
+                f"{r_card[1]} ulps, {r_card[2]} differing")
+        if not what.startswith("fault"):
+            r_cpu = hold_tail(got, plain(*cpu_args).numpy(), f"{what}, CPU",
+                              None, strings=False)
+            note += (f"; the CPU's plain version max rel {r_cpu[0]:.3g}, "
+                     f"{r_cpu[1]} ulps, {r_cpu[2]} differing, {r_cpu[3]} "
+                     f"strings")
+        notes.append(note)
     return "; ".join(notes)
 
 
@@ -1707,7 +1714,7 @@ def compare_graph_stats(G0, G1, mask, err, expected_fisher=None):
     """K6 kernel vs plain: bitwise on the card (the plain version's tails
     on the card run the same chi2_tail on bitwise statistics); against the
     CPU's plain version Fisher bitwise and the chi-squared p-values
-    (chi2_tail on the card, torch.special.gammaincc on the CPU) to a
+    (chi2_tail on the card, the plain version on the CPU) to a
     relative 1e-12 with equal strings."""
     from stoat_tpu_torch.writer import format_p
     from stoat_tpu_torch.graph.association import (graph_stats,
@@ -2506,13 +2513,14 @@ def phase_perm_kernels(torch, device, chunks, quant, logit, err):
     full = perm_host_rows(pheno_bin, to_np(qpheno), covar, W, PERM_FULL)
     phenos_q = upload_t(full.pop("phenos_q"), device)
     fin = to_perm_inputs(device, **full)
-    D, Vinv = compare_perm_full(torch, chunk, q, lg, bad, fin, phenos_q,
-                                err)
+    D, Vinv, tails = compare_perm_full(torch, chunk, q, lg, bad, fin,
+                                       phenos_q, err)
     return {"chunk": chunk, "mem": mem, "g_all": g_all, "masks": fin.masks,
             "X": q["X"], "used": q["used"], "ncols": q["ncols"],
             "phenos": fin.phenos, "bX": lg["X"], "bused": lg["used"],
             "bncols": lg["ncols"], "phenos_q": phenos_q, "bad": bad,
-            "Z": fin.Z, "w": fin.w, "e": fin.e, "D": D, "Vinv": Vinv}
+            "Z": fin.Z, "w": fin.w, "e": fin.e, "D": D, "Vinv": Vinv,
+            "tails": tails}
 
 
 def compare_perm_full(torch, chunk, q, lg, bad, fin, phenos_q, err):
@@ -2522,11 +2530,18 @@ def compare_perm_full(torch, chunk, q, lg, bad, fin, phenos_q, err):
     label permutations), t1 within OLS_REL (OLS_PINV_REL on the
     pseudo-inverse rows) and df exact; Q3's p-only route over the [K * S]
     statistics (linear_pvalues) against finish_linear_pvalues within T_REL;
-    K16b/c within SCORE_REL.  Returns the score test's D and V^-1."""
+    K16b/c within SCORE_REL; K5 on K15's [K, S] statistics and on the
+    score test's (max(T, 0) on its df [S], read with its period) against
+    chi2_sf_plain within CHI2_REL, the same strings.  Returns the score
+    test's D and V^-1, and the two tails' [K, S] inputs: {"chi2_tail
+    (binary)": (stat, df), "chi2_tail (score)": (T, df [1, S]),
+    "student_t": (t1, df)}."""
     from stoat_tpu_torch.stats.linreg import (finish_linear_pvalues,
                                               linear_pvalues)
+    from stoat_tpu_torch.stats.special import chi2_sf, chi2_sf_plain
     K = int(fin.masks.shape[0])
-    compare_perm_binary(chunk, fin.masks, err, cpu=False)
+    _, _, (bstat, bdf, _) = compare_perm_binary(chunk, fin.masks, err,
+                                                cpu=False)
     pinv7, _ = pinv_rows(q["X"], q["ncols"])
     t1, df, e7 = compare_perm_ols(q["X"], q["used"], q["ncols"], fin.phenos,
                                   err, pinv7, f"-q -c design, K = {K}")
@@ -2541,6 +2556,17 @@ def compare_perm_full(torch, chunk, q, lg, bad, fin, phenos_q, err):
     err["student_t"] = max(err["student_t"], max_abs_err(p, pp))
     got, (ev, et) = compare_score(lg["X"], lg["used"], lg["ncols"], bad,
                                   fin.Z, fin.w, fin.e, err, f"K = {K}")
+    tails = {"chi2_tail (binary)": (bstat, bdf),
+             "chi2_tail (score)": (torch.clamp(got[4], min=0.0),
+                                   got[2][None, :]),
+             "student_t": (t1, df)}
+    k5 = []
+    for what in ("chi2_tail (binary)", "chi2_tail (score)"):
+        a, b = to_np(chi2_sf(*tails[what])).ravel(), \
+            to_np(chi2_sf_plain(*tails[what])).ravel()
+        r = hold_tail(a, b, f"{what}, K = {K}", CHI2_REL)
+        err["chi2_tail"] = max(err["chi2_tail"], max_abs_err(a, b))
+        k5.append(f"{what} max rel {r[0]:.3g}, {r[2]} differing")
     torch.cuda.synchronize()
     say(f"phase 3 permutation kernels vs plain at the main path's K = {K} "
         f"rows ({int(t1.shape[1])} snarls): perm_binary statistic bitwise; "
@@ -2549,8 +2575,10 @@ def compare_perm_full(torch, chunk, q, lg, bad, fin, phenos_q, err):
         f"{int(lg['X'].shape[2])} ({len(pinv5)}), df exact; linear_pvalues "
         f"over [{K} x {int(t1.shape[1])}] within {ep:.3g} (bound "
         f"{T_REL:g}); score_precompute V^-1 within {ev:.3g}, score_perm T "
-        f"within {et:.3g} (bound {SCORE_REL:g})")
-    return got[0], got[1]
+        f"within {et:.3g} (bound {SCORE_REL:g}); chi2_tail over [{K} x "
+        f"{int(t1.shape[1])}]: " + ", ".join(k5) + f" (bound {CHI2_REL:g}, "
+        f"the same strings)")
+    return got[0], got[1], tails
 
 
 class PermCapture:
@@ -2739,15 +2767,15 @@ def phase_perm_main(torch, paths, sub, work, n_chroms, mode):
     held = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with PermCapture() as cap, GammainccCounter() as lib:
+    with PermCapture() as cap, PlainTailCounter() as lib:
         rc = cli.main(perm_cli_args(paths, out, "cuda", mode, PERM_FULL))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     check(rc == 0, f"--permutations {mode}: exit code {rc}")
-    check(lib.calls == 0, f"--permutations {mode} called "
-          f"torch.special.gammaincc {lib.calls} times")
+    check(lib.calls == 0, f"--permutations {mode} called the plain "
+          f"chi-squared tail {lib.calls} times")
     check_launches(launches, PERM_LAUNCHES[mode], n_chunks,
                    f"--permutations {mode}")
     tables = PERM_TABLES[mode]
@@ -3083,14 +3111,14 @@ def phase_dual(torch, paths, work, n_chroms, reference):
         outs[device] = os.path.join(work, f"out_{device}_dual")
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        with GammainccCounter() as lib:
+        with PlainTailCounter() as lib:
             rc, got[device] = run_captured(cli, [*argv, "-o", outs[device],
                                                  "--device", device])
         torch.cuda.synchronize()
         walls[device] = time.perf_counter() - t0
         check(rc == 0, f"dual on {device}: exit code {rc}")
         check(device == "cpu" or lib.calls == 0, f"the dual on the card "
-              f"called torch.special.gammaincc {lib.calls} times")
+              f"called the plain chi-squared tail {lib.calls} times")
         if device == "cuda":
             launches = dict(kernels.LAUNCHES)
             peak = torch.cuda.max_memory_allocated()
@@ -3490,27 +3518,32 @@ def phase_case3(graph, work):
 
 # ---------------------------------------------------------------- bounds
 
-def cf_iterations(t1, df):
+def cf_iteration_counts(t1, df):
     """Continued-fraction iterations of the Student-t tail of each |t1| on
     df (the loop of stats/special.py _betainc_continued_fraction, in numpy:
-    the data-dependent work of student_t.cu)."""
+    the data-dependent work of student_t.cu), and whether each element
+    takes the mirrored fraction (b, a, 1 - x): (counts, mirrored).  Only
+    the elements still running are iterated."""
     import numpy as np
-    t1 = np.abs(np.asarray(t1, np.float64))
-    df = np.asarray(df, np.float64)
+    t1 = np.abs(np.asarray(t1, np.float64)).ravel()
+    df = np.asarray(df, np.float64).ravel()
     fin = np.isfinite(t1)
     a0, b0 = df * 0.5, np.full_like(df, 0.5)
-    x0 = df / (df + t1 * t1)
+    with np.errstate(all="ignore"):
+        x0 = df / (df + t1 * t1)
     rapid = x0 < (a0 + 1.0) / (a0 + b0 + 2.0)
-    a = np.where(rapid, a0, b0)
-    b = np.where(rapid, b0, a0)
-    x = np.where(rapid, x0, 1.0 - x0)
     half = np.finfo(np.float64).eps / 2
+    iters = np.zeros(t1.shape, np.int64)
+    idx = np.nonzero(fin)[0]
+    a = np.where(rapid, a0, b0)[idx]
+    b = np.where(rapid, b0, a0)[idx]
+    x = np.where(rapid, x0, 1.0 - x0)[idx]
     c = np.full_like(x, half)
     d = np.zeros_like(x)
-    iters = np.zeros(x.shape, np.int64)
-    active = fin.copy()
     with np.errstate(all="ignore"):
         for n in range(1, 600):
+            if not idx.size:
+                break
             if n == 1:
                 num = np.ones_like(x)
             else:
@@ -3521,17 +3554,19 @@ def cf_iterations(t1, df):
                            / ((a + 2 * m) * (a + 2 * m + 1.0)))
                 else:
                     num = m * (b - m) * x / ((a + 2 * m - 1.0) * (a + 2 * m))
-            cn = 1.0 + num / c
-            cn = np.where(np.abs(cn) < half, half, cn)
-            dn = 1.0 + num * d
-            dn = 1.0 / np.where(np.abs(dn) < half, half, dn)
-            c = np.where(active, cn, c)
-            d = np.where(active, dn, d)
-            iters += active
-            active &= np.abs(cn * dn - 1.0) >= half
-            if not active.any():
-                break
-    return int(iters.sum())
+            c = 1.0 + num / c
+            c = np.where(np.abs(c) < half, half, c)
+            d = 1.0 + num * d
+            d = 1.0 / np.where(np.abs(d) < half, half, d)
+            iters[idx] += 1
+            go = np.abs(c * d - 1.0) >= half
+            idx, a, b, x, c, d = (v[go] for v in (idx, a, b, x, c, d))
+    return iters, ~rapid & fin
+
+
+def cf_iterations(t1, df):
+    """The sum of :func:`cf_iteration_counts`: K10's data-dependent work."""
+    return int(cf_iteration_counts(t1, df)[0].sum())
 
 
 def fisher_terms(a, b, c, d):
@@ -3596,8 +3631,11 @@ def kernel_work(name, x):
                 + S * i4 + 5 * S * f8), \
             S * N * (P * (P + 1) + 2 * P + 2 * P + 6), "float64"
     if name == "student_t":
-        S = x["t1"].shape[0]
-        return 10 * S * f8 + S, \
+        # t1 and df read and p written; with the NA masking the degenerate
+        # flags, beta, se and r2 read and written too
+        S = x["t1"].numel()
+        nbytes = 10 * S * f8 + S if x.get("masks", True) else 3 * S * f8
+        return nbytes, \
             20 * cf_iterations(to_np(x["t1"]), to_np(x["df"])) + 60 * S, \
             "float64"
     if name == "logreg":
@@ -3644,10 +3682,13 @@ def kernel_work(name, x):
                 + G * N * f8 + 5 * B * f8), \
             S1 * N * P * (P + 1) + B * N * (4 * P + 7), "float64"
     if name == "chi2_tail":
-        # stat and df read, the two masks read, p written
+        # stat and df (the score test's [S] once) read, the two masks read
+        # where given, p written
         stat, df = to_np(x["stat"]), to_np(x["df"])
-        return stat.size * (2 * f8 + 2 + f8), \
-            igammac_operations(stat, df), "float64"
+        masks = 2 * stat.size if x.get("masks", True) else 0
+        return stat.size * 2 * f8 + df.size * f8 + masks, \
+            igammac_operations(stat, np.broadcast_to(df, stat.shape)), \
+            "float64"
     if name == "lmm_gemm":
         # rot [N, N] @ X laid out [N, S * PT]: read both, write the product
         S, N, PT = x["X"].shape
@@ -3656,88 +3697,85 @@ def kernel_work(name, x):
     raise KeyError(name)
 
 
-# igammac's operations (chi2_tail_device.cuh): per iteration of each loop,
-# and per element for the prefactor x^a e^-x / Gamma(a) (a log, an lgamma
-# and an exp, counted at 20 each) and the branch tests
-IGAM_SERIES_OPS = 5
-IGAMC_SERIES_OPS = 6
+# igammac's operations (chi2_tail_device.cuh, JAX's igammac): per iteration
+# of the power series (an add, two divisions, a multiply, an add and the
+# test) and of the continued fraction (three adds and five multiplies and
+# subtracts for p_k, q_k, two divisions, the select and the rescale test),
+# and per element for the prefactor (a log, an exp and XLA's lgamma, its
+# eight Lanczos quotients and two logarithms, counted at 20 an elementary
+# function) and the masks
+IGAM_SERIES_OPS = 6
 CF_OPS = 16
-ELEMENT_OPS = 70
+ELEMENT_OPS = 150
+
+
+def igammac_counts(stat, df):
+    """Per element of chi2_tail's igammac (JAX's, chi2_tail_device.cuh):
+    (branch, iterations), branch 0 for an element that runs no loop (a
+    mask, an underflowing prefactor), 1 for the power series, 2 for the
+    continued fraction, and the iterations of its loop, run in numpy until
+    it stops as the kernel's does (the data-dependent work; only the
+    elements still running are iterated)."""
+    import numpy as np
+    from scipy.special import gammaln
+    eps = np.finfo(np.float64).eps
+    a = (np.asarray(df, np.float64) * 0.5).ravel()
+    x = (np.asarray(stat, np.float64) * 0.5).ravel()
+    with np.errstate(all="ignore"):
+        domain = (x < 0) | (a < 0) | ((a == 0) & (x == 0)) | np.isnan(a) \
+            | np.isnan(x)
+        ax = a * np.log(x) - x - gammaln(a)
+        live = ~(domain | (ax < -np.log(np.finfo(np.float64).max))
+                 | (x == np.inf) | (a == 0))
+        series = live & ((x < 1) | (x < a))
+        branch = np.where(series, 1, np.where(live, 2, 0))
+        iters = np.zeros(a.shape, np.int64)
+        idx = np.nonzero(series)[0]
+        xx, r = x[idx], a[idx].copy()
+        c, ans = np.ones_like(r), np.ones_like(r)
+        while idx.size:
+            iters[idx] += 1
+            r = r + 1.0
+            c = c * (xx / r)
+            ans = ans + c
+            go = c / ans > eps
+            idx, xx, r, c, ans = (v[go] for v in (idx, xx, r, c, ans))
+        idx = np.nonzero(branch == 2)[0]
+        xx = x[idx]
+        y = 1.0 - a[idx]
+        z = xx + y + 1.0
+        pkm2, qkm2 = np.ones_like(xx), xx.copy()
+        pkm1, qkm1 = xx + 1.0, z * xx
+        ans = pkm1 / qkm1
+        for k in range(1, 2001):
+            if not idx.size:
+                break
+            iters[idx] += 1
+            y, z = y + 1.0, z + 2.0
+            yc = y * k
+            pk = pkm1 * z - pkm2 * yc
+            qk = qkm1 * z - qkm2 * yc
+            rr = pk / qk
+            t = np.where(qk != 0, np.abs((ans - rr) / rr), 1.0)
+            ans = np.where(qk != 0, rr, ans)
+            scale = np.where(np.abs(pk) > 1.0 / eps, eps, 1.0)
+            pkm2, qkm2 = pkm1 * scale, qkm1 * scale
+            pkm1, qkm1 = pk * scale, qk * scale
+            go = t > eps
+            idx, xx, y, z, pkm1, qkm1, pkm2, qkm2, ans = (
+                v[go] for v in (idx, xx, y, z, pkm1, qkm1, pkm2, qkm2, ans))
+    return branch, iters
 
 
 def igammac_operations(stat, df):
     """Floating-point operations of chi2_tail's igammac on these inputs:
-    each element's helper, chosen as calc_igammac chooses it, and its
-    loop run in numpy until it stops as the kernel's does (the
-    data-dependent work; the asymptotic expansion, df > 40, is counted at
-    its 625 coefficients)."""
+    each element's prefactor and masks, and the iterations of its loop
+    (:func:`igammac_counts`)."""
     import numpy as np
-    machep = 1.11022302462515654042e-16
-    a = np.asarray(df, np.float64) * 0.5
-    x = np.asarray(stat, np.float64) * 0.5
-    with np.errstate(all="ignore"):
-        r = np.abs(x - a) / a
-        asym = (((a > 20) & (a < 200) & (r < 0.3))
-                | ((a > 200) & (r < 4.5 / np.sqrt(a))))
-        live = ~asym & (x > 0) & np.isfinite(x) & (a > 0)
-        low = np.where(x > 1.1, x < a,
-                       np.where(x <= 0.5, -0.4 / np.log(x) < a,
-                                x * 1.1 < a))
-        cf = live & (x > 1.1) & ~low
-        series = live & low
-        upper = live & ~low & ~cf
-        ops = float(asym.sum()) * 2 * 625 + ELEMENT_OPS * float(live.sum())
-        # 1 - igam series
-        aa, xx = a[series], x[series]
-        rr, c, ans = aa.copy(), np.ones_like(aa), np.ones_like(aa)
-        active = np.ones(aa.shape, bool)
-        for _ in range(2000):
-            if not active.any():
-                break
-            ops += IGAM_SERIES_OPS * float(active.sum())
-            rr = np.where(active, rr + 1.0, rr)
-            c = np.where(active, c * (xx / rr), c)
-            ans = np.where(active, ans + c, ans)
-            active &= ~(c <= machep * ans)
-        # igamc series
-        aa, xx = a[upper], x[upper]
-        fac, total = np.ones_like(aa), np.zeros_like(aa)
-        active = np.ones(aa.shape, bool)
-        for n in range(1, 2000):
-            if not active.any():
-                break
-            ops += IGAMC_SERIES_OPS * float(active.sum())
-            fac = np.where(active, fac * (-xx / n), fac)
-            term = fac / (aa + n)
-            total = np.where(active, total + term, total)
-            active &= ~(np.abs(term) <= machep * np.abs(total))
-        # continued fraction
-        aa, xx = a[cf], x[cf]
-        y = 1.0 - aa
-        z = xx + y + 1.0
-        c = np.zeros_like(aa)
-        pkm2, qkm2 = np.ones_like(aa), xx.copy()
-        pkm1, qkm1 = xx + 1.0, z * xx
-        ans = pkm1 / qkm1
-        active = np.ones(aa.shape, bool)
-        for _ in range(2000):
-            if not active.any():
-                break
-            ops += CF_OPS * float(active.sum())
-            c, y, z = c + 1.0, y + 1.0, z + 2.0
-            yc = y * c
-            pk = pkm1 * z - pkm2 * yc
-            qk = qkm1 * z - qkm2 * yc
-            rr = np.where(qk != 0, pk / qk, ans)
-            t = np.where(qk != 0, np.abs((ans - rr) / rr), 1.0)
-            ans = np.where(active, rr, ans)
-            pkm2, pkm1, qkm2, qkm1 = pkm1, pk, qkm1, qk
-            scale = np.where(np.abs(pk) > 4.503599627370496e15,
-                             2.22044604925031308085e-16, 1.0)
-            pkm2, pkm1, qkm2, qkm1 = (v * scale for v in
-                                      (pkm2, pkm1, qkm2, qkm1))
-            active &= ~(t <= machep)
-    return ops
+    branch, iters = igammac_counts(stat, df)
+    return float(ELEMENT_OPS * branch.size
+                 + IGAM_SERIES_OPS * iters[branch == 1].sum()
+                 + CF_OPS * iters[branch == 2].sum())
 
 
 def bound_of(name, x):
@@ -3886,12 +3924,10 @@ def phase_kernels(torch, device, chunks, err, graph):
         f"{edges}; tolerances: counts/flags/keep exact, Fisher bitwise, "
         f"chi2 stat rel 1e-12; max abs err "
         + ", ".join(f"{k}={err[k]:.3g}" for k in BINARY_KERNELS))
-    say(f"phase 3 chi2_tail vs plain (torch {torch.__version__}'s "
-        f"torch.special.gammaincc): {tails}; bounds: relative {CHI2_REL:g} "
-        f"against the card's op where p > 1e-300 and equal strings, zeros, "
-        f"NaNs and DBL_MAX against both, but on the {LARGE_DF} (chi2_tail "
-        f"follows the CPU's op, the card's op another expansion): equal "
-        f"strings and special values against the CPU's op, the card's "
+    say(f"phase 3 chi2_tail vs its plain version (JAX's igammac) on the "
+        f"card: {tails}; bounds: relative {CHI2_REL:g} where p > 1e-300 and "
+        f"equal strings, zeros, NaNs and DBL_MAX on every grid; against "
+        f"the CPU's plain version the special values equal, the rest "
         f"reported")
 
     # Q1 -> Q2 -> Q3 on the first chunk of `vcf -q -c`
@@ -3996,7 +4032,7 @@ def phase_main(torch, paths, work, n_chroms, gen_s):
     held = torch.cuda.memory_allocated()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with GammainccCounter() as lib:
+    with PlainTailCounter() as lib:
         rc = cli.main(cli_args(paths, out_cuda, "cuda"))
         torch.cuda.synchronize()
     wall_cuda = time.perf_counter() - t0
@@ -4006,8 +4042,8 @@ def phase_main(torch, paths, work, n_chroms, gen_s):
     n_chunks = n_chunks_of(paths, n_chroms)
     check_launches(launches, dict.fromkeys(BINARY_KERNELS, 1), n_chunks,
                    "the binary path")
-    check(lib.calls == 0, f"the binary path called torch.special.gammaincc "
-          f"{lib.calls} times")
+    check(lib.calls == 0, f"the binary path called the plain chi-squared "
+          f"tail {lib.calls} times")
     native_runs = runner.INGEST_COUNTS["native"] - ingest0["native"]
     python_runs = runner.INGEST_COUNTS["python"] - ingest0["python"]
     check(native_runs == n_chroms and python_runs == 0,
@@ -4052,7 +4088,7 @@ def phase_main(torch, paths, work, n_chroms, gen_s):
         f"{len(filtered)}: " + "; ".join(
             f"{c} {s} ({why})" for c, s, why in filtered[:5])
         + f"; launches {launches} ({n_chunks} chunks; "
-        f"torch.special.gammaincc called 0 times); native ingest of "
+        f"the plain chi-squared tail called 0 times); native ingest of "
         f"{native_runs} chromosomes, python fallback 0; "
         f"max_memory_allocated {memory_note(peak, held)}")
     return launches
@@ -4270,7 +4306,7 @@ def phase_graph(torch, graph, twin, work):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         try:
-            with GammainccCounter() as lib:
+            with PlainTailCounter() as lib:
                 rc = cli.main(["graph", "-p", g["gfa"], "-d", g["gfa"], "-b",
                                g["pheno"], "-T", method, "-O", fmt, "-r",
                                "ref", "-V", "0", "-o", out, "--device",
@@ -4279,7 +4315,7 @@ def phase_graph(torch, graph, twin, work):
             os.environ.pop("STOAT_GRAPH_PYTHON", None)
         torch.cuda.synchronize()
         check(device == "cpu" or lib.calls == 0, f"graph {method} {fmt} on "
-              f"the card called torch.special.gammaincc {lib.calls} times")
+              f"the card called the plain chi-squared tail {lib.calls} times")
         wall = time.perf_counter() - t0
         check(rc == 0, f"graph {method} {fmt} on {device}: exit code {rc}")
         path = "python" if python else "native"
@@ -4344,7 +4380,7 @@ def phase_graph(torch, graph, twin, work):
         f"{wall_cuda:.2f}s, cpu wall {wall_cpu:.2f}s, {len(lines) - 1} rows "
         f"byte-identical ({depth2} nested at depth 2; partitions per row "
         f"{dict(sorted(kinds.items()))}); launches {launches} (the two "
-        f"tails on chi2_tail, torch.special.gammaincc called 0 times), "
+        f"tails on chi2_tail, the plain chi-squared tail called 0 times), "
         f"native path; "
         f"{n_ref} sampled rows' P_FISHER/P_CHI2 equal scipy's strings "
         f"({ref_s:.1f}s), {len(flips)} at a rounding boundary"
@@ -4359,7 +4395,9 @@ def phase_graph(torch, graph, twin, work):
 # the device kernels of an entry point beside <name>_kernel (perm_ols runs
 # two; tools/kernel_ab.py times sources with either)
 DEVICE_KERNELS = {"perm_ols": ("perm_ols", "perm_ols_inverse",
-                               "perm_ols_main")}
+                               "perm_ols_main"),
+                  "chi2_tail": ("chi2_tail", "chi2_tail_warp"),
+                  "student_t": ("student_t", "student_t_batch")}
 
 
 def device_ms(torch, calls):
@@ -4597,6 +4635,38 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
     ols_y_bound = bound_of("ols", work.pop("ols (y [S, N])"))[0]
     bounds[q5] = bound_of("perm_ols", {"X": m["bX"], "phenos": pols5[3]})
 
+    # the two tails at the permutation pass's [K, S] shape (K = 1 +
+    # PERM_FULL rows): K5 on K15's statistics and on the score test's (its
+    # df [S] read with its period), K10 on K16a's (linear_pvalues, p alone)
+    from stoat_tpu_torch.stats.linreg import (finish_linear_pvalues,
+                                              linear_pvalues)
+    from stoat_tpu_torch.stats.special import chi2_sf, chi2_sf_plain
+    for what, (a, b) in m["tails"].items():
+        name = "student_t" if what == "student_t" else "chi2_tail"
+        label = f"{what} [K, S]"
+        if name == "student_t":
+            def fn(a=a, b=b):
+                return linear_pvalues(a, b)
+
+            def plain(a=a, b=b):
+                return finish_linear_pvalues(a, b)
+            library[label] = None
+            shape_work = {"t1": a, "df": b, "masks": False}
+        else:
+            def fn(a=a, b=b):
+                return chi2_sf(a, b)
+
+            def plain(a=a, b=b):
+                return chi2_sf_plain(a, b)
+            halves = (b.expand_as(a) * 0.5, a * 0.5)
+            library[label] = cuda_ms(
+                lambda h=halves: torch.special.gammaincc(*h), 5)
+            del halves
+            shape_work = {"stat": a, "df": b, "masks": False}
+        times[label] = (cuda_ms(fn, 5), cuda_ms(plain, 1, warmup=0))
+        dev[label] = device_ms(torch, {name: fn})[name]
+        bounds[label] = bound_of(name, shape_work)
+
     # Q1's table view (-T) on the same chunk
     qt = "quant_design (tables)"
     times[qt] = (
@@ -4662,7 +4732,11 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
             f"{bounds[k][0]:.4f} {bounds[k][1]})"
             for k, (a, b) in times.items())
         + f"; library (one PyTorch call of the same function): chi2_tail "
-        f"{library['chi2_tail']:.4f} (torch.special.gammaincc); GEMM core "
+        f"{library['chi2_tail']:.4f} (torch.special.gammaincc, a yardstick: "
+        f"another algorithm), at [K, S] "
+        f"{library['chi2_tail (binary) [K, S]']:.4f} (binary) and "
+        f"{library['chi2_tail (score) [K, S]']:.4f} (score); student_t none "
+        f"(torch has no incomplete beta); GEMM core "
         f"only (one torch.matmul, X^T Y or D^T e): perm_ols "
         f"{library['perm_ols']:.4f}, {q5} {library[q5]:.4f}, score_perm "
         f"{library['score_perm']:.4f}; ols and eqtl_ols: X^T X alone "
@@ -4678,7 +4752,8 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         f"{tuple(q['X'].shape)} float64 {zero_ms:.4f} ms ({zero_gbs:.1f} "
         f"GB/s), beside quant_design's bound "
         f"{bounds['quant_design'][0]:.4f}; chi2_tail "
-        f"on the first vcf -b chunk's statistics and masks; permutation "
+        f"on the first vcf -b chunk's statistics and masks, and at [K, S] "
+        f"on the first chunk's permutation statistics; permutation "
         f"kernels at K = {PERM_FULL + 1} rows; eqtl_ols on "
         f"{md['n_pairs']} pairs of {md['n_with']} snarls; the mixed model's "
         f"rows on the all-rows design (the GEMM's plain column is "
@@ -5133,6 +5208,16 @@ def run(args):
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name), "device_ms": dev[name]}
         for name, (src, rep) in KERNELS.items()]
+    # the tails' second launch shape, the permutation pass's [K, S]: the
+    # same keys under "shapes" (launches are counted by kernel, not shape)
+    for entry in kernels_json:
+        entry["shapes"] = [
+            {"shape": label, "ms": times[label][0],
+             "plain_ms": times[label][1], "device_ms": dev[label],
+             "bound_ms": bounds[label][0], "bound_by": bounds[label][1],
+             "library_ms": library[label]}
+            for label in times if label.startswith(entry["name"] + " ")
+            and label.endswith("[K, S]")]
     count = torch.cuda.device_count()
     check(count == 1, f"{count} devices visible, the run used 1")
     say(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")

@@ -48,6 +48,12 @@ LAUNCHES: Dict[str, int] = {"membership_counts": 0, "binary_tables": 0,
                             "chi2_tail": 0}
 
 
+# each kernel's ctypes function with its argument types, by (library,
+# name, argument types): set once, not at every launch (the library is
+# held beside it, so that its id is never reused)
+_FUNCTIONS: Dict = {}
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -80,12 +86,19 @@ def launch(name: str, argtypes: Sequence, args: Sequence, device,
 
     source = source or name
     lib = build.load(source)
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = [*argtypes, VOIDP]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (id(lib), name, tuple(argtypes))
+    if key not in _FUNCTIONS:
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = [*argtypes, VOIDP]
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[key] = (lib, fn)
+    fn = _FUNCTIONS[key][1]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         describe = getattr(lib, f"{source}_error_string")
         describe.argtypes = [ctypes.c_int]

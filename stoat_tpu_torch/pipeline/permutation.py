@@ -483,7 +483,7 @@ def score_perm_pvalues(T: torch.Tensor, df: torch.Tensor,
                        allbad: torch.Tensor) -> torch.Tensor:
     """[K, S] sanitised score-test p-values: the chi-squared tail of
     max(T, 0) on df; +inf where allbad or T is not finite."""
-    p = chi2_sf(torch.clamp(T, min=0.0), df[None, :].expand_as(T))
+    p = chi2_sf(torch.clamp(T, min=0.0), df[None, :])
     return sanitize_p(p, allbad[None, :] | ~torch.isfinite(T))
 
 

@@ -217,13 +217,14 @@ def _student_t_cuda(t1, df_res, degenerate, beta1, se1, r2):
     for name, t in zip(("t1", "df_res", "beta1", "se1", "r2"), ins):
         check_tensor(t, name, torch.float64, (S,), device)
     check_tensor(degenerate, "degenerate", torch.bool, (S,), device)
-    out = {key: torch.empty(S, dtype=torch.float64, device=device)
-           for key in STUDENT_T_KEYS}
+    # the four outputs are the rows of one allocation
+    out = torch.empty((len(STUDENT_T_KEYS), S), dtype=torch.float64,
+                      device=device)
     launch("student_t", [VOIDP] * 10 + [I64],
            [t1.data_ptr(), df_res.data_ptr(), degenerate.data_ptr(),
             beta1.data_ptr(), se1.data_ptr(), r2.data_ptr(),
-            *(out[key].data_ptr() for key in STUDENT_T_KEYS), S], device)
-    return out
+            *(row.data_ptr() for row in out), S], device)
+    return dict(zip(STUDENT_T_KEYS, out.unbind(0)))
 
 
 def student_t_pvalues(t1: torch.Tensor, df_res: torch.Tensor,

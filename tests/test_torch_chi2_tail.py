@@ -1,14 +1,20 @@
-"""K5, the chi-squared tail: csrc/chi2_tail_device.cuh against the plain
-version, on the CPU.
+"""K5, the chi-squared tail: the plain version and csrc/chi2_tail_device.cuh
+against the JAX package and against each other, on the CPU.
 
-The card's kernel (csrc/chi2_tail.cu) evaluates ``chi2_tail::chi2_sf`` of
-that header.  Here the same header is compiled with g++ (-ffp-contract=off,
-as nvcc's -fmad=false) into a small host library under build/, and held to
-``chi2_sf_plain`` (torch.special.gammaincc) over the grids chip_smoke.py
-uses on the card: relative 1e-13 where p > 1e-300, the same zeros, NaNs and
-printed strings.  That catches an error in the transcription without nvcc.
-The wrapper's device rule and the masks of ``finish_chi2_pvalues`` are
-checked on the CPU too.  No kernel is built here.
+The plain version (stats/special.py chi2_sf_plain) is JAX's igammac,
+transcribed; it is held to ``stoat_tpu.stats.special.chi2_sf`` within 5e-12
+relative, with the same printed strings, on draws of (stat, df) at df 1-400
+(the fault the port had while its tail was torch's, whose uniform
+asymptotic expansion for a > 20 moved p by up to 1.9e-9 there).  The
+card's kernel (csrc/chi2_tail.cu) evaluates ``chi2_tail::chi2_sf`` of that
+header.  Here the same header is compiled with g++ (-ffp-contract=off, as
+nvcc's -fmad=false) into a small host library under build/, and held to
+the plain version over the grids chip_smoke.py uses on the card: relative
+1e-13 where p > 1e-300, the same zeros, NaNs and printed strings (both
+call the C library's logarithms and exponentials); and to JAX's on the
+draws.  That catches an error in the transcription without nvcc.  The
+wrapper's device rule and the masks of ``finish_chi2_pvalues`` are checked
+on the CPU too.  No kernel is built here.
 """
 
 import ctypes
@@ -23,6 +29,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from stoat_tpu.stats.chi2 import finish_chi2_pvalues as j_finish
+from stoat_tpu.stats.special import chi2_sf as j_chi2_sf
 from stoat_tpu_torch import kernels
 from stoat_tpu_torch.kernels import build
 from stoat_tpu_torch.stats import special
@@ -31,6 +38,9 @@ from stoat_tpu_torch.stats.special import chi2_sf, chi2_sf_plain
 from stoat_tpu_torch.writer import format_p
 
 REL = 1e-13
+# the port against the JAX package: the two take their logarithms,
+# exponentials and lgamma's divisions from other libraries
+JAX_REL = 5e-12
 DBL_MAX = np.finfo(np.float64).max
 # tests/test_extreme_tails.py:23-26 and chip_smoke.py's TAIL_STATS x TAIL_DFS
 TAIL_STATS = [60.0, 80.0, 84.9, 85.0001, 86.0, 100.0, 200.0, 500.0, 1000.0,
@@ -106,20 +116,38 @@ def _hold(got, want):
 
 
 def _branches(stat, df):
-    """Which helper of calc_igammac each (a, x) = (df/2, stat/2) takes."""
+    """Which loop of JAX's igammac each (a, x) = (df/2, stat/2) runs: none
+    (x = 0, NaN or inf, an underflowing prefactor), the power series (x <
+    1 or x < a) or the continued fraction."""
     a, x = np.asarray(df) / 2, np.asarray(stat) / 2
     with np.errstate(all="ignore"):
-        r = np.abs(x - a) / a
-        asym = (((a > 20) & (a < 200) & (r < 0.3))
-                | ((a > 200) & (r < 4.5 / np.sqrt(a))))
-        edge = (x == 0) | np.isnan(x) | np.isinf(x)
-        low = np.where(x > 1.1, x < a,
-                       np.where(x <= 0.5, -0.4 / np.log(x) < a, x * 1.1 < a))
-        cf = (x > 1.1) & ~low
-    return {"asymptotic": asym & ~edge, "edge": edge,
-            "1 - igam series": ~asym & ~edge & low,
-            "continued fraction": ~asym & ~edge & cf,
-            "igamc series": ~asym & ~edge & ~low & ~cf}
+        from scipy.special import gammaln
+        live = ~((a * np.log(x) - x - gammaln(a) < -np.log(DBL_MAX))
+                 | np.isnan(x) | np.isinf(x))
+        series = (x < 1) | (x < a)
+    return {"no loop": ~live, "power series": live & series,
+            "continued fraction": live & ~series}
+
+
+def _draw(seed, n=200_000):
+    """The fault's draw: df uniform on 1-400, stat = |df + 4 z sqrt(2 df)|."""
+    rng = np.random.default_rng(seed)
+    df = rng.integers(1, 401, n).astype(np.float64)
+    stat = np.abs(df + 4.0 * rng.standard_normal(n) * np.sqrt(2.0 * df))
+    return stat, df
+
+
+def _hold_jax(got, want):
+    """p against JAX's: NaNs and zeros in the same places, relative JAX_REL
+    where p > 1e-300, no differing string.  Returns the bitwise share."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got == 0, want == 0)
+    big = want > 1e-300
+    rel = np.abs(got[big] - want[big]) / want[big]
+    assert float(rel.max()) <= JAX_REL, float(rel.max())
+    differ = np.nonzero(got != want)[0]
+    assert [i for i in differ if format_p(got[i]) != format_p(want[i])] == []
+    return 1.0 - differ.size / got.size
 
 
 def test_host_build_matches_plain_on_the_tail_grid(host_chi2_sf):
@@ -145,14 +173,12 @@ def test_host_build_matches_plain_on_a_random_grid(host_chi2_sf, seed):
     got, want = host_chi2_sf(stat, df), _plain(stat, df)
     _hold(got, want)
     for name, mask in _branches(stat, df).items():
-        if name != "asymptotic":
-            assert mask.sum() > 100, name
+        assert mask.sum() > 100, name
 
 
 def test_host_build_matches_plain_for_large_df(host_chi2_sf):
-    """df up to 2,000, so that the uniform asymptotic expansion (a > 20,
-    x near a) and the large-argument prefactor run too; plus infinities
-    and a zero df."""
+    """df up to 2,000 with statistics near df, where both loops run long
+    and lgamma's argument is large; plus infinities and a zero df."""
     rng = np.random.default_rng(7)
     df = rng.integers(1, 2001, 200_000).astype(np.float64)
     stat = df * rng.uniform(0.3, 1.7, df.size)
@@ -161,7 +187,32 @@ def test_host_build_matches_plain_for_large_df(host_chi2_sf):
     df = np.concatenate([df, [1.0, 0.0, 0.0, 0.0, 4.0]])
     got, want = host_chi2_sf(stat, df), _plain(stat, df)
     _hold(got, want)
-    assert _branches(stat, df)["asymptotic"].sum() > 10_000
+    branches = _branches(stat, df)
+    large = df > 40
+    for name in ("power series", "continued fraction"):
+        assert (branches[name] & large).sum() > 10_000, name
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_and_host_build_match_jax_at_df_1_to_400(host_chi2_sf, seed):
+    """Fault 3.2: the plain version and the host build against stoat_tpu's
+    chi2_sf on the fault's draw, df 1-400 (2e5 pairs): within JAX_REL, no
+    differing string, at df <= 40 and above."""
+    stat, df = _draw(seed)
+    want = np.asarray(j_chi2_sf(stat, df))
+    for got in (_plain(stat, df), host_chi2_sf(stat, df)):
+        for part in (df <= 40, df > 40):
+            _hold_jax(got[part], want[part])
+
+
+def test_first_differing_string_of_the_fault():
+    """stat = 313.7369477976512 on df = 272 prints 4.1496e-02 in both
+    packages (torch's algorithm printed 4.1497e-02)."""
+    stat, df = np.array([313.7369477976512]), np.array([272.0])
+    want = float(np.asarray(j_chi2_sf(stat, df))[0])
+    got = float(_plain(stat, df)[0])
+    assert format_p(want) == format_p(got) == "4.1496e-02"
+    assert abs(got - want) <= JAX_REL * want
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu(monkeypatch):

@@ -10,8 +10,8 @@ card's kernel is held bitwise to the plain version by chip_smoke.py); the
 two chi-squared statistics to a relative 1e-15 (sums of at most 8 terms, in
 column order here and in XLA's order there); the chi-squared p-values to
 a relative 1e-12 with identical ``format_p`` strings, as the ``vcf -b``
-tests hold them (torch.special.gammaincc and XLA's igammac are different
-implementations of the tail).  Whole ``graph`` runs of both CLIs, on a
+tests hold them (both run JAX's igammac; their logarithms, exponentials
+and divisions come from other libraries).  Whole ``graph`` runs of both CLIs, on a
 graph written by chip_smoke.py's generator, must write the same bytes.
 """
 

@@ -5,10 +5,14 @@ on one card, in one process.
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/kernel_ab.py --baseline DIR [--candidate DIR ...]
-                               [--kernel eqtl_ols|logreg|ols|perm_binary|
-                                         perm_ols|quant_design|
-                                         score_precompute|score_perm]
+                               [--kernel chi2_tail|chi2_tail_perm|
+                                         chi2_tail_score|eqtl_ols|logreg|
+                                         ols|perm_binary|perm_ols|
+                                         quant_design|score_precompute|
+                                         score_perm|student_t|
+                                         student_t_perm]
                                [--snarls 16384] [--rounds 4]
+                               [--order as-is,branch,work]
 
 Each DIR holds one version's kernel sources (its ``<source>.cu`` and the
 ``.cuh`` headers that it includes; score_precompute and score_perm are
@@ -34,7 +38,18 @@ OLS design, ``all_rows`` off and no table view; logreg on the first ``vcf
 -b -c`` chunk's design and case indicator, chip_smoke.py phase 5's
 ``fit``; eqtl_ols on the same design with chip_smoke.write_genes' gene
 set and the chunk's (snarl, gene) pairs, phase 5's ``eq``: with
-``--snarls 65536`` phase 5's 85,159 pairs).  quant_design and ols launch
+``--snarls 65536`` phase 5's 85,159 pairs; the two tails at both of
+their launch shapes: chi2_tail on the first ``vcf -b`` chunk's
+statistics and masks, chi2_tail_perm on perm_binary's [1 + PERM_FULL, S]
+statistics and df, chi2_tail_score on the score test's max(T, 0) with its
+df [S] (a version whose launch declares ``df_period`` reads it with that
+period, an earlier one gets it made [K, S] in the call, as its wrapper
+did), student_t on the first ``vcf -q -c`` chunk's OLS statistics with
+their NA masking (and the wrapper's host costs), student_t_perm on
+perm_ols's [K, S] t1 and df; the inputs come from the plain versions on
+the card; ``--order`` also runs the tails on their elements reordered on
+the host, grouped by branch or by branch and iterations, to show how
+much of a tail's time its lanes spend idle).  quant_design and ols launch
 each version with the argument list its source declares: ols the
 phenotype row and the mask where the launch declares ``pheno``, else
 the [S, N] y = pheno * used that the earlier callers built.  They run in
@@ -303,17 +318,255 @@ def quant_design_inputs(cs, device, snarls, work, versions):
     return call, tuple(d["X"].shape)
 
 
+def tail_order(cs, kind, args, order):
+    """The permutation of a tail's elements that ``--order`` asks for:
+    None as they come; "branch": each element's branch first (chi2_tail:
+    no loop, the power series, the continued fraction; student_t: the
+    direct, then the mirrored fraction), in their order within it;
+    "work": by branch, then by the iterations of its loop."""
+    import numpy as np
+    if order == "as-is":
+        return None
+    if kind == "chi2_tail":
+        branch, iters = cs.igammac_counts(cs.to_np(args[0]).ravel(),
+                                          cs.to_np(args[1]).ravel())
+    else:
+        iters, branch = cs.cf_iteration_counts(cs.to_np(args[0]).ravel(),
+                                               cs.to_np(args[1]).ravel())
+    keys = (branch,) if order == "branch" else (iters, branch)
+    return np.lexsort(keys)
+
+
+def reorder(perm, tensors):
+    """``tensors`` flattened and gathered by ``perm`` (None: unchanged)."""
+    import torch
+    if perm is None:
+        return tensors
+    idx = torch.from_numpy(perm).to(tensors[0].device)
+    return [t.reshape(-1)[idx].contiguous() for t in tensors]
+
+
+def per_order(build, orders):
+    """{order: build(order)} for each of ``orders``."""
+    return {o: build(o) for o in orders}
+
+
+def chi2_tail_call(cs, device, versions, stat, df, masks, order):
+    """A zero-argument launch of each version's chi2_tail on ``stat`` and
+    ``df`` (with the two masks, or None), as its source declares it: a
+    version whose launch takes ``df_period`` reads a df shorter than stat
+    (the score test's [S]) with that period; an earlier one gets the df
+    broadcast to stat's shape and made contiguous, as its wrapper did, in
+    the call."""
+    import torch
+    from stoat_tpu_torch.kernels import I64, VOIDP, launch
+    periodic = declares(versions, "chi2_tail", "df_period")
+    stat = stat.contiguous()
+    if masks is None:
+        masks = (None, None)
+    tensors = reorder(tail_order(cs, "chi2_tail", (stat, df.expand_as(
+        stat)), order), [stat, df.expand_as(stat).contiguous(),
+                         *(m for m in masks if m is not None)])
+    if order != "as-is":
+        stat, df = tensors[:2]
+        masks = tuple(tensors[2:]) if masks[0] is not None else masks
+    n = stat.numel()
+    p = torch.empty(stat.shape, dtype=torch.float64, device=device)
+    ptrs = [None if m is None else m.data_ptr() for m in masks]
+
+    def call():
+        if periodic[STATE["tag"]]:
+            d = df.contiguous()
+            launch("chi2_tail", [VOIDP] * 5 + [I64] * 2,
+                   [stat.data_ptr(), d.data_ptr(), *ptrs, p.data_ptr(), n,
+                    d.numel()], device)
+        else:
+            d = df.expand_as(stat).contiguous()
+            launch("chi2_tail", [VOIDP] * 5 + [I64],
+                   [stat.data_ptr(), d.data_ptr(), *ptrs, p.data_ptr(), n],
+                   device)
+        return [p]
+    return call
+
+
+def binary_chunk_tables(cs, device, snarls, work):
+    """The first ``vcf -b`` chunk's K3 outputs (plain versions on the card:
+    the kernels' bits) and the chunk."""
+    from stoat_tpu_torch.pipeline.binary import binary_tables_plain
+    from stoat_tpu_torch.pipeline.packed import membership_counts_plain
+    (chunk, *_rest), _p = first_chunks(cs, device, snarls, work)
+    g0, g1 = membership_counts_plain(chunk.words, chunk.path_idx,
+                                     chunk.path_valid, chunk.tail,
+                                     chunk.g1_words)
+    return binary_tables_plain(g0, g1, chunk.snarl_path_idx,
+                               *cs.THRESHOLDS), chunk
+
+
+def chi2_tail_inputs(cs, device, snarls, work, versions, order):
+    """chi2_tail on the first ``vcf -b`` chunk's statistics, df and masks
+    ([S], finish_chi2_pvalues' call), and their shape."""
+    t, _ = binary_chunk_tables(cs, device, snarls, work)
+    calls = per_order(lambda o: chi2_tail_call(
+        cs, device, versions, t["chi2_stat"], t["chi2_df"],
+        (t["chi2_invalid"], t["chi2_zexp"]), o), order)
+    return calls, tuple(t["chi2_stat"].shape)
+
+
+def chi2_tail_perm_inputs(cs, device, snarls, work, versions, order):
+    """chi2_tail on the [K, S] statistics and df of perm_binary on the
+    first ``vcf -b`` chunk with the observed case mask and PERM_FULL
+    permuted ones (binary_perm_pvalues' call), and their shape."""
+    from stoat_tpu_torch.convert import to_perm_inputs
+    from stoat_tpu_torch.pipeline import permutation as pm
+    (chunk, _q, qpheno, qcovar, _H, case, _c), _p = first_chunks(
+        cs, device, snarls, work)
+    rows = cs.perm_host_rows(cs.to_np(case) > 0.5, cs.to_np(qpheno),
+                             cs.to_np(qcovar), int(chunk.words.shape[1]),
+                             cs.PERM_FULL)
+    masks = to_perm_inputs(device, masks=rows["masks"]).masks
+    mem, g_all = pm.perm_membership_plain(chunk.words, chunk.path_idx,
+                                          chunk.path_valid, chunk.tail)
+    stat, df, _bad = pm.perm_binary_stats_plain(
+        mem, g_all, masks, chunk.snarl_path_idx, *cs.THRESHOLDS)
+    return per_order(lambda o: chi2_tail_call(cs, device, versions, stat,
+                                              df, None, o), order), \
+        tuple(stat.shape)
+
+
+def chi2_tail_score_inputs(cs, device, snarls, work, versions, order):
+    """chi2_tail on the score test's [K, S] statistics max(T, 0) of the
+    first ``vcf -b -c`` chunk with the observed residual and PERM_FULL
+    permuted ones, on its df [S] (score_perm_pvalues' call), and their
+    shape."""
+    import torch
+    from stoat_tpu_torch.pipeline import permutation as pm
+    from stoat_tpu_torch.pipeline.quantitative import quant_design_plain
+    (chunk, _q, qpheno, qcovar, _H, case, _c), _p = first_chunks(
+        cs, device, snarls, work)
+    no_covar = torch.zeros((qcovar.shape[0], 0), dtype=torch.float64,
+                           device=device)
+    d = quant_design_plain(chunk, no_covar, *cs.THRESHOLDS,
+                           2 * qcovar.shape[0])
+    rows = cs.perm_host_rows(cs.to_np(case) > 0.5, cs.to_np(qpheno),
+                             cs.to_np(qcovar), int(chunk.words.shape[1]),
+                             cs.PERM_FULL)
+    Z, w, e = (cs.upload_t(rows[k], device) for k in ("Z", "w", "e"))
+    D, Vinv, df, _bad = pm.score_precompute_plain(
+        d["X"], d["used"], d["ncols"], d["filtered"] | d["degenerate"], Z, w)
+    T = torch.clamp(pm.score_perm_stats_plain(D, d["used"], Vinv, e),
+                    min=0.0)
+    return per_order(lambda o: chi2_tail_call(cs, device, versions, T,
+                                              df[None, :], None, o),
+                     order), tuple(T.shape)
+
+
+def quant_chunk_stats(cs, device, snarls, work):
+    """The first ``vcf -q -c`` chunk's design (plain quant_design on the
+    card: the kernel's X bit for bit) and its OLS statistics (plain),
+    (t1, df, beta, se, r2), and the chunk."""
+    from stoat_tpu_torch.pipeline.quantitative import quant_design_plain
+    from stoat_tpu_torch.stats.linreg import linear_regression_stats_plain
+    (chunk, qchunk, qpheno, qcovar, H, case, _c), _p = first_chunks(
+        cs, device, snarls, work)
+    d = quant_design_plain(qchunk, qcovar, *cs.THRESHOLDS, H)
+    stats = linear_regression_stats_plain(d["X"], qpheno[None, :] * d["used"],
+                                          d["used"], d["ncols"])
+    return d, [t.contiguous() for t in stats], (chunk, qpheno, qcovar, case)
+
+
+def student_t_call(cs, device, t1, df, rest, order):
+    """A zero-argument launch of student_t on ``t1`` and ``df`` (with the
+    degenerate mask and beta, se, r2 to mask, or None: p alone)."""
+    import torch
+    from stoat_tpu_torch.kernels import I64, VOIDP, launch
+    tensors = reorder(tail_order(cs, "student_t", (t1, df), order),
+                      [t.contiguous() for t in (t1, df, *(rest or ()))])
+    t1, df = tensors[:2]
+    rest = tensors[2:] if rest else None
+    n = t1.numel()
+    outs = [torch.empty(n, dtype=torch.float64, device=device)
+            for _ in range(4 if rest else 1)]
+    ins = [t.data_ptr() for t in rest] if rest else [None] * 4
+    outp = [t.data_ptr() for t in outs] + [None] * (4 - len(outs))
+
+    def call():
+        launch("student_t", [VOIDP] * 10 + [I64],
+               [t1.data_ptr(), df.data_ptr(), *ins, *outp, n], device)
+        return outs
+    return call
+
+
+def student_t_inputs(cs, device, snarls, work, versions, order):
+    """student_t on the first ``vcf -q -c`` chunk's statistics with their
+    NA masking ([S], student_t_pvalues' call), and their shape."""
+    d, st, _ = quant_chunk_stats(cs, device, snarls, work)
+    rest = (d["degenerate"], *st[2:5])
+    return per_order(lambda o: student_t_call(cs, device, st[0], st[1], rest,
+                                              o), order), \
+        tuple(st[0].shape)
+
+
+def student_t_perm_inputs(cs, device, snarls, work, versions, order):
+    """student_t on perm_ols's [K, S] statistics of the first ``vcf -q
+    -c`` chunk with the observed phenotype and PERM_FULL Freedman-Lane
+    permutations (quant_perm_pvalues' linear_pvalues call), and their
+    shape."""
+    from stoat_tpu_torch.pipeline import permutation as pm
+    d, _st, (chunk, qpheno, qcovar, case) = quant_chunk_stats(
+        cs, device, snarls, work)
+    rows = cs.perm_host_rows(cs.to_np(case) > 0.5, cs.to_np(qpheno),
+                             cs.to_np(qcovar), int(chunk.words.shape[1]),
+                             cs.PERM_FULL)
+    t1, df = pm.perm_ols_stats_plain(d["X"], d["used"], d["ncols"],
+                                     cs.upload_t(rows["phenos"], device))
+    return per_order(lambda o: student_t_call(cs, device, t1, df, None, o),
+                     order), tuple(t1.shape)
+
+
+def host_costs(cs, device, snarls, work):
+    """The host's part of a student_t [S] call: ms per call of the
+    wrapper (student_t_pvalues: checks, four allocations, the launch),
+    of the bare launch into outputs allocated once, and of that launch on
+    no element (S = 0: the launch's own cost)."""
+    import torch
+    from stoat_tpu_torch.kernels import I64, VOIDP, launch
+    from stoat_tpu_torch.stats.linreg import student_t_pvalues
+    d, st, _ = quant_chunk_stats(cs, device, snarls, work)
+    args = (st[0], st[1], d["degenerate"], *st[2:5])
+    S = int(st[0].shape[0])
+    outs = [torch.empty(S, dtype=torch.float64, device=device)
+            for _ in range(4)]
+    ptrs = [t.data_ptr() for t in args] + [t.data_ptr() for t in outs]
+
+    def bare(n):
+        return lambda: launch("student_t", [VOIDP] * 10 + [I64],
+                              [*ptrs, n], device)
+    return {"wrapper": cs.cuda_ms(lambda: student_t_pvalues(*args), 50),
+            "bare launch": cs.cuda_ms(bare(S), 50),
+            "launch of S = 0": cs.cuda_ms(bare(0), 50)}
+
+
 CALLS = {"eqtl_ols": eqtl_ols_inputs, "logreg": logreg_inputs,
          "ols": ols_inputs, "perm_binary": perm_binary_inputs,
          "perm_ols": perm_ols_inputs, "quant_design": quant_design_inputs,
          "score_precompute": score_precompute_inputs,
-         "score_perm": score_perm_inputs}
+         "score_perm": score_perm_inputs, "chi2_tail": chi2_tail_inputs,
+         "chi2_tail_perm": chi2_tail_perm_inputs,
+         "chi2_tail_score": chi2_tail_score_inputs,
+         "student_t": student_t_inputs,
+         "student_t_perm": student_t_perm_inputs}
 # the calls that launch each version with the arguments its source declares
-BY_SOURCE = ("ols", "quant_design")
+BY_SOURCE = ("ols", "quant_design", "chi2_tail", "chi2_tail_perm",
+             "chi2_tail_score")
+# the tails' calls, which take ``--order``
+TAILS = ("chi2_tail", "chi2_tail_perm", "chi2_tail_score", "student_t",
+         "student_t_perm")
 # the first output's statistic and p floor in chip_smoke.stat_err
 FIRST = {"logreg": ("p", 1e-5)}
 # the source (and library) of each kernel
-SOURCES = {"score_perm": "score_test", "score_precompute": "score_test"}
+SOURCES = {"score_perm": "score_test", "score_precompute": "score_test",
+           "chi2_tail_perm": "chi2_tail", "chi2_tail_score": "chi2_tail",
+           "student_t_perm": "student_t"}
 # the version whose library is loaded (kernel_ab's use)
 STATE = {"tag": "A"}
 
@@ -378,6 +631,8 @@ def first_err(cs, kernel, outs_a, outs_b):
                            1e-300)
         return float(np.max(np.abs(a[good] - b[good]) / scale)) \
             if good.any() else 0.0
+    if kernel in TAILS:
+        return cs.stat_err("p", a, b)
     stat, floor = FIRST.get(kernel, ("t1", 0.0))
     return cs.stat_err(stat, a, b, p_floor=floor)
 
@@ -412,6 +667,42 @@ def registers(ptxas):
     return "; ".join(out)
 
 
+def time_versions(cs, torch, label, kernel, name, call, shape, tags,
+                  sources, use, ptxas, sass, rounds):
+    """Each version's outputs, ms per call (A B B A, ``rounds`` rounds) and
+    device ms on ``call``, printed under ``label``, and each candidate's
+    outputs against B's."""
+    outs, ms, dev = {}, {tag: [] for tag in tags}, {}
+    for tag in tags:
+        use(tag)
+        outs[tag] = [cs.to_np(t) for t in call()]
+    for _ in range(rounds):
+        for tag in tags + tags[::-1]:
+            use(tag)
+            ms[tag].append(cs.cuda_ms(call, 10))
+    for tag in tags:
+        use(tag)
+        dev[tag] = cs.device_ms(torch, {name: call})[name]
+    use(tags[0])
+    for tag in tags:
+        cs.say(f"{label} {tag} ({sources[tag]}): {registers(ptxas[tag])}; "
+               f"{sass[tag]}; "
+               f"{statistics.median(ms[tag]):.4f} ms per call (median of "
+               f"{len(ms[tag])} timings of 10 calls: "
+               + ", ".join(f"{t:.4f}" for t in ms[tag])
+               + f"); device {dev[tag]} ms per call")
+    for tag in tags[:-1]:
+        same = all(cs.same_bits(a, b) for a, b in zip(outs[tag], outs["B"]))
+        first = first_err(cs, kernel, outs[tag], outs["B"])
+        flips = ""
+        if kernel == "logreg":
+            diff = (outs[tag][3] != outs["B"][3]).nonzero()[0].tolist()
+            flips = f"; snarls whose Newton step counts differ: {diff}"
+        cs.say(f"{label} on {shape}: outputs of {tag} and B bitwise equal: "
+               f"{same}; largest relative difference of the first output: "
+               f"{first:.3g}" + flips)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline", required=True,
@@ -423,6 +714,11 @@ def main():
     ap.add_argument("--kernel", default="ols", choices=sorted(CALLS))
     ap.add_argument("--snarls", type=int, default=16384)
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--order", default="as-is",
+                    help="the tails: their elements as they come (as-is), "
+                         "grouped by branch (branch), or by branch and "
+                         "iterations (work); several, comma-separated, are "
+                         "timed in turn")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -446,7 +742,7 @@ def main():
     tags = list(sources)
     for tag, src_dir in sources.items():
         libs[tag], ptxas[tag], path = build_version(build, name, src_dir, tag)
-        sass[tag] = sass_counts(path, kernel)
+        sass[tag] = sass_counts(path, name)
 
     def use(tag):
         STATE["tag"] = tag
@@ -455,39 +751,24 @@ def main():
 
     work = tempfile.mkdtemp(prefix="ab-", dir=build.BUILD_DIR)
     extra = {"versions": sources} if kernel in BY_SOURCE else {}
+    if kernel in TAILS:
+        extra = {"versions": sources, "order": args.order.split(",")}
+    host = None
     try:
         call, shape = CALLS[kernel](cs, device, args.snarls, work, **extra)
+        if kernel == "student_t":
+            use(tags[0])
+            host = host_costs(cs, device, args.snarls, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    outs, ms, dev = {}, {tag: [] for tag in tags}, {}
-    for tag in tags:
-        use(tag)
-        outs[tag] = [cs.to_np(t) for t in call()]
-    for _ in range(args.rounds):
-        for tag in tags + tags[::-1]:
-            use(tag)
-            ms[tag].append(cs.cuda_ms(call, 10))
-    for tag in tags:
-        use(tag)
-        dev[tag] = cs.device_ms(torch, {kernel: call})[kernel]
-    use(tags[0])
-    for tag in tags:
-        cs.say(f"{kernel} {tag} ({sources[tag]}): {registers(ptxas[tag])}; "
-               f"{sass[tag]}; "
-               f"{statistics.median(ms[tag]):.4f} ms per call (median of "
-               f"{len(ms[tag])} timings of 10 calls: "
-               + ", ".join(f"{t:.4f}" for t in ms[tag])
-               + f"); device {dev[tag]} ms per call")
-    for tag in tags[:-1]:
-        same = all(cs.same_bits(a, b) for a, b in zip(outs[tag], outs["B"]))
-        first = first_err(cs, kernel, outs[tag], outs["B"])
-        flips = ""
-        if kernel == "logreg":
-            diff = (outs[tag][3] != outs["B"][3]).nonzero()[0].tolist()
-            flips = f"; snarls whose Newton step counts differ: {diff}"
-        cs.say(f"{kernel} on {shape}: outputs of {tag} and B bitwise equal: "
-               f"{same}; largest relative difference of the first output: "
-               f"{first:.3g}" + flips)
+    calls = call if isinstance(call, dict) else {None: call}
+    for order, call in calls.items():
+        label = kernel if order is None else f"{kernel} ({order})"
+        time_versions(cs, torch, label, kernel, name, call, shape, tags,
+                      sources, use, ptxas, sass, args.rounds)
+    if host is not None:
+        cs.say(f"{kernel} host costs of {tags[0]} (ms per call): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in host.items()))
     cs.say(cs.nvidia_smi_line())
     return 0
 
