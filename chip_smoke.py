@@ -134,6 +134,8 @@ KERNELS = {
                           "stoat_tpu/pipeline/packed.py:294"),
     "binary_tables": ("stoat_tpu_torch/csrc/binary_tables.cu",
                       "stoat_tpu/pipeline/binary.py:98"),
+    "binary_stats": ("stoat_tpu_torch/csrc/binary_stats.cu",
+                     "stoat_tpu/pipeline/binary.py:98"),
     "fisher": ("stoat_tpu_torch/csrc/fisher.cu",
                "stoat_tpu/stats/fisher.py:165"),
     "quant_design": ("stoat_tpu_torch/csrc/quant_design.cu",
@@ -162,8 +164,9 @@ KERNELS = {
 }
 # the kernel sources (one nvcc each), by their build names
 SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
-BINARY_KERNELS = ("membership_counts", "binary_tables", "fisher",
-                  "chi2_tail")
+# K3 and K4 are one launch on the main paths (binary_stats); the
+# standalone binary_tables and fisher kernels run in phases 3 and 5 only
+BINARY_KERNELS = ("membership_counts", "binary_stats", "chi2_tail")
 QUANT_KERNELS = ("quant_design", "ols", "student_t")
 BC_KERNELS = ("quant_design", "logreg")
 # K6, then its two chi-squared tails (2x2 and 2xN) on chi2_tail
@@ -172,8 +175,8 @@ PERM_KERNELS = ("perm_membership", "perm_binary", "perm_ols",
                 "score_precompute", "score_perm")
 # the dual run: K1 once (perm_membership), then the binary and the
 # quantitative kernels on its words
-DUAL_KERNELS = ("perm_membership", "membership_counts", "binary_tables",
-                "fisher", "chi2_tail", "quant_design", "ols", "student_t")
+DUAL_KERNELS = ("perm_membership", "membership_counts", "binary_stats",
+                "chi2_tail", "quant_design", "ols", "student_t")
 EQTL_KERNELS = ("quant_design", "eqtl_ols", "student_t")
 LMM_KERNELS = ("quant_design", "ols", "student_t")
 # eQTL: one gene every 150 kb, 30 kb long (GTEx v8: ~20k genes over
@@ -852,6 +855,80 @@ def compare_fisher(cols, err, expected=None):
     return got
 
 
+def compare_binary_stats(g0p, g1p, sidx, thresholds, err, what):
+    """binary_stats (K3 and K4 in one launch) vs its plain version on the
+    card and on the CPU: every output bitwise.  Returns the kernel's
+    outputs as numpy arrays."""
+    import numpy as np
+    from stoat_tpu_torch.pipeline.binary import (binary_stats,
+                                                 binary_stats_plain)
+    got = {k: to_np(v) for k, v in
+           binary_stats(g0p, g1p, sidx, *thresholds).items()}
+    for where, plain in (
+            ("card", binary_stats_plain(g0p, g1p, sidx, *thresholds)),
+            ("CPU", binary_stats_plain(g0p.cpu(), g1p.cpu(), sidx.cpu(),
+                                       *thresholds))):
+        check(set(plain) == set(got), f"binary_stats ({what}): keys "
+              f"{sorted(got)} != the plain version's {sorted(plain)}")
+        for key, g in got.items():
+            want = to_np(plain[key])
+            ok = same_bits(g, want) if g.dtype == np.float64 \
+                else np.array_equal(g, want)
+            check(ok, f"binary_stats ({what}): {key} differs from the plain "
+                  f"version on the {where}")
+            if g.dtype != np.bool_:
+                err["binary_stats"] = max(err["binary_stats"],
+                                          max_abs_err(g, want))
+    return got
+
+
+def fisher_grid_cases(rng):
+    """K4's grids: (name, tables [n, 4] as (a, b, c, d), the expected
+    strings or None).  The pinned strings and the overflow tables; 4,096
+    random tables at hi = 60, 400 and 5,000 with zero margins (drawn from
+    ``rng``, in that order), 4,096 of tiny and fractional counts; and 8,192
+    tables drawn like a 2,504-sample
+    cohort's (5,008 haplotypes, half of them cases, carrier frequency
+    uniform on 0.01-0.5, the case carriers hypergeometric), seeds 0 and 1:
+    the scans of ~45-320 steps that the main path runs."""
+    import numpy as np
+    cases = [("pinned", np.array([t for t, _ in FISHER_CASES], float),
+              [s for _, s in FISHER_CASES]),
+             ("overflow", np.array(OVERFLOW_TABLES, float),
+              ["0"] * len(OVERFLOW_TABLES))]
+    for hi in (60, 400, 5000):
+        tables = rng.integers(0, hi, (4096, 4)).astype(float)
+        tables[:64, 0] = 0
+        tables[64:96, :2] = 0
+        cases.append((f"hi {hi}", tables, None))
+    # counts outside [2^-50, 2^60], where the scan divides with '/', and
+    # fractional ones
+    tables = np.random.default_rng(2).choice(
+        [0.0, 1e-300, 1e-20, 0.3, 1.7, 3.0, 7.5, 12.0], (4096, 4))
+    cases.append(("tiny and fractional", tables, None))
+    n, h1 = 2 * N_SAMPLES, N_SAMPLES
+    for seed in (0, 1):
+        draw = np.random.default_rng(seed)
+        k = np.round(draw.uniform(0.01, 0.5, 8192) * n).astype(np.int64)
+        d = draw.hypergeometric(k, n - k, h1)
+        b = k - d
+        tables = np.stack([(n - h1) - b, b, h1 - d, d], 1).astype(float)
+        cases.append((f"cohort seed {seed}", tables, None))
+    return cases
+
+
+def tables_as_snarls(tables, device):
+    """2x2 tables (a, b, c, d) as snarls of two paths for binary_stats:
+    g0 = (a, b), g1 = (c, d) of paths (2 i, 2 i + 1)."""
+    import numpy as np
+    import torch
+    n = len(tables)
+    g0 = np.ascontiguousarray(tables[:, :2]).reshape(-1)
+    g1 = np.ascontiguousarray(tables[:, 2:]).reshape(-1)
+    sidx = np.arange(2 * n, dtype=np.int32).reshape(n, 2)
+    return tuple(torch.from_numpy(v).to(device) for v in (g0, g1, sidx))
+
+
 def membership_case(seed, E, H, P, max_k=5):
     import numpy as np
     from stoat_tpu_torch.pipeline import packed as pk
@@ -900,20 +977,21 @@ def edge_cases(device, err):
         compare_membership(cuda_args_of(
             device, *membership_case(seed, 37, H, 23)), err)
 
-    # K4: pinned strings, overflow tables, a random batch
-    def cols(tables):
-        t = torch.tensor(tables, dtype=torch.float64, device=device)
-        return tuple(t[:, i].contiguous() for i in range(4))
-    compare_fisher(cols([t for t, _ in FISHER_CASES]), err,
-                   expected=[s for _, s in FISHER_CASES])
-    compare_fisher(cols(OVERFLOW_TABLES), err,
-                   expected=["0"] * len(OVERFLOW_TABLES))
+    # K4: pinned strings, overflow tables, random batches, cohort draws;
+    # the same tables as two-path snarls through binary_stats
+    from stoat_tpu_torch.writer import format_p
     rng = np.random.default_rng(1)
-    for hi in (60, 400, 5000):
-        tables = rng.integers(0, hi, (4096, 4)).astype(float)
-        tables[:64, 0] = 0
-        tables[64:96, :2] = 0
-        compare_fisher(cols(tables.tolist()), err)
+    grids = fisher_grid_cases(rng)
+    for name, tables, expected in grids:
+        t = torch.from_numpy(tables).to(device)
+        compare_fisher(tuple(t[:, i].contiguous() for i in range(4)), err,
+                       expected=expected)
+        got = compare_binary_stats(*tables_as_snarls(tables, device),
+                                   THRESHOLDS, err, f"K4 grid {name}")
+        if expected is not None:
+            strings = [format_p(v) for v in got["p_fisher"]]
+            check(strings == expected, f"binary_stats: Fisher strings "
+                  f"{strings} != {expected}")
 
     # K3: 2x2 and 2xN tables with zero margins and zero columns
     P, S, Pmax = 512, 256, 8
@@ -926,13 +1004,16 @@ def edge_cases(device, err):
     sidx[np.arange(Pmax)[None, :] >= n_real[:, None]] = -1
     sidx[:32, 2:] = -1                         # 2x2 tables
     for thr in ((3, 5, 0.05), (2, 2, 0.0), (40, 5, 0.45)):
-        compare_tables(torch.from_numpy(g0).to(device),
-                       torch.from_numpy(g1).to(device),
-                       torch.from_numpy(sidx).to(device), thr, err)
+        args = (torch.from_numpy(g0).to(device),
+                torch.from_numpy(g1).to(device),
+                torch.from_numpy(sidx).to(device))
+        compare_tables(*args, thr, err)
+        compare_binary_stats(*args, thr, err, f"K3 grid {thr}")
 
     return (f"edge cases ok (zero-edge/invalid paths, H=7/31/32/101/5008,"
-            f" {len(FISHER_CASES)} pinned + {len(OVERFLOW_TABLES)} "
-            f"overflow + 12288 random Fisher tables, zero-margin 2x2/2xN)")
+            f" Fisher and binary_stats on "
+            + ", ".join(f"{name} ({len(t)})" for name, t, _ in grids)
+            + ", binary_stats on the zero-margin 2x2/2xN K3 grid)")
 
 
 def chi2_grids(seed=0, n=1_000_000, draw=4_000_000):
@@ -2739,15 +2820,15 @@ PERM_TABLES = {"b": ("binary_permutation_vcf.tsv",),
 # each mode's kernels and their launches per chunk: the main table's, then
 # the permutation pass's
 PERM_LAUNCHES = {
-    "b": {"membership_counts": 1, "binary_tables": 1, "fisher": 1,
-          "chi2_tail": 2, "perm_membership": 1, "perm_binary": 1},
+    "b": {"membership_counts": 1, "binary_stats": 1, "chi2_tail": 2,
+          "perm_membership": 1, "perm_binary": 1},
     "q": {"quant_design": 2, "ols": 1, "student_t": 2, "perm_ols": 1},
     "q_c": {"quant_design": 2, "ols": 1, "student_t": 2, "perm_ols": 1},
     "b_c": {"quant_design": 2, "logreg": 1, "score_precompute": 1,
             "score_perm": 1, "chi2_tail": 1},
     # the dual table (K1 once), then both jobs of one pass
-    "bq": {"perm_membership": 2, "membership_counts": 1, "binary_tables": 1,
-           "fisher": 1, "chi2_tail": 2, "quant_design": 2, "ols": 1,
+    "bq": {"perm_membership": 2, "membership_counts": 1, "binary_stats": 1,
+           "chi2_tail": 2, "quant_design": 2, "ols": 1,
            "student_t": 2, "perm_binary": 1, "perm_ols": 1},
 }
 
@@ -3569,15 +3650,73 @@ def cf_iterations(t1, df):
     return int(cf_iteration_counts(t1, df)[0].sum())
 
 
-def fisher_terms(a, b, c, d):
-    """Terms of Fisher's scan over the hypergeometric support of each 2x2
-    table (fisher_device.cuh): the data-dependent work of K4 and K6."""
+def fisher_steps(a, b, c, d):
+    """Steps of Fisher's scan per 2x2 table (fisher_device.cuh, the plain
+    version's three walks transcribed): one ratio and one multiply into
+    the relative probability each, phases 1 and 2 (the right tail) and 3
+    (the left).  A table with a zero margin takes none.  This is the
+    data-dependent work of K4 and K6 (int64 [N])."""
     import numpy as np
-    a, b, c, d = (np.nan_to_num(np.asarray(v, np.float64)) for v in
-                  (a, b, c, d))
-    r1, c1, n = a + b, a + c, a + b + c + d
-    return float(np.sum(np.maximum(np.minimum(r1, c1)
-                                   - np.maximum(0.0, r1 + c1 - n) + 1.0, 0)))
+    m11, m12, m21, m22 = (np.asarray(v, np.float64).copy() for v in
+                          (a, b, c, d))
+    na = ((m11 + m12) == 0) | ((m21 + m22) == 0) | ((m11 + m21) == 0) \
+        | ((m12 + m22) == 0) | np.isnan(m11 + m12 + m21 + m22)
+    m12, m21 = np.minimum(m12, m21), np.maximum(m12, m21)
+    m11, m22 = np.minimum(m11, m22), np.maximum(m11, m22)
+    swap = (m11 * m22) > (m12 * m21)
+    m11, m12 = np.where(swap, m12, m11), np.where(swap, m11, m12)
+    m21, m22 = np.where(swap, m22, m21), np.where(swap, m21, m22)
+    bias, dbl_max = 1.0339757656912846e-25, np.finfo(np.float64).max
+    tprob0 = (1.0 - 9.094947017729282e-13) * bias
+    steps = np.zeros(m11.shape, np.int64)
+    with np.errstate(all="ignore"):
+        # phases 1 and 2: the right tail
+        c11, c12, c21, c22 = m11.copy(), m12.copy(), m21.copy(), m22.copy()
+        prob = np.full(m11.shape, tprob0)
+        cprob = np.zeros(m11.shape)
+        tprob = np.full(m11.shape, tprob0)
+        phase2 = np.zeros(m11.shape, bool)
+        overflowed = np.zeros(m11.shape, bool)
+        run = ~na & (c12 > 0.5)
+        while run.any():
+            c11 = np.where(run, c11 + 1.0, c11)
+            c22 = np.where(run, c22 + 1.0, c22)
+            pn = prob * ((c12 * c21) / (c11 * c22))
+            c12 = np.where(run, c12 - 1.0, c12)
+            c21 = np.where(run, c21 - 1.0, c21)
+            steps += run
+            one, two = run & ~phase2, run & phase2
+            ovf = ~np.isfinite(pn) | (pn > dbl_max)
+            und = pn < bias
+            nxt = tprob + pn
+            stalled = nxt <= tprob
+            tprob = np.where((one & und) | two, nxt, tprob)
+            cprob = np.where(one & ~(und | ovf), cprob + pn, cprob)
+            prob = np.where(run, pn, prob)
+            overflowed |= one & ovf
+            # phase 2 only after a fall below the bias, and never when
+            # phase 1 ended with cprob == 0 (the p-value is 1)
+            phase2 = phase2 | (one & und & ~ovf & (cprob != 0.0))
+            run = run & ~(one & (ovf | (und & (cprob == 0.0)))) \
+                & ~(two & stalled) & (c12 > 0.5)
+        early = na | overflowed | (cprob == 0.0)
+        # phase 3: the left tail, a do-while
+        c11, c12, c21, c22 = m11.copy(), m12.copy(), m21.copy(), m22.copy()
+        prob = np.full(m11.shape, tprob0)
+        run = ~early & (m11 > 0.0)
+        while run.any():
+            c12 = np.where(run, c12 + 1.0, c12)
+            c21 = np.where(run, c21 + 1.0, c21)
+            pn = prob * ((c11 * c22) / (c12 * c21))
+            c11 = np.where(run, c11 - 1.0, c11)
+            c22 = np.where(run, c22 - 1.0, c22)
+            steps += run
+            nxt = tprob + pn
+            stalled = nxt <= tprob
+            tprob = np.where(run, nxt, tprob)
+            prob = np.where(run, pn, prob)
+            run = run & ~stalled & (c11 > 0.5)
+    return steps
 
 
 def kernel_work(name, x):
@@ -3595,6 +3734,9 @@ def kernel_work(name, x):
         ops = P * K * W + (2 if name == "membership_counts" else 1) * P * W
         return rows * W * i4 + P * K * i4 + P + 2 * W * i4 + out, \
             2 * ops, "int32"
+    # Fisher's scan: 12 float64 operations a step (the counters' four adds,
+    # two products, the ratio, the multiply into prob, the add, the tests)
+    # over the steps these tables take (fisher_steps)
     if name == "binary_tables":
         S, Pmax = x["sidx"].shape
         paths = np.unique(to_np(x["sidx"])).size
@@ -3603,14 +3745,25 @@ def kernel_work(name, x):
             40 * S * Pmax, "float64"
     if name == "fisher":
         S = x["abcd"][0].shape[0]
-        return 5 * S * f8, 12 * fisher_terms(*map(to_np, x["abcd"])), \
-            "float64"
+        return 5 * S * f8, 12 * int(fisher_steps(*map(
+            to_np, x["abcd"])).sum()), "float64"
+    if name == "binary_stats":
+        # K3's inputs, the fused outputs (three float64 and three flag
+        # rows, g0, g1 and keep), and the scan on the k == 2 tables only
+        S, Pmax = x["sidx"].shape
+        paths = np.unique(to_np(x["sidx"])).size
+        two = to_np(x["k"]) == 2
+        abcd = [to_np(v)[two] for v in x["abcd"]]
+        return (2 * paths * f8 + S * Pmax * i4
+                + S * Pmax * (1 + 2 * f8) + S * (3 + 3 * f8)), \
+            40 * S * Pmax + 12 * int(fisher_steps(*abcd).sum()), "float64"
     if name == "graph_stats":
         G0 = to_np(x["G0"])
         B, Pm = G0.shape
         return (B * Pm * (2 * i4 + 1) + B * (4 * f8 + 3)), \
-            12 * fisher_terms(G0[:, 0], G0[:, 1], to_np(x["G1"])[:, 0],
-                              to_np(x["G1"])[:, 1]) + 40 * B * Pm, "float64"
+            12 * int(fisher_steps(G0[:, 0], G0[:, 1], to_np(x["G1"])[:, 0],
+                                  to_np(x["G1"])[:, 1]).sum()) \
+            + 40 * B * Pm, "float64"
     if name == "quant_design":
         # with the table view, norm [S, N, Pmax] and kept [S, Pmax] too
         S, N, PT = x["X_out"].shape
@@ -3914,6 +4067,8 @@ def phase_kernels(torch, device, chunks, err, graph):
                             err)
     abcd = (tables["a"], tables["b"], tables["c"], tables["d"])
     compare_fisher(abcd, err)
+    compare_binary_stats(g0p, g1p, chunk.snarl_path_idx, (3, 5, 0.05), err,
+                         "main chunk")
     shapes = (f"words {tuple(chunk.words.shape)}, path_idx "
               f"{tuple(chunk.path_idx.shape)}, snarl_path_idx "
               f"{tuple(chunk.snarl_path_idx.shape)}")
@@ -3922,8 +4077,10 @@ def phase_kernels(torch, device, chunks, err, graph):
     torch.cuda.synchronize()
     say(f"phase 3 kernels vs plain: main-path shapes ({shapes}) ok; "
         f"{edges}; tolerances: counts/flags/keep exact, Fisher bitwise, "
-        f"chi2 stat rel 1e-12; max abs err "
-        + ", ".join(f"{k}={err[k]:.3g}" for k in BINARY_KERNELS))
+        f"chi2 stat rel 1e-12 (binary_tables), binary_stats bitwise in "
+        f"every output; max abs err "
+        + ", ".join(f"{k}={err[k]:.3g}" for k in (
+            "membership_counts", "binary_tables", "fisher", "binary_stats")))
     say(f"phase 3 chi2_tail vs its plain version (JAX's igammac) on the "
         f"card: {tails}; bounds: relative {CHI2_REL:g} where p > 1e-300 and "
         f"equal strings, zeros, NaNs and DBL_MAX on every grid; against "
@@ -4441,7 +4598,9 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
     from stoat_tpu_torch.pipeline import permutation as pm
     from stoat_tpu_torch.pipeline import quantitative as tq
     from stoat_tpu_torch.stats.lmm import lmm_regression_batch, lmm_rotate
-    from stoat_tpu_torch.pipeline.binary import (binary_tables,
+    from stoat_tpu_torch.pipeline.binary import (binary_stats,
+                                                 binary_stats_plain,
+                                                 binary_tables,
                                                  binary_tables_plain)
     from stoat_tpu_torch.pipeline.packed import (membership_counts,
                                                  membership_counts_plain)
@@ -4486,6 +4645,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "membership_counts": lambda: membership_counts(*args),
         "binary_tables": lambda: binary_tables(g0p, g1p, sidx, *thr),
         "fisher": lambda: fisher_exact_2x2(*abcd),
+        "binary_stats": lambda: binary_stats(g0p, g1p, sidx, *thr),
         "quant_design": lambda: quant_design(*design),
         "ols": lambda: linear_regression_row_stats(*ols),
         "student_t": lambda: student_t_pvalues(*tail),
@@ -4509,6 +4669,10 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "fisher": (
             cuda_ms(calls["fisher"], 20),
             cuda_ms(lambda: fisher_exact_2x2_plain(*abcd), 3, warmup=1)),
+        "binary_stats": (
+            cuda_ms(calls["binary_stats"], 50),
+            cuda_ms(lambda: binary_stats_plain(g0p, g1p, sidx, *thr), 3,
+                    warmup=1)),
         "quant_design": (
             cuda_ms(calls["quant_design"], 10),
             cuda_ms(lambda: quant_design_plain(*design), 3, warmup=1)),
@@ -4606,6 +4770,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
                               "path_valid": chunk.path_valid},
         "binary_tables": {"sidx": sidx},
         "fisher": {"abcd": abcd},
+        "binary_stats": {"sidx": sidx, "abcd": abcd, "k": tables["k"]},
         "quant_design": {"X_out": q["X"], "words": q["chunk"].words,
                          "path_idx": q["chunk"].path_idx,
                          "sidx": q["chunk"].snarl_path_idx,

@@ -1,17 +1,17 @@
 // K4: two-sided Fisher exact test for 2x2 tables, one thread per table.
 //
 // Replaces stoat_tpu/stats/fisher.py fisher_exact_2x2 (:165) and its
-// per-table body _fisher_single (:39-161).  The scan itself is
-// fisher_device.cuh's fisher_single, which graph_stats.cu (K6) shares; with
-// -fmad=false the kernel is bitwise equal to the plain PyTorch version
+// per-table body _fisher_single (:39-161).  The scan is fisher_device.cuh's
+// fisher_scan, which binary_stats.cu (the main path's K3 + K4) runs too;
+// with -fmad=false the kernel is bitwise equal to the plain PyTorch version
 // (stats/fisher.py).
 //
-// What bounds it on the card: double-precision latency and divergence.  A
-// table reads and writes 40 bytes, but its loops run a data-dependent
-// number of steps that grows with the table's counts, each a dependent
-// chain of double multiplies, one double divide and adds.
-// Threads of one warp run as long as the slowest of them.  This PR accepts
-// that divergence; sorting tables by expected loop length is later work.
+// What bounds it on the card: the latency of the scan's dependent steps.
+// A table reads and writes 40 bytes, but its walks run a data-dependent
+// number of steps (about 230-320 at carrier frequencies 0.2-0.5 in a
+// cohort of 5,008 haplotypes), and a warp runs as long as its slowest
+// table.  fisher_scan divides each block of ratios ahead of the chain of
+// multiplies and adds, the divisions of a block in flight together.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC
@@ -24,7 +24,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 64;
 
 __global__ void fisher_kernel(const double* __restrict__ m11,
                               const double* __restrict__ m12,
@@ -33,7 +33,8 @@ __global__ void fisher_kernel(const double* __restrict__ m11,
                               double* __restrict__ out, int64_t n) {
   const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  out[i] = stoat::fisher_single(m11[i], m12[i], m21[i], m22[i]);
+  out[i] = stoat::fisher_scan<stoat::kFisherBlock>(m11[i], m12[i], m21[i],
+                                                   m22[i]);
 }
 
 }  // namespace

@@ -2,7 +2,8 @@
 
 Each kernel has a wrapper beside its plain PyTorch version:
 ``pipeline/packed.py membership_counts`` (csrc/membership_counts.cu),
-``pipeline/binary.py binary_tables`` (csrc/binary_tables.cu),
+``pipeline/binary.py binary_stats`` (csrc/binary_stats.cu: K3 and K4 in
+one launch, the main path's) and ``binary_tables`` (csrc/binary_tables.cu),
 ``stats/fisher.py fisher_exact_2x2`` (csrc/fisher.cu),
 ``stats/special.py chi2_sf`` and ``stats/chi2.py finish_chi2_pvalues``
 (csrc/chi2_tail.cu),
@@ -40,7 +41,7 @@ I64 = ctypes.c_int64
 F64 = ctypes.c_double
 
 LAUNCHES: Dict[str, int] = {"membership_counts": 0, "binary_tables": 0,
-                            "fisher": 0, "quant_design": 0, "ols": 0,
+                            "binary_stats": 0, "fisher": 0, "quant_design": 0, "ols": 0,
                             "student_t": 0, "graph_stats": 0, "logreg": 0,
                             "perm_membership": 0, "perm_binary": 0,
                             "perm_ols": 0, "score_precompute": 0,

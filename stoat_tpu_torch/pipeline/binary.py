@@ -13,6 +13,11 @@ The port of stoat_tpu/pipeline/binary.py:76-220.  Per snarl:
   kept != 2     chi2 2xN (K3), Fisher NA
   p_chi2        chi-squared tail (K5, csrc/chi2_tail.cu)
 
+On the main path K3 and K4 are one launch, csrc/binary_stats.cu
+(:func:`binary_stats`); :func:`binary_tables` (csrc/binary_tables.cu) and
+``stats/fisher.py fisher_exact_2x2`` (csrc/fisher.cu) stay for their
+other callers.
+
 The JAX package's dense float32 membership twin is not ported: dense
 sources are packed on the host, which the JAX tests pin as value-identical.
 """
@@ -31,13 +36,18 @@ from stoat_tpu_torch.pipeline.fetch import HostResult, fetch_async
 from stoat_tpu_torch.pipeline.packed import membership_counts
 from stoat_tpu_torch.stats.chi2 import (chi2_2x2_stat, chi2_2xn_stat,
                                         finish_chi2_pvalues)
-from stoat_tpu_torch.stats.fisher import fisher_exact_2x2
+from stoat_tpu_torch.stats.fisher import fisher_exact_2x2_plain
 
-__all__ = ["binary_tables", "binary_tables_plain", "binary_from_path_counts",
+__all__ = ["binary_tables", "binary_tables_plain", "binary_stats",
+           "binary_stats_plain", "binary_from_path_counts",
            "binary_tables_packed", "binary_analyze_chromosome"]
 
 TABLE_KEYS = ("filtered", "keep", "g0", "g1", "k", "a", "b", "c", "d",
               "chi2_stat", "chi2_df", "chi2_invalid", "chi2_zexp")
+# binary_stats' outputs in their launch order: the float64 rows, then the
+# flag rows
+STATS_F64 = ("p_fisher", "chi2_stat", "chi2_df", "g0", "g1")
+STATS_U8 = ("filtered", "chi2_invalid", "chi2_zexp", "keep")
 
 
 def binary_tables_plain(g0_path: torch.Tensor, g1_path: torch.Tensor,
@@ -153,20 +163,87 @@ def binary_tables(g0_path: torch.Tensor, g1_path: torch.Tensor,
                                maf_threshold)
 
 
+def binary_stats_plain(g0_path: torch.Tensor, g1_path: torch.Tensor,
+                       snarl_path_idx: torch.Tensor, min_individuals,
+                       min_haplotypes, maf_threshold
+                       ) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of :func:`binary_stats`: the table, then
+    Fisher of every (a, b, c, d), masked to NaN where k != 2."""
+    t = binary_tables_plain(g0_path, g1_path, snarl_path_idx,
+                            min_individuals, min_haplotypes, maf_threshold)
+    p_fisher = fisher_exact_2x2_plain(t["a"], t["b"], t["c"], t["d"])
+    out = {"p_fisher": torch.where(t["k"] == 2, p_fisher, float("nan"))}
+    out.update((key, t[key]) for key in STATS_F64[1:] + STATS_U8)
+    return out
+
+
+def _binary_stats_cuda(g0_path, g1_path, snarl_path_idx, min_individuals,
+                       min_haplotypes, maf_threshold):
+    device = g0_path.device
+    P = g0_path.shape[0]
+    S, Pmax = snarl_path_idx.shape
+    check_tensor(g0_path, "g0_path", torch.float64, (P,), device)
+    check_tensor(g1_path, "g1_path", torch.float64, (P,), device)
+    check_tensor(snarl_path_idx, "snarl_path_idx", torch.int32, (S, Pmax),
+                 device)
+    # one allocation: the float64 rows [p_fisher, chi2_stat, chi2_df | g0 |
+    # g1], then the flag rows [filtered, chi2_invalid, chi2_zexp | keep],
+    # each a contiguous view
+    n64, n8 = S * (3 + 2 * Pmax), S * (3 + Pmax)
+    buf = torch.empty(8 * n64 + n8, dtype=torch.uint8, device=device)
+    f64 = buf[:8 * n64].view(torch.float64)
+    u8 = buf[8 * n64:].view(torch.bool)
+    out = {"p_fisher": f64[:S], "chi2_stat": f64[S:2 * S],
+           "chi2_df": f64[2 * S:3 * S],
+           "g0": f64[3 * S:3 * S + S * Pmax].view(S, Pmax),
+           "g1": f64[3 * S + S * Pmax:].view(S, Pmax),
+           "filtered": u8[:S], "chi2_invalid": u8[S:2 * S],
+           "chi2_zexp": u8[2 * S:3 * S], "keep": u8[3 * S:].view(S, Pmax)}
+    launch("binary_stats",
+           [VOIDP] * 3 + [I64] * 2 + [F64] * 3
+           + [VOIDP] * (len(STATS_F64) + len(STATS_U8)),
+           [g0_path.data_ptr(), g1_path.data_ptr(),
+            snarl_path_idx.data_ptr(), S, Pmax, float(min_individuals),
+            float(min_haplotypes), float(maf_threshold),
+            *(out[key].data_ptr() for key in STATS_F64 + STATS_U8)],
+           device)
+    return out
+
+
+def binary_stats(g0_path: torch.Tensor, g1_path: torch.Tensor,
+                 snarl_path_idx: torch.Tensor, min_individuals,
+                 min_haplotypes, maf_threshold) -> Dict[str, torch.Tensor]:
+    """K3 and K4 in one launch: ``filtered`` [S], ``keep``/``g0``/``g1``
+    [S, Pmax], the chi-squared statistic with its df and
+    ``chi2_invalid``/``chi2_zexp`` flags (:func:`binary_tables`' keys of
+    those names), and ``p_fisher`` [S], Fisher's p of the table when k ==
+    2, else NaN.  This is stoat_tpu's ``_binary_from_path_counts`` up to
+    the chi-squared tail.
+
+    CUDA tensors run csrc/binary_stats.cu, one launch and one output
+    allocation; CPU tensors the plain version.  The kernel is bound by
+    the latency of Fisher's scan, one thread a snarl."""
+    if kernels_enabled(g0_path.device):
+        return _binary_stats_cuda(g0_path, g1_path, snarl_path_idx,
+                                  min_individuals, min_haplotypes,
+                                  maf_threshold)
+    return binary_stats_plain(g0_path, g1_path, snarl_path_idx,
+                              min_individuals, min_haplotypes, maf_threshold)
+
+
 def binary_from_path_counts(g0_path, g1_path, snarl_path_idx,
                             min_individuals, min_haplotypes, maf_threshold
                             ) -> Dict[str, torch.Tensor]:
-    """stoat_tpu/pipeline/binary.py _binary_from_path_counts: K3, then
-    Fisher (K4) on the 2x2 tables and the chi2 tail (K5)."""
-    t = binary_tables(g0_path, g1_path, snarl_path_idx, min_individuals,
-                      min_haplotypes, maf_threshold)
-    p_fisher = fisher_exact_2x2(t["a"], t["b"], t["c"], t["d"])
+    """stoat_tpu/pipeline/binary.py _binary_from_path_counts: K3 + K4
+    (:func:`binary_stats`), then the chi2 tail (K5)."""
+    t = binary_stats(g0_path, g1_path, snarl_path_idx, min_individuals,
+                     min_haplotypes, maf_threshold)
     return {
         "filtered": t["filtered"],
         "keep": t["keep"],
         "g0": t["g0"],
         "g1": t["g1"],
-        "p_fisher": torch.where(t["k"] == 2, p_fisher, float("nan")),
+        "p_fisher": t["p_fisher"],
         "p_chi2": finish_chi2_pvalues(t["chi2_stat"], t["chi2_df"],
                                       t["chi2_invalid"], t["chi2_zexp"]),
     }

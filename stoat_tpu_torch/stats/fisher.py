@@ -6,8 +6,10 @@ p-values the reference pins bit for bit.  The plain version below is a
 masked batched loop, one lane per table, that performs on every lane the
 same float64 operations in the same order as ``_fisher_single``; a lane
 leaves a loop exactly when the scalar code would.  CUDA tensors run
-csrc/fisher.cu, one thread per table, built with -fmad=false so that it
-is bitwise equal to the plain version.
+csrc/fisher.cu, one thread per table on csrc/fisher_device.cuh's
+fisher_scan (the ratios divided a block ahead of the chain of multiplies
+and adds), built with -fmad=false so that it is bitwise equal to the
+plain version.
 
 Output conventions: NaN = "NA" (a zero row or column margin), 0.0 on
 overflow of the scan, 1.0 when no table was as likely as the observed one.
@@ -139,7 +141,9 @@ def fisher_exact_2x2(m11: torch.Tensor, m12: torch.Tensor,
 
     CUDA tensors run csrc/fisher.cu; CPU tensors the plain version.  The
     kernel is bound by dependent float64 arithmetic in loops of
-    data-dependent length: one thread per table, divergence accepted."""
+    data-dependent length: one thread per table, its divisions taken off
+    the chain.  The main path runs the same scan inside
+    ``pipeline/binary.py binary_stats``."""
     if kernels_enabled(m11.device):
         return _fisher_cuda(m11, m12, m21, m22)
     return fisher_exact_2x2_plain(m11, m12, m21, m22)

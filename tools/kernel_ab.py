@@ -5,9 +5,10 @@ on one card, in one process.
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/kernel_ab.py --baseline DIR [--candidate DIR ...]
-                               [--kernel chi2_tail|chi2_tail_perm|
-                                         chi2_tail_score|eqtl_ols|logreg|
-                                         ols|perm_binary|perm_ols|
+                               [--kernel binary_stats|binary_tables|
+                                         chi2_tail|chi2_tail_perm|
+                                         chi2_tail_score|eqtl_ols|fisher|
+                                         logreg|ols|perm_binary|perm_ols|
                                          quant_design|score_precompute|
                                          score_perm|student_t|
                                          student_t_perm]
@@ -16,7 +17,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
 Each DIR holds one version's kernel sources (its ``<source>.cu`` and the
 ``.cuh`` headers that it includes; score_precompute and score_perm are
-in ``score_test.cu``),
+in ``score_test.cu``; binary_stats is ``binary_stats.cu`` where the
+version has it, else the pair it replaced, ``binary_tables.cu`` and
+``fisher.cu``),
 for example the ``csrc/`` of an earlier commit unpacked with ``git
 archive``; the candidate defaults to the checkout's
 ``stoat_tpu_torch/csrc``.  Both versions are built with the
@@ -27,7 +30,16 @@ IMMA (integer) and BMMA (binary), in the whole library and in the timed
 kernel's own functions.  Both then run
 through the port's own wrapper on the same inputs, the first chunk of
 ``vcf -q -c -C AGE,SEX`` on chip_smoke.py's cohort (2,504 samples;
-``--snarls`` over 2 chromosomes, 8,192 per chunk; perm_ols with the
+``--snarls`` over 2 chromosomes, 8,192 per chunk; binary_tables,
+fisher and binary_stats on the first ``vcf -b`` chunk's path counts
+(membership_counts' plain version on the card), as chip_smoke.py phase 5
+feeds them: binary_tables and fisher through their wrappers, fisher on
+the chunk's (a, b, c, d) with the steps of its scan per table printed
+(chip_smoke.fisher_steps), binary_stats as ``binary_from_path_counts``
+calls it, with the chi-squared tail: for a version with
+``binary_stats.cu`` its one launch, for an earlier one binary_tables,
+fisher and the torch.where that masked Fisher (its device ms is every
+kernel in the window); perm_ols with the
 observed phenotype and the main path's 1,000 Freedman-Lane permutations
 (chip_smoke.PERM_FULL); score_perm on the first ``vcf -b -c`` chunk's D
 and V^-1 with the observed residual and 1,000 permuted ones;
@@ -124,6 +136,88 @@ def declares(versions, source, word):
         with open(os.path.join(src, f"{source}.cu")) as fh:
             out[tag] = word in fh.read()
     return out
+
+
+def binary_chunk(cs, device, snarls, work):
+    """The first ``vcf -b`` chunk's path counts (membership_counts' plain
+    version on the card: the kernel's bits) and snarl_path_idx."""
+    from stoat_tpu_torch.pipeline.packed import membership_counts_plain
+    (chunk, *_), _p = first_chunks(cs, device, snarls, work)
+    g0p, g1p = membership_counts_plain(chunk.words, chunk.path_idx,
+                                       chunk.path_valid, chunk.tail,
+                                       chunk.g1_words)
+    return g0p, g1p, chunk.snarl_path_idx
+
+
+def binary_tables_inputs(cs, device, snarls, work):
+    """binary_tables (K3) through its wrapper on the first ``vcf -b``
+    chunk, and (S, Pmax)."""
+    from stoat_tpu_torch.pipeline.binary import TABLE_KEYS, binary_tables
+    g0p, g1p, sidx = binary_chunk(cs, device, snarls, work)
+
+    def call():
+        t = binary_tables(g0p, g1p, sidx, *cs.THRESHOLDS)
+        return [t[k] for k in ("chi2_stat",) + TABLE_KEYS]
+    return call, tuple(sidx.shape)
+
+
+def fisher_inputs(cs, device, snarls, work):
+    """fisher_exact_2x2 (K4) through its wrapper on the first ``vcf -b``
+    chunk's (a, b, c, d), and S; prints the steps of the scan per table
+    (chip_smoke.fisher_steps), over all S and over the k == 2 tables,
+    which the main path scans."""
+    from stoat_tpu_torch.pipeline.binary import binary_tables_plain
+    from stoat_tpu_torch.stats.fisher import fisher_exact_2x2
+    g0p, g1p, sidx = binary_chunk(cs, device, snarls, work)
+    t = binary_tables_plain(g0p, g1p, sidx, *cs.THRESHOLDS)
+    abcd = tuple(t[k].contiguous() for k in "abcd")
+    steps = cs.fisher_steps(*map(cs.to_np, abcd))
+    two = cs.to_np(t["k"]) == 2
+    cs.say(f"fisher steps per table on the first vcf -b chunk: all "
+           f"{steps.size} tables mean {steps.mean():.2f} max {steps.max()}; "
+           f"the {int(two.sum())} k == 2 tables mean "
+           f"{steps[two].mean():.2f} max {steps[two].max()}")
+    return (lambda: [fisher_exact_2x2(*abcd)]), (len(abcd[0]),)
+
+
+def binary_stats_inputs(cs, device, snarls, work, versions):
+    """``binary_from_path_counts`` on the first ``vcf -b`` chunk as each
+    version's main path ran it: the one binary_stats launch where the
+    version has binary_stats.cu, else binary_tables, fisher and a
+    torch.where; then the chi-squared tail (the checkout's K5).  Returns
+    the call and (S, Pmax)."""
+    import torch
+    from stoat_tpu_torch.pipeline.binary import (binary_from_path_counts,
+                                                 binary_tables)
+    from stoat_tpu_torch.stats.chi2 import finish_chi2_pvalues
+    from stoat_tpu_torch.stats.fisher import fisher_exact_2x2
+    g0p, g1p, sidx = binary_chunk(cs, device, snarls, work)
+    fused = {tag: os.path.exists(os.path.join(src, "binary_stats.cu"))
+             for tag, src in versions.items()}
+    keys = ("p_fisher", "p_chi2", "filtered", "keep", "g0", "g1")
+
+    def call():
+        if fused[STATE["tag"]]:
+            out = binary_from_path_counts(g0p, g1p, sidx, *cs.THRESHOLDS)
+        else:
+            t = binary_tables(g0p, g1p, sidx, *cs.THRESHOLDS)
+            p = fisher_exact_2x2(t["a"], t["b"], t["c"], t["d"])
+            out = dict(t, p_fisher=torch.where(t["k"] == 2, p, float("nan")),
+                       p_chi2=finish_chi2_pvalues(
+                           t["chi2_stat"], t["chi2_df"], t["chi2_invalid"],
+                           t["chi2_zexp"]))
+        return [out[k] for k in keys]
+    return call, tuple(sidx.shape)
+
+
+def version_sources(kernel, src_dir):
+    """The sources that ``kernel``'s call builds from the version in
+    ``src_dir``: binary_stats from the pair it replaced where the version
+    has no binary_stats.cu."""
+    if kernel == "binary_stats" and not os.path.exists(
+            os.path.join(src_dir, "binary_stats.cu")):
+        return ("binary_tables", "fisher")
+    return (SOURCES.get(kernel, kernel),)
 
 
 def ols_inputs(cs, device, snarls, work, versions):
@@ -546,7 +640,9 @@ def host_costs(cs, device, snarls, work):
             "launch of S = 0": cs.cuda_ms(bare(0), 50)}
 
 
-CALLS = {"eqtl_ols": eqtl_ols_inputs, "logreg": logreg_inputs,
+CALLS = {"binary_stats": binary_stats_inputs,
+         "binary_tables": binary_tables_inputs, "fisher": fisher_inputs,
+         "eqtl_ols": eqtl_ols_inputs, "logreg": logreg_inputs,
          "ols": ols_inputs, "perm_binary": perm_binary_inputs,
          "perm_ols": perm_ols_inputs, "quant_design": quant_design_inputs,
          "score_precompute": score_precompute_inputs,
@@ -557,7 +653,9 @@ CALLS = {"eqtl_ols": eqtl_ols_inputs, "logreg": logreg_inputs,
          "student_t_perm": student_t_perm_inputs}
 # the calls that launch each version with the arguments its source declares
 BY_SOURCE = ("ols", "quant_design", "chi2_tail", "chi2_tail_perm",
-             "chi2_tail_score")
+             "chi2_tail_score", "binary_stats")
+# the calls whose device ms is every kernel in their profiler window
+DEVICE_TOTAL = ("binary_stats",)
 # the tails' calls, which take ``--order``
 TAILS = ("chi2_tail", "chi2_tail_perm", "chi2_tail_score", "student_t",
          "student_t_perm")
@@ -682,7 +780,10 @@ def time_versions(cs, torch, label, kernel, name, call, shape, tags,
             ms[tag].append(cs.cuda_ms(call, 10))
     for tag in tags:
         use(tag)
-        dev[tag] = cs.device_ms(torch, {name: call})[name]
+        if kernel in DEVICE_TOTAL:
+            dev[tag] = cs.device_total_ms(torch, call)
+        else:
+            dev[tag] = cs.device_ms(torch, {name: call})[name]
     use(tags[0])
     for tag in tags:
         cs.say(f"{label} {tag} ({sources[tag]}): {registers(ptxas[tag])}; "
@@ -741,13 +842,18 @@ def main():
     sources["B"] = args.baseline
     tags = list(sources)
     for tag, src_dir in sources.items():
-        libs[tag], ptxas[tag], path = build_version(build, name, src_dir, tag)
-        sass[tag] = sass_counts(path, name)
+        libs[tag], reports, sasses = {}, [], []
+        for src in version_sources(kernel, src_dir):
+            libs[tag][src], report, path = build_version(build, src, src_dir,
+                                                         tag)
+            reports.append(report)
+            sasses.append(sass_counts(path, src))
+        ptxas[tag], sass[tag] = "\n".join(reports), "; ".join(sasses)
 
     def use(tag):
         STATE["tag"] = tag
         with build._LOCK:
-            build._LIBS[name] = libs[tag]
+            build._LIBS.update(libs[tag])
 
     work = tempfile.mkdtemp(prefix="ab-", dir=build.BUILD_DIR)
     extra = {"versions": sources} if kernel in BY_SOURCE else {}
