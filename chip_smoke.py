@@ -6,7 +6,7 @@ g++:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels (fifteen entry points in thirteen
+It builds the port's CUDA kernels (seventeen entry points in fourteen
 sources, one nvcc per source, all at once) and the native VCF and graph
 cores from the sources in the checkout, then runs five phases, each
 printing lines and each fatal on failure:
@@ -16,7 +16,9 @@ printing lines and each fatal on failure:
   2. native cores: built into build/stoat_tpu_torch/native under their
      host-keyed names and loaded;
   3. kernels against their plain PyTorch versions, on the card, at the
-     main paths' shapes (the first chunk of ``vcf -b``, of ``vcf -q -c``
+     main paths' shapes (the first chunk of ``vcf -b`` (binary_from_words
+     also on the dual's rows and with invalid paths, and on its grid),
+     of ``vcf -q -c``
      and of ``vcf -b -c``, the main graph's partition counts, and the
      permutation kernels on the first chunk with 16 permutations and
      again with the main path's 1,001 rows, perm_ols at both the ``-q``
@@ -58,10 +60,11 @@ printing lines and each fatal on failure:
      included; then the decomposition alone (``vcf -p -d``).  While the
      CUDA CLI runs the binary, graph and permutation paths,
      the plain chi-squared tail must not be called: every chi-squared
-     tail runs on chi2_tail;
+     tail runs on the card (chi2_tail, or graph_stats' own tails);
   5. each kernel's time and its plain version's, on the card, at the main
      paths' shapes (CUDA events, after a warm-up, and profiler device
-     time), its bound (bytes over the card's memory rate or operations
+     time; binary_from_words beside the two launches it replaced), its
+     bound (bytes over the card's memory rate or operations
      over its peak rate, whichever is larger), the wall of each
      permutation pass, and the mixed model's rotation (one float64 GEMM)
      beside its bound; chi2_tail and student_t at both of their launch
@@ -136,6 +139,8 @@ KERNELS = {
                       "stoat_tpu/pipeline/binary.py:98"),
     "binary_stats": ("stoat_tpu_torch/csrc/binary_stats.cu",
                      "stoat_tpu/pipeline/binary.py:98"),
+    "binary_from_words": ("stoat_tpu_torch/csrc/binary_stats.cu",
+                          "stoat_tpu/pipeline/binary.py:77"),
     "fisher": ("stoat_tpu_torch/csrc/fisher.cu",
                "stoat_tpu/stats/fisher.py:165"),
     "quant_design": ("stoat_tpu_torch/csrc/quant_design.cu",
@@ -164,19 +169,20 @@ KERNELS = {
 }
 # the kernel sources (one nvcc each), by their build names
 SOURCES = sorted({os.path.basename(src)[:-3] for src, _ in KERNELS.values()})
-# K3 and K4 are one launch on the main paths (binary_stats); the
-# standalone binary_tables and fisher kernels run in phases 3 and 5 only
-BINARY_KERNELS = ("membership_counts", "binary_stats", "chi2_tail")
+# K1+K2, K3 and K4 are one launch on the main paths (binary_from_words);
+# the standalone membership_counts, binary_stats (on given counts),
+# binary_tables and fisher kernels run in phases 3 and 5 only
+BINARY_KERNELS = ("binary_from_words", "chi2_tail")
 QUANT_KERNELS = ("quant_design", "ols", "student_t")
 BC_KERNELS = ("quant_design", "logreg")
-# K6, then its two chi-squared tails (2x2 and 2xN) on chi2_tail
-GRAPH_KERNELS = ("graph_stats", "chi2_tail")
+# K6 with its two chi-squared tails (2x2 and 2xN) in one launch
+GRAPH_KERNELS = ("graph_stats",)
 PERM_KERNELS = ("perm_membership", "perm_binary", "perm_ols",
                 "score_precompute", "score_perm")
 # the dual run: K1 once (perm_membership), then the binary and the
 # quantitative kernels on its words
-DUAL_KERNELS = ("perm_membership", "membership_counts", "binary_stats",
-                "chi2_tail", "quant_design", "ols", "student_t")
+DUAL_KERNELS = ("perm_membership", "binary_from_words", "chi2_tail",
+                "quant_design", "ols", "student_t")
 EQTL_KERNELS = ("quant_design", "eqtl_ols", "student_t")
 LMM_KERNELS = ("quant_design", "ols", "student_t")
 # eQTL: one gene every 150 kb, 30 kb long (GTEx v8: ~20k genes over
@@ -320,8 +326,8 @@ def to_np(t):
 class PlainTailCounter:
     """Counts the calls of the plain chi-squared tail (stats/special.py
     igammac_plain, JAX's igammac, which chi2_sf_plain runs) while entered:
-    on the CUDA CLI every chi-squared tail runs on chi2_tail, so the count
-    stays 0."""
+    on the CUDA CLI every chi-squared tail runs on the card (chi2_tail, or
+    inside graph_stats), so the count stays 0."""
 
     def __enter__(self):
         from stoat_tpu_torch.stats import special
@@ -882,6 +888,99 @@ def compare_binary_stats(g0p, g1p, sidx, thresholds, err, what):
     return got
 
 
+def compare_binary_from_words(args, sidx, thresholds, err, what):
+    """binary_from_words (K1+K2, K3 and K4 in one launch) vs its plain
+    version (membership_counts_plain, then binary_stats_plain) on the card
+    and on the CPU: every output bitwise.  ``args`` are membership_counts'
+    five; returns the kernel's outputs as numpy arrays."""
+    import numpy as np
+    from stoat_tpu_torch.pipeline.binary import (
+        binary_stats_from_words, binary_stats_from_words_plain)
+    got = {k: to_np(v) for k, v in
+           binary_stats_from_words(*args, sidx, *thresholds).items()}
+    for where, plain in (
+            ("card", binary_stats_from_words_plain(*args, sidx,
+                                                   *thresholds)),
+            ("CPU", binary_stats_from_words_plain(
+                *(t.cpu() for t in args), sidx.cpu(), *thresholds))):
+        check(set(plain) == set(got), f"binary_from_words ({what}): keys "
+              f"{sorted(got)} != the plain version's {sorted(plain)}")
+        for key, g in got.items():
+            want = to_np(plain[key])
+            ok = same_bits(g, want) if g.dtype == np.float64 \
+                else np.array_equal(g, want)
+            check(ok, f"binary_from_words ({what}): {key} differs from the "
+                  f"plain version on the {where}")
+            if g.dtype != np.bool_:
+                err["binary_from_words"] = max(err["binary_from_words"],
+                                               max_abs_err(g, want))
+    return got
+
+
+def from_words_variants(chunk, seed=12):
+    """The first chunk's inputs to binary_from_words as the main paths
+    give them, and two variants: (name, membership_counts' five args,
+    snarl_path_idx).  "main chunk" as it is; "dual rows", the dual's
+    (perm_membership's words of the chunk's paths, one row a path, K =
+    1); "invalid and zero-edge paths", an eighth of the paths made
+    invalid and another eighth valid with every row the identity (no
+    edge)."""
+    import numpy as np
+    import torch
+    from stoat_tpu_torch.pipeline.permutation import perm_membership
+    args = (chunk.words, chunk.path_idx, chunk.path_valid, chunk.tail,
+            chunk.g1_words)
+    out = [("main chunk", args, chunk.snarl_path_idx)]
+    mem, _ = perm_membership(*args[:4])
+    P = int(chunk.path_idx.shape[0])
+    rows = torch.arange(P, dtype=torch.int32, device=mem.device)[:, None]
+    out.append(("dual rows", (mem, rows, *args[2:]), chunk.snarl_path_idx))
+    rng = np.random.default_rng(seed)
+    valid = chunk.path_valid.clone()
+    idx = chunk.path_idx.clone()
+    dead = torch.from_numpy(rng.choice(P, P // 8, replace=False))
+    zero = torch.from_numpy(rng.choice(P, P // 8, replace=False))
+    valid[dead.to(valid.device)] = False
+    idx[zero.to(idx.device)] = int(chunk.words.shape[0]) - 1
+    valid[zero.to(valid.device)] = True
+    out.append(("invalid and zero-edge paths",
+                (chunk.words, idx, valid, *args[3:]), chunk.snarl_path_idx))
+    return out
+
+
+def from_words_grid_cases(seed=21):
+    """binary_from_words' grid: numpy (words uint32 [E+1, W], path_idx,
+    path_valid, tail, g1_words, snarl_path_idx) of membership_case's paths
+    grouped into snarls, at H = 7, 31, 32, 101 and 5,008 (W = 1 and a
+    part-filled last word), at H = 9,000 (W = 282: two batches of a
+    lane's words), and two shapes past the kernel's shared memory: K = 70
+    edge rows a path (row indices read from global memory; dense rows, so
+    that the ANDs of 70 rows keep carriers) and Pmax = 700 paths a snarl
+    (fewer snarls a block)."""
+    import numpy as np
+    cases = []
+    for i, (H, P, Pmax, max_k, density) in enumerate(
+            ((7, 40, 3, 5, 0.6), (31, 60, 4, 5, 0.6), (32, 50, 2, 5, 0.6),
+             (101, 90, 5, 5, 0.6), (5008, 120, 4, 5, 0.6),
+             (9000, 60, 4, 5, 0.6), (101, 200, 4, 70, 0.995),
+             (64, 1500, 700, 3, 0.6))):
+        words, idx, valid, tail, g1w = membership_case(
+            seed + i, 37, H, P, max_k=max_k, density=density)
+        rng = np.random.default_rng(seed + 100 + i)
+        # snarls of 1..Pmax paths in order, some paths in two snarls
+        sidx, p = [], 0
+        while p < P:
+            n = int(rng.integers(1, Pmax + 1))
+            row = list(range(p, min(p + n, P)))
+            sidx.append(row + [-1] * (Pmax - len(row)))
+            p += n
+        sidx = np.array(sidx + [[-1] * Pmax], np.int32)
+        sidx[0, 0] = P - 1
+        cases.append((f"H {H}, P {P}, Pmax {Pmax}, K {idx.shape[1]}",
+                      (words, idx, valid, tail, g1w, sidx)))
+    return cases
+
+
 def fisher_grid_cases(rng):
     """K4's grids: (name, tables [n, 4] as (a, b, c, d), the expected
     strings or None).  The pinned strings and the overflow tables; 4,096
@@ -929,11 +1028,11 @@ def tables_as_snarls(tables, device):
     return tuple(torch.from_numpy(v).to(device) for v in (g0, g1, sidx))
 
 
-def membership_case(seed, E, H, P, max_k=5):
+def membership_case(seed, E, H, P, max_k=5, density=0.6):
     import numpy as np
     from stoat_tpu_torch.pipeline import packed as pk
     rng = np.random.default_rng(seed)
-    matrix = rng.random((E, H)) < 0.6
+    matrix = rng.random((E, H)) < density
     valid = rng.random(P) < 0.85
     coo_path, coo_row = [], []
     for p in range(P):
@@ -976,6 +1075,12 @@ def edge_cases(device, err):
     for seed, H in ((0, 101), (1, 32), (2, 7), (3, 5008), (4, 31)):
         compare_membership(cuda_args_of(
             device, *membership_case(seed, 37, H, 23)), err)
+    # K1+K2, K3 and K4 in one launch on its grid
+    grid = from_words_grid_cases()
+    for name, (*margs, sidx) in grid:
+        compare_binary_from_words(
+            cuda_args_of(device, *margs), torch.from_numpy(sidx).to(device),
+            THRESHOLDS, err, f"grid {name}")
 
     # K4: pinned strings, overflow tables, random batches, cohort draws;
     # the same tables as two-path snarls through binary_stats
@@ -1011,7 +1116,9 @@ def edge_cases(device, err):
         compare_binary_stats(*args, thr, err, f"K3 grid {thr}")
 
     return (f"edge cases ok (zero-edge/invalid paths, H=7/31/32/101/5008,"
-            f" Fisher and binary_stats on "
+            f" binary_from_words on "
+            + ", ".join(name for name, _ in grid)
+            + f", Fisher and binary_stats on "
             + ", ".join(f"{name} ({len(t)})" for name, t, _ in grids)
             + ", binary_stats on the zero-margin 2x2/2xN K3 grid)")
 
@@ -1792,11 +1899,12 @@ def quant_edge_cases(device, err):
 # ---------------------------------------------------------------- graph, logit
 
 def compare_graph_stats(G0, G1, mask, err, expected_fisher=None):
-    """K6 kernel vs plain: bitwise on the card (the plain version's tails
-    on the card run the same chi2_tail on bitwise statistics); against the
-    CPU's plain version Fisher bitwise and the chi-squared p-values
-    (chi2_tail on the card, the plain version on the CPU) to a
-    relative 1e-12 with equal strings."""
+    """K6 kernel vs plain: bitwise on the card, where the plain version is
+    the parent's chain (its statistics on the card, run through the
+    chi2_tail kernel, whose pieces K6 runs inside its launch: the same
+    p-values bit for bit); against the CPU's plain version Fisher bitwise
+    and the chi-squared p-values (chi2_tail's pieces on the card, the
+    plain tail on the CPU) to a relative 1e-12 with equal strings."""
     from stoat_tpu_torch.writer import format_p
     from stoat_tpu_torch.graph.association import (graph_stats,
                                                    graph_stats_plain)
@@ -1842,7 +1950,8 @@ def graph_edge_cases(device, err):
     compare_graph_stats(*rows(OVERFLOW_TABLES), err,
                         expected_fisher=["0"] * len(OVERFLOW_TABLES))
     rng = np.random.default_rng(8)
-    for Pm in (2, 3, 8):
+    # Pm = 40: rows too wide to stage, read where they lie
+    for Pm in (2, 3, 8, 40):
         B = 4096
         k = rng.integers(2, Pm + 1, B)
         mask = np.arange(Pm)[None, :] < k[:, None]
@@ -1854,7 +1963,7 @@ def graph_edge_cases(device, err):
         compare_graph_stats(*(torch.from_numpy(a).to(device)
                               for a in (G0, G1, mask)), err)
     return (f"{len(FISHER_CASES)} pinned + {len(OVERFLOW_TABLES)} overflow "
-            f"Fisher rows, 3 x 4096 random rows with k = 2..2/3/8, zero "
+            f"Fisher rows, 4 x 4096 random rows with k = 2..2/3/8/40, zero "
             f"margins and zero columns")
 
 
@@ -2820,14 +2929,14 @@ PERM_TABLES = {"b": ("binary_permutation_vcf.tsv",),
 # each mode's kernels and their launches per chunk: the main table's, then
 # the permutation pass's
 PERM_LAUNCHES = {
-    "b": {"membership_counts": 1, "binary_stats": 1, "chi2_tail": 2,
-          "perm_membership": 1, "perm_binary": 1},
+    "b": {"binary_from_words": 1, "chi2_tail": 2, "perm_membership": 1,
+          "perm_binary": 1},
     "q": {"quant_design": 2, "ols": 1, "student_t": 2, "perm_ols": 1},
     "q_c": {"quant_design": 2, "ols": 1, "student_t": 2, "perm_ols": 1},
     "b_c": {"quant_design": 2, "logreg": 1, "score_precompute": 1,
             "score_perm": 1, "chi2_tail": 1},
     # the dual table (K1 once), then both jobs of one pass
-    "bq": {"perm_membership": 2, "membership_counts": 1, "binary_stats": 1,
+    "bq": {"perm_membership": 2, "binary_from_words": 1,
            "chi2_tail": 2, "quant_design": 2, "ols": 1,
            "student_t": 2, "perm_binary": 1, "perm_ols": 1},
 }
@@ -3228,7 +3337,7 @@ def phase_dual(torch, paths, work, n_chroms, reference):
     say(f"phase 4 main path: vcf -b -q on {paths['n_samples']} samples x "
         f"{paths['n_snarls']} snarls: cuda wall {walls['cuda']:.2f}s, cpu "
         f"wall {walls['cpu']:.2f}s; launches {launches} ({n_chunks} chunks: "
-        f"K1 once per chunk, its words read by membership_counts and "
+        f"K1 once per chunk, its words read by binary_from_words and "
         f"quant_design); both tables byte-identical to the single vcf -b and "
         f"vcf -q runs on the card; binary table byte-identical to the CPU's, "
         f"quantitative {n_rows} rows, {len(diffs)} statistic strings differ "
@@ -3757,13 +3866,42 @@ def kernel_work(name, x):
         return (2 * paths * f8 + S * Pmax * i4
                 + S * Pmax * (1 + 2 * f8) + S * (3 + 3 * f8)), \
             40 * S * Pmax + 12 * int(fisher_steps(*abcd).sum()), "float64"
+    if name == "binary_from_words":
+        # K1+K2's distinct rows of the valid paths (each input read once),
+        # the rows, flags, masks and snarl_path_idx, binary_stats'
+        # outputs; K1+K2's ANDs and popcounts counted with the table's and
+        # the scan's operations at the float64 peak, the card's fastest of
+        # their rates (the bytes bound the call either way)
+        w, idx, valid = x["words"], to_np(x["path_idx"]), \
+            to_np(x["path_valid"])
+        W = w.shape[1]
+        P, K = idx.shape
+        rows = np.unique(idx[valid]).size
+        S, Pmax = x["sidx"].shape
+        two = to_np(x["k"]) == 2
+        abcd = [to_np(v)[two] for v in x["abcd"]]
+        return (rows * W * i4 + P * K * i4 + P + 2 * W * i4
+                + S * Pmax * i4 + S * Pmax * (1 + 2 * f8)
+                + S * (3 + 3 * f8)), \
+            2 * (int(valid.sum()) * K * W + 2 * int(valid.sum()) * W) \
+            + 40 * S * Pmax + 12 * int(fisher_steps(*abcd).sum()), "float64"
     if name == "graph_stats":
-        G0 = to_np(x["G0"])
+        # the counts and mask read, p22, pf and pn written; the scan on
+        # every row, the statistics and both tails' igammac on the
+        # elements their masks leave
+        from stoat_tpu_torch.stats.chi2 import chi2_2x2_stat, chi2_2xn_stat
+        G0, G1 = to_np(x["G0"]), to_np(x["G1"])
         B, Pm = G0.shape
-        return (B * Pm * (2 * i4 + 1) + B * (4 * f8 + 3)), \
-            12 * int(fisher_steps(G0[:, 0], G0[:, 1], to_np(x["G1"])[:, 0],
-                                  to_np(x["G1"])[:, 1]).sum()) \
-            + 40 * B * Pm, "float64"
+        cols = [x["G0"][:, 0], x["G0"][:, 1], x["G1"][:, 0], x["G1"][:, 1]]
+        stat, inv, zexp = (to_np(v) for v in chi2_2x2_stat(*cols))
+        statn, dfn, invn = (to_np(v) for v in chi2_2xn_stat(
+            x["G0"], x["G1"], x["mask"]))
+        live, live_n = ~(inv | zexp), ~invn
+        return (B * Pm * (2 * i4 + 1) + 3 * B * f8), \
+            12 * int(fisher_steps(G0[:, 0], G0[:, 1], G1[:, 0],
+                                  G1[:, 1]).sum()) + 40 * B * Pm \
+            + igammac_operations(stat[live], np.ones(int(live.sum()))) \
+            + igammac_operations(statn[live_n], dfn[live_n]), "float64"
     if name == "quant_design":
         # with the table view, norm [S, N, Pmax] and kept [S, Pmax] too
         S, N, PT = x["X_out"].shape
@@ -4069,6 +4207,9 @@ def phase_kernels(torch, device, chunks, err, graph):
     compare_fisher(abcd, err)
     compare_binary_stats(g0p, g1p, chunk.snarl_path_idx, (3, 5, 0.05), err,
                          "main chunk")
+    variants = from_words_variants(chunk)
+    for what, fargs, fsidx in variants:
+        compare_binary_from_words(fargs, fsidx, (3, 5, 0.05), err, what)
     shapes = (f"words {tuple(chunk.words.shape)}, path_idx "
               f"{tuple(chunk.path_idx.shape)}, snarl_path_idx "
               f"{tuple(chunk.snarl_path_idx.shape)}")
@@ -4076,11 +4217,14 @@ def phase_kernels(torch, device, chunks, err, graph):
     tails = compare_chi2_tail(torch, device, tables, err)
     torch.cuda.synchronize()
     say(f"phase 3 kernels vs plain: main-path shapes ({shapes}) ok; "
-        f"{edges}; tolerances: counts/flags/keep exact, Fisher bitwise, "
-        f"chi2 stat rel 1e-12 (binary_tables), binary_stats bitwise in "
-        f"every output; max abs err "
+        f"binary_from_words on "
+        + ", ".join(what for what, _, _ in variants)
+        + f"; {edges}; tolerances: counts/flags/keep exact, Fisher bitwise, "
+        f"chi2 stat rel 1e-12 (binary_tables), binary_stats and "
+        f"binary_from_words bitwise in every output; max abs err "
         + ", ".join(f"{k}={err[k]:.3g}" for k in (
-            "membership_counts", "binary_tables", "fisher", "binary_stats")))
+            "membership_counts", "binary_tables", "fisher", "binary_stats",
+            "binary_from_words")))
     say(f"phase 3 chi2_tail vs its plain version (JAX's igammac) on the "
         f"card: {tails}; bounds: relative {CHI2_REL:g} where p > 1e-300 and "
         f"equal strings, zeros, NaNs and DBL_MAX on every grid; against "
@@ -4139,8 +4283,9 @@ def phase_kernels(torch, device, chunks, err, graph):
     say(f"phase 3 graph kernel vs plain: main graph ({G0.shape[0]} tested "
         f"snarls of {graph['n_snarls']}, Pmax {G0.shape[1]}, k = "
         f"{sorted(set(k.tolist()))}) ok; {gedges}; tolerances: bitwise "
-        f"against the plain version on the card, Fisher bitwise and chi2 "
-        f"rel 1e-12 with equal strings against the CPU's; max abs err "
+        f"against the plain version on the card (its statistics through "
+        f"the chi2_tail kernel: the parent's chain), Fisher bitwise and "
+        f"chi2 rel 1e-12 with equal strings against the CPU's; max abs err "
         f"graph_stats={err['graph_stats']:.3g}")
 
     # K11 on the first chunk of `vcf -b -c` (its design has no covariates)
@@ -4493,11 +4638,9 @@ def phase_graph(torch, graph, twin, work):
                                    "cuda")
     peak = torch.cuda.max_memory_allocated()
     for name, n in launches.items():
-        check((n > 0) == (name in GRAPH_KERNELS), f"kernel {name}: {n} "
-              f"launches on the graph path")
-    check(launches["chi2_tail"] == 2 * launches["graph_stats"],
-          f"graph: chi2_tail launched {launches['chi2_tail']} times for "
-          f"{launches['graph_stats']} graph_stats launches")
+        check(n == (1 if name in GRAPH_KERNELS else 0), f"kernel {name}: "
+              f"{n} launches on the graph path, expected "
+              f"{1 if name in GRAPH_KERNELS else 0}")
     wall_cpu, _, tsv_cpu = run(graph, os.path.join(work, "g_cpu"), "cpu")
     check(tsv == tsv_cpu, "graph: CUDA and CPU TSVs differ")
     lines = tsv.decode().splitlines()
@@ -4530,14 +4673,15 @@ def phase_graph(torch, graph, twin, work):
     check(native == python, "graph: the Python twin's TSV differs from the "
           "native path's")
     check(twin_launches["graph_stats"] == 1
-          and twin_launches["chi2_tail"] == 2, f"graph twin: launches "
+          and twin_launches["chi2_tail"] == 0, f"graph twin: launches "
           f"{twin_launches}")
     say(f"phase 4 main path: graph -T chi2 on {graph['n_snarls']} snarls x "
         f"{2 * graph['n_samples']} haplotype paths: cuda wall "
         f"{wall_cuda:.2f}s, cpu wall {wall_cpu:.2f}s, {len(lines) - 1} rows "
         f"byte-identical ({depth2} nested at depth 2; partitions per row "
-        f"{dict(sorted(kinds.items()))}); launches {launches} (the two "
-        f"tails on chi2_tail, the plain chi-squared tail called 0 times), "
+        f"{dict(sorted(kinds.items()))}); launches {launches} (graph_stats "
+        f"once, its two tails inside it: chi2_tail never, the plain "
+        f"chi-squared tail called 0 times), "
         f"native path; "
         f"{n_ref} sampled rows' P_FISHER/P_CHI2 equal scipy's strings "
         f"({ref_s:.1f}s), {len(flips)} at a rounding boundary"
@@ -4598,10 +4742,9 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
     from stoat_tpu_torch.pipeline import permutation as pm
     from stoat_tpu_torch.pipeline import quantitative as tq
     from stoat_tpu_torch.stats.lmm import lmm_regression_batch, lmm_rotate
-    from stoat_tpu_torch.pipeline.binary import (binary_stats,
-                                                 binary_stats_plain,
-                                                 binary_tables,
-                                                 binary_tables_plain)
+    from stoat_tpu_torch.pipeline.binary import (
+        binary_stats, binary_stats_from_words, binary_stats_from_words_plain,
+        binary_stats_plain, binary_tables, binary_tables_plain)
     from stoat_tpu_torch.pipeline.packed import (membership_counts,
                                                  membership_counts_plain)
     from stoat_tpu_torch.pipeline.quantitative import (quant_design,
@@ -4646,6 +4789,8 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "binary_tables": lambda: binary_tables(g0p, g1p, sidx, *thr),
         "fisher": lambda: fisher_exact_2x2(*abcd),
         "binary_stats": lambda: binary_stats(g0p, g1p, sidx, *thr),
+        "binary_from_words": lambda: binary_stats_from_words(*args, sidx,
+                                                             *thr),
         "quant_design": lambda: quant_design(*design),
         "ols": lambda: linear_regression_row_stats(*ols),
         "student_t": lambda: student_t_pvalues(*tail),
@@ -4673,6 +4818,10 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
             cuda_ms(calls["binary_stats"], 50),
             cuda_ms(lambda: binary_stats_plain(g0p, g1p, sidx, *thr), 3,
                     warmup=1)),
+        "binary_from_words": (
+            cuda_ms(calls["binary_from_words"], 50),
+            cuda_ms(lambda: binary_stats_from_words_plain(*args, sidx, *thr),
+                    3, warmup=1)),
         "quant_design": (
             cuda_ms(calls["quant_design"], 10),
             cuda_ms(lambda: quant_design_plain(*design), 3, warmup=1)),
@@ -4750,10 +4899,15 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
     library["score_precompute"] = cuda_ms(lambda: torch.bmm(dzw, dz), 10)
     del dz, dzw
     dev = device_ms(torch, calls)
-    # graph_stats launches chi2_tail for its two tails: chi2_tail's own
-    # device time comes from a window of its own
-    dev["chi2_tail"] = device_ms(torch, {"chi2_tail": calls["chi2_tail"]}
-                                 )["chi2_tail"]
+    # the call binary_from_words replaced on the main path: the two
+    # launches on their own, membership_counts, then binary_stats on its
+    # counts (device ms: both kernels)
+    chain = "binary_from_words (parent: membership_counts, binary_stats)"
+
+    def parent_chain():
+        return binary_stats(*membership_counts(*args), sidx, *thr)
+    times[chain] = (cuda_ms(parent_chain, 50), times["binary_from_words"][1])
+    dev[chain] = device_total_ms(torch, parent_chain)
     # perm_ols at the `-q` design (PT = 5) too; the row above is `-q -c`'s
     pols5 = (m["bX"], m["bused"], m["bncols"], m["phenos_q"])
     q5 = "perm_ols (PT = 5)"
@@ -4771,6 +4925,10 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "binary_tables": {"sidx": sidx},
         "fisher": {"abcd": abcd},
         "binary_stats": {"sidx": sidx, "abcd": abcd, "k": tables["k"]},
+        "binary_from_words": {"words": chunk.words,
+                              "path_idx": chunk.path_idx,
+                              "path_valid": chunk.path_valid, "sidx": sidx,
+                              "abcd": abcd, "k": tables["k"]},
         "quant_design": {"X_out": q["X"], "words": q["chunk"].words,
                          "path_idx": q["chunk"].path_idx,
                          "sidx": q["chunk"].snarl_path_idx,
@@ -4778,7 +4936,8 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "ols": {"X": q["X"]},
         "ols (y [S, N])": {"X": q["X"], "y_rows": q["X"].shape[0]},
         "student_t": {"t1": q["stats"][0], "df": q["stats"][1]},
-        "graph_stats": {"G0": counts[0], "G1": counts[1]},
+        "graph_stats": {"G0": counts[0], "G1": counts[1],
+                        "mask": counts[2]},
         "logreg": {"X": logit["X"], "iters": logit["iters"]},
         "perm_membership": {"words": chunk.words,
                             "path_idx": chunk.path_idx,
@@ -4792,6 +4951,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         "chi2_tail": {"stat": k5[0], "df": k5[1]},
     }
     bounds = {name: bound_of(name, work[name]) for name in calls}
+    bounds[chain] = bounds["binary_from_words"]
     # the parent design of K15: a population count per (mask, real path,
     # word), at 16 an SM a clock
     popc_ms = 1e3 * int(m["masks"].shape[0]) * int(
@@ -4831,6 +4991,59 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         times[label] = (cuda_ms(fn, 5), cuda_ms(plain, 1, warmup=0))
         dev[label] = device_ms(torch, {name: fn})[name]
         bounds[label] = bound_of(name, shape_work)
+
+    # K12, the dual's chunk (`vcf -b -q`, no covariate) as the main path
+    # runs it: K1 once, the binary table on its words (one row a path),
+    # K5, the design on the same words, OLS and the t tail; its plain
+    # column is the plain versions' chain, its device ms every kernel of
+    # the call, its bound the sum of its kernels' at these shapes
+    from stoat_tpu_torch.convert import DeviceChunk
+    from stoat_tpu_torch.stats.chi2 import finish_chi2_pvalues_plain
+    no_covar = torch.zeros((q["covar"].shape[0], 0), dtype=torch.float64,
+                           device=q["covar"].device)
+    k12 = ("K12 dual chunk (perm_membership, binary_from_words, chi2_tail, "
+           "quant_design, ols, student_t)")
+
+    def dual():
+        return tq.dual_chunk_tables(chunk, q["row"], no_covar, *THRESHOLDS,
+                                    q["H"])
+
+    def dual_plain():
+        mem, _ = pm.perm_membership_plain(*member)
+        rows = torch.arange(mem.shape[0], dtype=torch.int32,
+                            device=mem.device)[:, None]
+        t = binary_stats_from_words_plain(mem, rows, *args[2:], sidx,
+                                          *THRESHOLDS)
+        finish_chi2_pvalues_plain(t["chi2_stat"], t["chi2_df"],
+                                  t["chi2_invalid"], t["chi2_zexp"])
+        d = quant_design_plain(DeviceChunk(mem, rows, args[2], sidx),
+                               no_covar, *THRESHOLDS, q["H"])
+        st = linear_regression_stats_plain(d["X"], q["row"][None, :]
+                                           * d["used"], d["used"], d["ncols"])
+        return student_t_pvalues_plain(*st[:2], d["degenerate"], *st[2:])
+    times[k12] = (cuda_ms(dual, 10), cuda_ms(dual_plain, 2, warmup=1))
+    dev[k12] = device_total_ms(torch, dual)
+    mem, _ = pm.perm_membership(*member)
+    rows = torch.arange(mem.shape[0], dtype=torch.int32,
+                        device=mem.device)[:, None]
+    d_dual = quant_design(DeviceChunk(mem, rows, args[2], sidx), no_covar,
+                          *THRESHOLDS, q["H"])
+    st_dual = linear_regression_row_stats(d_dual["X"], q["row"],
+                                          d_dual["used"], d_dual["ncols"])
+    parts = [
+        ("perm_membership", work["perm_membership"]),
+        ("binary_from_words", dict(work["binary_from_words"], words=mem,
+                                   path_idx=rows)),
+        ("chi2_tail", work["chi2_tail"]),
+        ("quant_design", {"X_out": d_dual["X"], "words": mem,
+                          "path_idx": rows, "sidx": sidx,
+                          "covar": no_covar}),
+        ("ols", {"X": d_dual["X"]}),
+        ("student_t", {"t1": st_dual[0], "df": st_dual[1]})]
+    part_bounds = [bound_of(name, w) for name, w in parts]
+    bounds[k12] = (sum(b for b, _ in part_bounds),
+                   "+".join(sorted({by for _, by in part_bounds})))
+    del mem, rows, d_dual, st_dual
 
     # Q1's table view (-T) on the same chunk
     qt = "quant_design (tables)"
@@ -4923,7 +5136,11 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         f"{md['n_pairs']} pairs of {md['n_with']} snarls; the mixed model's "
         f"rows on the all-rows design (the GEMM's plain column is "
         f"torch.einsum, the chain's the plain versions after it; device ms "
-        f"of both is every kernel in their profiler window)")
+        f"of both is every kernel in their profiler window); "
+        f"binary_from_words and the two launches it replaced on the first "
+        f"vcf -b chunk (the parent chain's device ms is both kernels'); "
+        f"graph_stats with both tails inside its launch on the main "
+        f"graph's counts")
     return times, dev, bounds, library
 
 

@@ -13,7 +13,9 @@ device, or as their plain PyTorch versions on the CPU:
 - ``pipeline/packed.py``: K1+K2, gather-AND membership + popcount counts
   (csrc/membership_counts.cu);
 - ``pipeline/binary.py``: K3, per-snarl table, filter and chi-squared
-  statistic (csrc/binary_tables.cu);
+  statistic (csrc/binary_tables.cu), K3 and K4 in one launch
+  (csrc/binary_stats.cu), and K1+K2, K3 and K4 in one launch, the main
+  path's (csrc/binary_stats.cu's binary_from_words);
 - ``stats/fisher.py``: K4, the Fisher exact scan (csrc/fisher.cu);
 - ``stats/special.py``: K5, the chi-squared tail (csrc/chi2_tail.cu);
 - ``pipeline/quantitative.py``: K1+K7+K8, per-snarl OLS designs straight
@@ -21,8 +23,8 @@ device, or as their plain PyTorch versions on the CPU:
 - ``stats/linreg.py``: K9, masked OLS with the LDL^T rank probe and the
   Jacobi pseudo-inverse (csrc/ols.cu), and K10, the Student-t tail and
   the NA masking (csrc/student_t.cu);
-- ``graph/association.py``: K6, graph mode's statistics
-  (csrc/graph_stats.cu);
+- ``graph/association.py``: K6, graph mode's statistics and their
+  chi-squared tails (csrc/graph_stats.cu);
 - ``stats/logreg.py``: K11, IRLS logistic regression (csrc/logreg.cu);
 - ``pipeline/permutation.py``: K15 and K16, the permutation test's
   membership, tables and statistics (csrc/perm_binary.cu), OLS t over the

@@ -20,11 +20,15 @@
 // reads it back for the counts; this kernel keeps it in registers, so the
 // only bytes written are the 16 bytes of counts per path.
 //
-// Design: one warp per path, kWarpsPerBlock paths per block.  The lanes
-// stride over W, so the 32 lanes of a warp read 128 contiguous bytes of
-// each gathered row (one coalesced transaction per row and step).  Each
-// lane keeps its partial popcounts in registers; one shuffle reduction per
-// warp finishes the path.  Invalid paths skip the gather entirely.
+// Design: one warp per path, kWarpsPerBlock paths per block, on
+// membership_counts_device.cuh's count_paths (binary_stats.cu's
+// binary_from_words runs the same function inside the table launch, which
+// is the main path's since it came; this launch is kept to time and check
+// the count alone).  The lanes stride over W, so the 32 lanes of a warp
+// read 128 contiguous bytes of each gathered row; each lane issues its
+// words of two rows before the first AND.  Invalid paths gather nothing.
+// (Staging tail and g1_words in shared memory a block, as the fused
+// kernel does, made this kernel no faster on the card: PERF.md section 6.)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -shared -Xcompiler -fPIC
@@ -32,6 +36,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "membership_counts_device.cuh"
 
 namespace {
 
@@ -50,26 +56,13 @@ __global__ void membership_counts_kernel(
   const int64_t p =
       int64_t(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (p >= P) return;  // uniform across the warp: p depends on the warp only
-  unsigned int n_all = 0;
-  unsigned int n_case = 0;
-  if (valid[p]) {
-    const int32_t* rows = idx + p * K;
-    for (int64_t w = lane; w < W; w += 32) {
-      uint32_t m = tail[w];
-      for (int64_t k = 0; k < K; ++k) {
-        m &= words[int64_t(rows[k]) * W + w];
-      }
-      n_all += __popc(m);
-      n_case += __popc(m & g1_words[w]);
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    n_all += __shfl_down_sync(0xffffffffu, n_all, off);
-    n_case += __shfl_down_sync(0xffffffffu, n_case, off);
-  }
+  const int32_t* rows[1] = {valid[p] ? idx + p * K : nullptr};
+  unsigned n_all[1], n_case[1];
+  stoat::count_paths<1>(words, rows, K, W, tail, g1_words, lane, n_all,
+                        n_case);
   if (lane == 0) {
-    g0_out[p] = double(n_all - n_case);
-    g1_out[p] = double(n_case);
+    g0_out[p] = double(n_all[0] - n_case[0]);
+    g1_out[p] = double(n_case[0]);
   }
 }
 

@@ -9,11 +9,11 @@ the device is K6, ``_graph_stats_fused`` (:496-513):
 chi-squared 2x2, Fisher and chi-squared 2xN on every tested snarl's
 partition counts, one row per snarl, then the rows' splice and write.
 
-CUDA tensors run csrc/graph_stats.cu and then the chi-squared tails on
-csrc/chi2_tail.cu (K5, as on the ``vcf -b`` path); CPU tensors run the
-plain version.  All three statistics are computed for every row, as in JAX;
-the writer picks the 2x2 pair when a snarl has two partitions and the 2xN
-p otherwise.
+CUDA tensors run csrc/graph_stats.cu, which computes the chi-squared
+tails too (chi2_tail_device.cuh, K5's pieces) in its one launch; CPU
+tensors run the plain version.  All three statistics are computed for
+every row, as in JAX; the writer picks the 2x2 pair when a snarl has two
+partitions and the 2xN p otherwise.
 
 :data:`GRAPH_PATHS` counts the runs of each host path: ``native`` (the
 one-call native prepare) and ``python`` (``test_snarls``, the Python twin
@@ -78,22 +78,12 @@ def _graph_stats_cuda(G0, G1, mask) -> Pvalues:
     check_tensor(G0, "G0", torch.int32, (B, Pm), device)
     check_tensor(G1, "G1", torch.int32, (B, Pm), device)
     check_tensor(mask, "mask", torch.bool, (B, Pm), device)
-
-    def empty(dtype):
-        return torch.empty(B, dtype=dtype, device=device)
-    stat, invalid, zexp = (empty(torch.float64), empty(torch.bool),
-                           empty(torch.bool))
-    pf = empty(torch.float64)
-    statn, dfn, invalidn = (empty(torch.float64), empty(torch.float64),
-                            empty(torch.bool))
-    launch("graph_stats", [VOIDP] * 10 + [I64] * 2,
+    # one allocation: the rows p22, pf, pn
+    out = torch.empty((3, B), dtype=torch.float64, device=device)
+    launch("graph_stats", [VOIDP] * 6 + [I64] * 2,
            [G0.data_ptr(), G1.data_ptr(), mask.data_ptr(),
-            *(t.data_ptr() for t in (stat, invalid, zexp, pf, statn, dfn,
-                                     invalidn)), B, Pm], device)
-    p22 = finish_chi2_pvalues(stat, torch.ones_like(stat), invalid, zexp)
-    pn = finish_chi2_pvalues(statn, dfn, invalidn,
-                             torch.zeros_like(invalidn))
-    return p22, pf, pn
+            *(out[i].data_ptr() for i in range(3)), B, Pm], device)
+    return out[0], out[1], out[2]
 
 
 def graph_stats(G0: torch.Tensor, G1: torch.Tensor,
@@ -102,9 +92,10 @@ def graph_stats(G0: torch.Tensor, G1: torch.Tensor,
     of int32 [B, Pmax] control (G0) and case (G1) partition counts with a
     bool column mask; the 2x2 tests take the first two columns.
 
-    CUDA tensors run csrc/graph_stats.cu, one thread per row, then the
-    two chi-squared tails on csrc/chi2_tail.cu; both are launch-bound at
-    any real B.  CPU tensors run the plain version."""
+    CUDA tensors run csrc/graph_stats.cu: the statistics, Fisher and
+    both chi-squared tails in one launch and one output allocation, bound
+    by the launch and the scans' dependent steps at any real B.  CPU
+    tensors run the plain version."""
     if kernels_enabled(G0.device):
         return _graph_stats_cuda(G0, G1, mask)
     return graph_stats_plain(G0, G1, mask)

@@ -2,8 +2,10 @@
 
 Each kernel has a wrapper beside its plain PyTorch version:
 ``pipeline/packed.py membership_counts`` (csrc/membership_counts.cu),
-``pipeline/binary.py binary_stats`` (csrc/binary_stats.cu: K3 and K4 in
-one launch, the main path's) and ``binary_tables`` (csrc/binary_tables.cu),
+``pipeline/binary.py binary_stats_from_words`` (csrc/binary_stats.cu's
+binary_from_words: K1+K2, K3 and K4 in one launch, the main path's),
+``binary_stats`` (csrc/binary_stats.cu: K3 and K4 on given counts) and
+``binary_tables`` (csrc/binary_tables.cu),
 ``stats/fisher.py fisher_exact_2x2`` (csrc/fisher.cu),
 ``stats/special.py chi2_sf`` and ``stats/chi2.py finish_chi2_pvalues``
 (csrc/chi2_tail.cu),
@@ -15,8 +17,9 @@ sources on csrc/ols_block_device.cuh; ``linear_regression_stats``, with
 the JAX package's signature, takes CPU tensors only),
 ``stats/linreg.py student_t_pvalues`` and ``linear_pvalues``
 (csrc/student_t.cu), ``graph/association.py graph_stats``
-(csrc/graph_stats.cu), ``stats/logreg.py logistic_regression``
-(csrc/logreg.cu), and the permutation test's
+(csrc/graph_stats.cu, with both chi-squared tails),
+``stats/logreg.py logistic_regression`` (csrc/logreg.cu), and the
+permutation test's
 ``pipeline/permutation.py perm_membership`` and ``perm_binary_stats``
 (csrc/perm_binary.cu), ``perm_ols_stats`` (csrc/perm_ols.cu),
 ``score_precompute`` and ``score_perm_stats`` (csrc/score_test.cu).  A
@@ -41,7 +44,8 @@ I64 = ctypes.c_int64
 F64 = ctypes.c_double
 
 LAUNCHES: Dict[str, int] = {"membership_counts": 0, "binary_tables": 0,
-                            "binary_stats": 0, "fisher": 0, "quant_design": 0, "ols": 0,
+                            "binary_stats": 0, "binary_from_words": 0,
+                            "fisher": 0, "quant_design": 0, "ols": 0,
                             "student_t": 0, "graph_stats": 0, "logreg": 0,
                             "perm_membership": 0, "perm_binary": 0,
                             "perm_ols": 0, "score_precompute": 0,

@@ -13,9 +13,12 @@ The port of stoat_tpu/pipeline/binary.py:76-220.  Per snarl:
   kept != 2     chi2 2xN (K3), Fisher NA
   p_chi2        chi-squared tail (K5, csrc/chi2_tail.cu)
 
-On the main path K3 and K4 are one launch, csrc/binary_stats.cu
-(:func:`binary_stats`); :func:`binary_tables` (csrc/binary_tables.cu) and
-``stats/fisher.py fisher_exact_2x2`` (csrc/fisher.cu) stay for their
+On the main path K1+K2, K3 and K4 are one launch, csrc/binary_stats.cu's
+binary_from_words (:func:`binary_stats_from_words`): the counts never
+leave the card's shared memory.  :func:`binary_stats` (K3 and K4 on given
+counts, the same file), ``pipeline/packed.py membership_counts``
+(csrc/membership_counts.cu), :func:`binary_tables` (csrc/binary_tables.cu)
+and ``stats/fisher.py fisher_exact_2x2`` (csrc/fisher.cu) stay for their
 other callers.
 
 The JAX package's dense float32 membership twin is not ported: dense
@@ -33,14 +36,16 @@ from stoat_tpu_torch.convert import DeviceChunk, to_device_chunk
 from stoat_tpu_torch.device import kernels_enabled
 from stoat_tpu_torch.kernels import F64, I64, VOIDP, check_tensor, launch
 from stoat_tpu_torch.pipeline.fetch import HostResult, fetch_async
-from stoat_tpu_torch.pipeline.packed import membership_counts
+from stoat_tpu_torch.pipeline.packed import membership_counts_plain
 from stoat_tpu_torch.stats.chi2 import (chi2_2x2_stat, chi2_2xn_stat,
                                         finish_chi2_pvalues)
 from stoat_tpu_torch.stats.fisher import fisher_exact_2x2_plain
 
 __all__ = ["binary_tables", "binary_tables_plain", "binary_stats",
-           "binary_stats_plain", "binary_from_path_counts",
-           "binary_tables_packed", "binary_analyze_chromosome"]
+           "binary_stats_plain", "binary_stats_from_words",
+           "binary_stats_from_words_plain", "with_chi2_tail",
+           "binary_from_path_counts", "binary_tables_packed",
+           "binary_analyze_chromosome"]
 
 TABLE_KEYS = ("filtered", "keep", "g0", "g1", "k", "a", "b", "c", "d",
               "chi2_stat", "chi2_df", "chi2_invalid", "chi2_zexp")
@@ -177,6 +182,22 @@ def binary_stats_plain(g0_path: torch.Tensor, g1_path: torch.Tensor,
     return out
 
 
+def _stats_outputs(S: int, Pmax: int, device) -> Dict[str, torch.Tensor]:
+    """binary_stats' outputs in one allocation: the float64 rows
+    [p_fisher, chi2_stat, chi2_df | g0 | g1], then the flag rows
+    [filtered, chi2_invalid, chi2_zexp | keep], each a contiguous view."""
+    n64, n8 = S * (3 + 2 * Pmax), S * (3 + Pmax)
+    buf = torch.empty(8 * n64 + n8, dtype=torch.uint8, device=device)
+    f64 = buf[:8 * n64].view(torch.float64)
+    u8 = buf[8 * n64:].view(torch.bool)
+    return {"p_fisher": f64[:S], "chi2_stat": f64[S:2 * S],
+            "chi2_df": f64[2 * S:3 * S],
+            "g0": f64[3 * S:3 * S + S * Pmax].view(S, Pmax),
+            "g1": f64[3 * S + S * Pmax:].view(S, Pmax),
+            "filtered": u8[:S], "chi2_invalid": u8[S:2 * S],
+            "chi2_zexp": u8[2 * S:3 * S], "keep": u8[3 * S:].view(S, Pmax)}
+
+
 def _binary_stats_cuda(g0_path, g1_path, snarl_path_idx, min_individuals,
                        min_haplotypes, maf_threshold):
     device = g0_path.device
@@ -186,19 +207,7 @@ def _binary_stats_cuda(g0_path, g1_path, snarl_path_idx, min_individuals,
     check_tensor(g1_path, "g1_path", torch.float64, (P,), device)
     check_tensor(snarl_path_idx, "snarl_path_idx", torch.int32, (S, Pmax),
                  device)
-    # one allocation: the float64 rows [p_fisher, chi2_stat, chi2_df | g0 |
-    # g1], then the flag rows [filtered, chi2_invalid, chi2_zexp | keep],
-    # each a contiguous view
-    n64, n8 = S * (3 + 2 * Pmax), S * (3 + Pmax)
-    buf = torch.empty(8 * n64 + n8, dtype=torch.uint8, device=device)
-    f64 = buf[:8 * n64].view(torch.float64)
-    u8 = buf[8 * n64:].view(torch.bool)
-    out = {"p_fisher": f64[:S], "chi2_stat": f64[S:2 * S],
-           "chi2_df": f64[2 * S:3 * S],
-           "g0": f64[3 * S:3 * S + S * Pmax].view(S, Pmax),
-           "g1": f64[3 * S + S * Pmax:].view(S, Pmax),
-           "filtered": u8[:S], "chi2_invalid": u8[S:2 * S],
-           "chi2_zexp": u8[2 * S:3 * S], "keep": u8[3 * S:].view(S, Pmax)}
+    out = _stats_outputs(S, Pmax, device)
     launch("binary_stats",
            [VOIDP] * 3 + [I64] * 2 + [F64] * 3
            + [VOIDP] * (len(STATS_F64) + len(STATS_U8)),
@@ -231,13 +240,78 @@ def binary_stats(g0_path: torch.Tensor, g1_path: torch.Tensor,
                               min_individuals, min_haplotypes, maf_threshold)
 
 
-def binary_from_path_counts(g0_path, g1_path, snarl_path_idx,
-                            min_individuals, min_haplotypes, maf_threshold
+def binary_stats_from_words_plain(words: torch.Tensor,
+                                  path_idx: torch.Tensor,
+                                  path_valid: torch.Tensor,
+                                  tail: torch.Tensor, g1_words: torch.Tensor,
+                                  snarl_path_idx: torch.Tensor,
+                                  min_individuals, min_haplotypes,
+                                  maf_threshold) -> Dict[str, torch.Tensor]:
+    """Plain PyTorch version of :func:`binary_stats_from_words`: the path
+    counts (``membership_counts_plain``), then :func:`binary_stats_plain`
+    on them."""
+    g0_path, g1_path = membership_counts_plain(words, path_idx, path_valid,
+                                               tail, g1_words)
+    return binary_stats_plain(g0_path, g1_path, snarl_path_idx,
+                              min_individuals, min_haplotypes, maf_threshold)
+
+
+def _binary_stats_from_words_cuda(words, path_idx, path_valid, tail,
+                                  g1_words, snarl_path_idx, min_individuals,
+                                  min_haplotypes, maf_threshold):
+    device = words.device
+    R, W = words.shape
+    P, K = path_idx.shape
+    S, Pmax = snarl_path_idx.shape
+    check_tensor(words, "words", torch.int32, (R, W), device)
+    check_tensor(path_idx, "path_idx", torch.int32, (P, K), device)
+    check_tensor(path_valid, "path_valid", torch.bool, (P,), device)
+    check_tensor(tail, "tail", torch.int32, (W,), device)
+    check_tensor(g1_words, "g1_words", torch.int32, (W,), device)
+    check_tensor(snarl_path_idx, "snarl_path_idx", torch.int32, (S, Pmax),
+                 device)
+    out = _stats_outputs(S, Pmax, device)
+    launch("binary_from_words",
+           [VOIDP] * 6 + [I64] * 4 + [F64] * 3
+           + [VOIDP] * (len(STATS_F64) + len(STATS_U8)),
+           [words.data_ptr(), path_idx.data_ptr(), path_valid.data_ptr(),
+            tail.data_ptr(), g1_words.data_ptr(), snarl_path_idx.data_ptr(),
+            S, Pmax, K, W, float(min_individuals), float(min_haplotypes),
+            float(maf_threshold),
+            *(out[key].data_ptr() for key in STATS_F64 + STATS_U8)],
+           device, source="binary_stats")
+    return out
+
+
+def binary_stats_from_words(words: torch.Tensor, path_idx: torch.Tensor,
+                            path_valid: torch.Tensor, tail: torch.Tensor,
+                            g1_words: torch.Tensor,
+                            snarl_path_idx: torch.Tensor, min_individuals,
+                            min_haplotypes, maf_threshold
                             ) -> Dict[str, torch.Tensor]:
-    """stoat_tpu/pipeline/binary.py _binary_from_path_counts: K3 + K4
-    (:func:`binary_stats`), then the chi2 tail (K5)."""
-    t = binary_stats(g0_path, g1_path, snarl_path_idx, min_individuals,
-                     min_haplotypes, maf_threshold)
+    """K1+K2, K3 and K4 in one launch: :func:`binary_stats`' outputs of
+    the path counts that ``membership_counts`` gives on the same words,
+    rows, valid flags, tail and case mask (the arguments of
+    ``pipeline/packed.py membership_counts``), without the counts ever
+    leaving the card's shared memory.  This is stoat_tpu's
+    ``binary_tables_device_packed`` up to the chi-squared tail.
+
+    CUDA tensors run csrc/binary_stats.cu's binary_from_words, one launch
+    and one output allocation; CPU tensors the plain version.  A block
+    counts its tile of snarls' paths (bound by the gathered words), then
+    runs their tables and scans."""
+    if kernels_enabled(words.device):
+        return _binary_stats_from_words_cuda(
+            words, path_idx, path_valid, tail, g1_words, snarl_path_idx,
+            min_individuals, min_haplotypes, maf_threshold)
+    return binary_stats_from_words_plain(
+        words, path_idx, path_valid, tail, g1_words, snarl_path_idx,
+        min_individuals, min_haplotypes, maf_threshold)
+
+
+def with_chi2_tail(t: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The binary result of :func:`binary_stats`' outputs: the chi-squared
+    p-values by the tail (K5) and the table's other keys."""
     return {
         "filtered": t["filtered"],
         "keep": t["keep"],
@@ -249,17 +323,26 @@ def binary_from_path_counts(g0_path, g1_path, snarl_path_idx,
     }
 
 
+def binary_from_path_counts(g0_path, g1_path, snarl_path_idx,
+                            min_individuals, min_haplotypes, maf_threshold
+                            ) -> Dict[str, torch.Tensor]:
+    """stoat_tpu/pipeline/binary.py _binary_from_path_counts: K3 + K4
+    (:func:`binary_stats`), then the chi2 tail (K5)."""
+    return with_chi2_tail(binary_stats(
+        g0_path, g1_path, snarl_path_idx, min_individuals, min_haplotypes,
+        maf_threshold))
+
+
 def binary_tables_packed(chunk: DeviceChunk, min_individuals,
                          min_haplotypes, maf_threshold
                          ) -> Dict[str, torch.Tensor]:
     """stoat_tpu's ``binary_tables_device_packed`` on a device chunk:
-    K1+K2 membership counts, then :func:`binary_from_path_counts`."""
-    g0_path, g1_path = membership_counts(
+    K1+K2, K3 and K4 in one launch (:func:`binary_stats_from_words`),
+    then the chi2 tail (K5)."""
+    return with_chi2_tail(binary_stats_from_words(
         chunk.words, chunk.path_idx, chunk.path_valid, chunk.tail,
-        chunk.g1_words)
-    return binary_from_path_counts(
-        g0_path, g1_path, chunk.snarl_path_idx, min_individuals,
-        min_haplotypes, maf_threshold)
+        chunk.g1_words, chunk.snarl_path_idx, min_individuals,
+        min_haplotypes, maf_threshold))
 
 
 def binary_analyze_chromosome(packed, binary_phenotype: np.ndarray,

@@ -58,11 +58,11 @@ from stoat_tpu_torch.convert import DeviceChunk, to_device_chunk
 from stoat_tpu_torch.device import kernels_enabled
 from stoat_tpu_torch.kernels import (F64, I64, VOIDP, build, check_tensor,
                                      launch)
-from stoat_tpu_torch.pipeline.binary import binary_from_path_counts
+from stoat_tpu_torch.pipeline.binary import (binary_stats_from_words,
+                                             with_chi2_tail)
 from stoat_tpu_torch.pipeline.fetch import (DeviceTables, HostResult,
                                             fetch_async)
-from stoat_tpu_torch.pipeline.packed import (membership_counts,
-                                             membership_words_plain,
+from stoat_tpu_torch.pipeline.packed import (membership_words_plain,
                                              unpack_membership_plain)
 from stoat_tpu_torch.stats.linreg import (linear_regression_row_stats,
                                           linear_regression_stats_plain,
@@ -74,6 +74,7 @@ __all__ = ["DESIGN_KEYS", "TABLE_KEYS", "design_from_membership_plain",
            "quant_design", "quant_design_plain",
            "quantitative_analyze_chromosome",
            "binary_covar_analyze_chromosome", "dual_analyze_chromosome",
+           "dual_chunk_tables",
            "PrefixView", "lmm_analyze_chromosome",
            "eqtl_design_for_chromosome", "pair_snarls", "eqtl_ols_stats",
            "eqtl_ols_stats_plain", "eqtl_regress_pairs"]
@@ -339,33 +340,46 @@ def dual_analyze_chromosome(packed, pheno: Tuple[torch.Tensor, torch.Tensor],
     one K1 pass (stoat_tpu's ``_fused_dual_analysis``, :353-437).
 
     K1 runs once (``perm_membership``: the chunk's membership words,
-    tail-masked, 0 on invalid paths); the binary counts (K1+K2's kernel)
-    and the design (Q1's kernel) then read those words as their word rows,
-    one row per path (index ``arange(P)``), so their arithmetic is the
-    single-phenotype paths' own.  ``pheno`` is the binary run's (g1_words,
+    tail-masked, 0 on invalid paths); the binary tables (the count, table
+    and Fisher launch, K1+K2 + K3 + K4) and the design (Q1's kernel) then
+    read those words as their word rows, one row per path (index
+    ``arange(P)``), so their arithmetic is the single-phenotype paths'
+    own.  ``pheno`` is the binary run's (g1_words,
     tail) (convert.pheno_masks), ``qpheno`` float64 [N] the quantitative
     phenotype and ``covar`` float64 [N, C] the design's covariates.
     Returns one ``fetch.HostResult``: the binary keys of
     :func:`binary_analyze_chromosome` and the quantitative ones with a
     ``q_`` prefix (:class:`PrefixView`)."""
-    from stoat_tpu_torch.pipeline.permutation import perm_membership
     chunk = to_device_chunk(packed, None, device, words=words, pheno=pheno)
+    return fetch_async(dual_chunk_tables(
+        chunk, qpheno, covar, min_individuals, min_haplotypes,
+        maf_threshold, packed.n_haplotypes))
+
+
+def dual_chunk_tables(chunk: DeviceChunk, qpheno: torch.Tensor,
+                      covar: torch.Tensor, min_individuals, min_haplotypes,
+                      maf_threshold, n_haplotypes: int
+                      ) -> Dict[str, torch.Tensor]:
+    """The device half of :func:`dual_analyze_chromosome` on a device chunk
+    with the binary run's masks: the binary keys and the quantitative ones
+    with a ``q_`` prefix, still on the device."""
+    from stoat_tpu_torch.pipeline.permutation import perm_membership
     th = (min_individuals, min_haplotypes, maf_threshold)
     mem, _ = perm_membership(chunk.words, chunk.path_idx, chunk.path_valid,
                              chunk.tail)
     rows = torch.arange(mem.shape[0], dtype=torch.int32,
                         device=mem.device)[:, None]
-    g0p, g1p = membership_counts(mem, rows, chunk.path_valid, chunk.tail,
-                                 chunk.g1_words)
-    out = binary_from_path_counts(g0p, g1p, chunk.snarl_path_idx, *th)
+    out = with_chi2_tail(binary_stats_from_words(
+        mem, rows, chunk.path_valid, chunk.tail, chunk.g1_words,
+        chunk.snarl_path_idx, *th))
     shared = DeviceChunk(mem, rows, chunk.path_valid, chunk.snarl_path_idx)
-    d = quant_design(shared, covar, *th, packed.n_haplotypes)
+    d = quant_design(shared, covar, *th, n_haplotypes)
     t1, df_res, beta, se, r2 = linear_regression_row_stats(
         d.pop("X"), qpheno, d["used"], d["ncols"])
     q = student_t_pvalues(t1, df_res, d["degenerate"], beta, se, r2)
     q.update(filtered=d["filtered"], allele_paths=d["allele_paths"])
     out.update({"q_" + key: v for key, v in q.items()})
-    return fetch_async(out)
+    return out
 
 
 class PrefixView:

@@ -83,6 +83,39 @@ def test_graph_stats_plain_matches_jax(seed, Pmax):
         _rel_close(g.numpy(), np.asarray(w), 1e-15)
 
 
+def test_graph_stats_one_allocation_one_launch(monkeypatch):
+    """The CUDA wrapper's one launch and one [3, B] allocation: the three
+    p-values are its rows, where the launch writes them (a stand-in launch
+    copies the plain version's outputs through the pointers), and nothing
+    else runs (the tails are inside the launch)."""
+    import ctypes
+    G0, G1, mask = (torch.from_numpy(a) for a in _counts(4, B=300, Pmax=5))
+    want = assoc.graph_stats_plain(G0, G1, mask)
+    calls = []
+
+    def fake_launch(name, argtypes, values, device):
+        assert name == "graph_stats" and len(values) == len(argtypes) == 8
+        assert values[:3] == [G0.data_ptr(), G1.data_ptr(), mask.data_ptr()]
+        assert values[6:] == [300, 5]
+        for ptr, src in zip(values[3:6], want):
+            ctypes.memmove(ptr, src.data_ptr(), src.numel() * 8)
+        calls.append(name)
+
+    def no_tail(*a, **k):
+        raise AssertionError("a tail outside the launch")
+    monkeypatch.setattr(assoc, "launch", fake_launch)
+    monkeypatch.setattr(assoc, "finish_chi2_pvalues", no_tail)
+    got = assoc._graph_stats_cuda(G0, G1, mask)
+    assert calls == ["graph_stats"]
+    assert len({t.untyped_storage().data_ptr() for t in got}) == 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == torch.float64 and tuple(g.shape) == (300,)
+        assert g.is_contiguous()
+        assert g.data_ptr() == got[0].data_ptr() + 8 * 300 * i
+        np.testing.assert_array_equal(g.view(torch.int64).numpy(),
+                                      w.view(torch.int64).numpy())
+
+
 def test_to_graph_counts_scatters_the_ragged_counts():
     kinds = np.array([1, 0, 1, 1, 0], np.uint8)
     offs = np.array([0, 2, 2, 5, 7, 7], np.int64)

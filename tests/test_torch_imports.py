@@ -286,7 +286,8 @@ def test_launch_counts_reset():
     kernels.LAUNCHES["fisher"] += 3
     kernels.reset_launch_counts()
     assert set(kernels.LAUNCHES) == {"membership_counts", "binary_tables",
-                                     "binary_stats", "fisher",
+                                     "binary_stats", "binary_from_words",
+                                     "fisher",
                                      "quant_design", "ols",
                                      "student_t", "graph_stats", "logreg",
                                      "perm_membership", "perm_binary",

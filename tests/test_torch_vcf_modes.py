@@ -179,12 +179,13 @@ def test_dual_cli_byte_identical(tmp_path, covar, seed, n_samples,
 def test_dual_phenotype_single_pass(tmp_path, monkeypatch):
     """tests/test_end_to_end.py:247 on the port: -b and -q in one run
     write the bytes of two separate runs, and every chunk runs K1 once
-    (perm_membership), whose words both the binary counts and the design
-    read."""
+    (perm_membership), whose words both the binary count-table-Fisher
+    call (binary_stats_from_words) and the design read."""
     paths = make_fixture(str(tmp_path), n_samples=30, n_snarls=40, seed=11,
                          n_chroms=2)
     calls = {"k1": [], "counts": [], "design": []}
-    real = (tperm.perm_membership, tq.membership_counts, tq.quant_design)
+    real = (tperm.perm_membership, tq.binary_stats_from_words,
+            tq.quant_design)
 
     def k1(*a):
         calls["k1"].append(real[0](*a))
@@ -198,7 +199,7 @@ def test_dual_phenotype_single_pass(tmp_path, monkeypatch):
         calls["design"].append(chunk.words)
         return real[2](chunk, *a, **k)
     monkeypatch.setattr(tperm, "perm_membership", k1)
-    monkeypatch.setattr(tq, "membership_counts", counts)
+    monkeypatch.setattr(tq, "binary_stats_from_words", counts)
     monkeypatch.setattr(tq, "quant_design", design)
     for name, extra in (("dual", ["-b", paths["binary"], "-q",
                                   paths["quantitative"]]),

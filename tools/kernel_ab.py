@@ -5,10 +5,13 @@ on one card, in one process.
 Run from the root of a checkout, on a machine with a CUDA card and nvcc:
 
     python3 tools/kernel_ab.py --baseline DIR [--candidate DIR ...]
-                               [--kernel binary_stats|binary_tables|
-                                         chi2_tail|chi2_tail_perm|
-                                         chi2_tail_score|eqtl_ols|fisher|
-                                         logreg|ols|perm_binary|perm_ols|
+                               [--kernel binary_from_words|binary_stats|
+                                         binary_tables|chi2_tail|
+                                         chi2_tail_perm|chi2_tail_score|
+                                         eqtl_ols|fisher|
+                                         graph_stats|logreg|
+                                         membership_counts|ols|
+                                         perm_binary|perm_ols|
                                          quant_design|score_precompute|
                                          score_perm|student_t|
                                          student_t_perm]
@@ -19,7 +22,8 @@ Each DIR holds one version's kernel sources (its ``<source>.cu`` and the
 ``.cuh`` headers that it includes; score_precompute and score_perm are
 in ``score_test.cu``; binary_stats is ``binary_stats.cu`` where the
 version has it, else the pair it replaced, ``binary_tables.cu`` and
-``fisher.cu``),
+``fisher.cu``; binary_from_words builds ``membership_counts.cu`` and
+``binary_stats.cu``),
 for example the ``csrc/`` of an earlier commit unpacked with ``git
 archive``; the candidate defaults to the checkout's
 ``stoat_tpu_torch/csrc``.  Both versions are built with the
@@ -39,6 +43,15 @@ the chunk's (a, b, c, d) with the steps of its scan per table printed
 calls it, with the chi-squared tail: for a version with
 ``binary_stats.cu`` its one launch, for an earlier one binary_tables,
 fisher and the torch.where that masked Fisher (its device ms is every
+kernel in the window); membership_counts on the same chunk's words;
+binary_from_words as a ``vcf -b`` chunk runs from the words to the
+p-values (its device ms every kernel in the window): the fused launch
+where the version's ``binary_stats.cu`` declares
+``binary_from_words_launch``, else membership_counts and binary_stats
+on its counts, then the chi-squared tail; graph_stats on chip_smoke.py's
+main graph (100,000 snarls x 90 haplotype paths), its launch alone and
+with its tails (a version whose launch declares ``p22`` has them inside;
+an earlier one runs the chi-squared tail twice after it, device ms every
 kernel in the window); perm_ols with the
 observed phenotype and the main path's 1,000 Freedman-Lane permutations
 (chip_smoke.PERM_FULL); score_perm on the first ``vcf -b -c`` chunk's D
@@ -210,6 +223,117 @@ def binary_stats_inputs(cs, device, snarls, work, versions):
     return call, tuple(sidx.shape)
 
 
+def membership_counts_inputs(cs, device, snarls, work):
+    """membership_counts (K1+K2) through its wrapper on the first ``vcf
+    -b`` chunk's words, rows, masks, and the chunk's (P, K, W)."""
+    from stoat_tpu_torch.pipeline.packed import membership_counts
+    (chunk, *_), _p = first_chunks(cs, device, snarls, work)
+    args = (chunk.words, chunk.path_idx, chunk.path_valid, chunk.tail,
+            chunk.g1_words)
+    P, K = chunk.path_idx.shape
+    gather_bytes(cs, chunk)
+    return (lambda: list(membership_counts(*args))), \
+        (int(P), int(K), int(chunk.words.shape[1]))
+
+
+def gather_bytes(cs, chunk):
+    """Print the chunk's gathered words (valid paths x K x W x 4 bytes)
+    and its distinct rows' words, and each over the card's memory rate."""
+    import numpy as np
+    idx = cs.to_np(chunk.path_idx)
+    valid = cs.to_np(chunk.path_valid)
+    W = int(chunk.words.shape[1])
+    gathered = int(valid.sum()) * idx.shape[1] * W * 4
+    distinct = np.unique(idx).size * W * 4
+    cs.say(f"first vcf -b chunk: {int(valid.sum())} valid paths of "
+           f"{idx.shape[0]}, K = {idx.shape[1]}, W = {W}: gathered words "
+           f"{gathered} bytes ({1e3 * gathered / cs.HBM_BYTES_S:.4f} ms at "
+           f"{cs.HBM_BYTES_S:.3g} B/s), distinct rows' words {distinct} "
+           f"bytes ({1e3 * distinct / cs.HBM_BYTES_S:.4f} ms)")
+
+
+def binary_from_words_inputs(cs, device, snarls, work, versions):
+    """A ``vcf -b`` chunk's call from the words to the p-values on the
+    first chunk, as each version's main path ran it: the fused
+    binary_from_words launch where the version's binary_stats.cu declares
+    it (``binary_tables_packed``), else membership_counts and then
+    ``binary_from_path_counts`` (binary_stats on the counts); then the
+    chi-squared tail (the checkout's K5).  Returns the call and (S,
+    Pmax)."""
+    from stoat_tpu_torch.pipeline import binary
+    from stoat_tpu_torch.pipeline.packed import membership_counts
+    (chunk, *_), _p = first_chunks(cs, device, snarls, work)
+    gather_bytes(cs, chunk)
+    fused = declares(versions, "binary_stats", "binary_from_words_launch")
+    keys = ("p_fisher", "p_chi2", "filtered", "keep", "g0", "g1")
+
+    def call():
+        if fused[STATE["tag"]]:
+            out = binary.binary_tables_packed(chunk, *cs.THRESHOLDS)
+        else:
+            g0p, g1p = membership_counts(chunk.words, chunk.path_idx,
+                                         chunk.path_valid, chunk.tail,
+                                         chunk.g1_words)
+            out = binary.binary_from_path_counts(
+                g0p, g1p, chunk.snarl_path_idx, *cs.THRESHOLDS)
+        return [out[k] for k in keys]
+    return call, tuple(chunk.snarl_path_idx.shape)
+
+
+def graph_stats_inputs(cs, device, snarls, work, versions):
+    """K6 on chip_smoke.py's main graph (GRAPH_SNARLS snarls x 90
+    haplotype paths, the native prepare's partition counts), launched as
+    each version's wrapper launches it: "alone", the graph_stats launch by
+    itself (a version whose launch declares ``p22`` writes the three
+    p-values; an earlier one the statistics and Fisher's p, its tails
+    left to K5), and "with its tails", the wrapper's whole call (an
+    earlier version's launch, then finish_chi2_pvalues on the 2x2 and on
+    the 2xN statistics).  Returns {label: call} and (B, Pmax)."""
+    import torch
+    from stoat_tpu_torch.kernels import I64, VOIDP, launch
+    from stoat_tpu_torch.stats.chi2 import finish_chi2_pvalues
+    graph = cs.write_graph(os.path.join(work, "graph"), cs.GRAPH_SNARLS)
+    G0, G1, mask, _k = cs.graph_counts(graph, device)
+    B, Pm = G0.shape
+    fused = declares(versions, "graph_stats", "void* p22")
+    # the counts stay referenced by the calls: a launch reads them by
+    # pointer, and freed memory would be handed to the tails' allocations
+    counts = (G0, G1, mask)
+    ps = torch.empty((3, B), dtype=torch.float64, device=device)
+    f64 = [torch.empty(B, dtype=torch.float64, device=device)
+           for _ in range(4)]
+    u8 = [torch.empty(B, dtype=torch.bool, device=device) for _ in range(3)]
+    stat, pf, statn, dfn = f64
+    invalid, zexp, invalidn = u8
+
+    def k6():
+        ins = [t.data_ptr() for t in counts]
+        if fused[STATE["tag"]]:
+            launch("graph_stats", [VOIDP] * 6 + [I64] * 2,
+                   [*ins, *(ps[i].data_ptr() for i in range(3)), B, Pm],
+                   device)
+            return [ps[0], ps[1], ps[2]]
+        launch("graph_stats", [VOIDP] * 10 + [I64] * 2,
+               [*ins, *(t.data_ptr() for t in (stat, invalid, zexp, pf,
+                                               statn, dfn, invalidn)),
+                B, Pm], device)
+        return None
+
+    def alone():
+        out = k6()
+        return [out[1] if out is not None else pf]
+
+    def with_tails():
+        out = k6()
+        if out is not None:
+            return out
+        return [finish_chi2_pvalues(stat, torch.ones_like(stat), invalid,
+                                    zexp), pf,
+                finish_chi2_pvalues(statn, dfn, invalidn,
+                                    torch.zeros_like(invalidn))]
+    return {"alone": alone, "with its tails": with_tails}, (int(B), int(Pm))
+
+
 def version_sources(kernel, src_dir):
     """The sources that ``kernel``'s call builds from the version in
     ``src_dir``: binary_stats from the pair it replaced where the version
@@ -217,6 +341,8 @@ def version_sources(kernel, src_dir):
     if kernel == "binary_stats" and not os.path.exists(
             os.path.join(src_dir, "binary_stats.cu")):
         return ("binary_tables", "fisher")
+    if kernel == "binary_from_words":
+        return ("membership_counts", "binary_stats")
     return (SOURCES.get(kernel, kernel),)
 
 
@@ -466,9 +592,10 @@ def chi2_tail_call(cs, device, versions, stat, df, masks, order):
         masks = tuple(tensors[2:]) if masks[0] is not None else masks
     n = stat.numel()
     p = torch.empty(stat.shape, dtype=torch.float64, device=device)
-    ptrs = [None if m is None else m.data_ptr() for m in masks]
 
     def call():
+        # the pointers taken here, so that the call holds the masks
+        ptrs = [None if m is None else m.data_ptr() for m in masks]
         if periodic[STATE["tag"]]:
             d = df.contiguous()
             launch("chi2_tail", [VOIDP] * 5 + [I64] * 2,
@@ -580,10 +707,11 @@ def student_t_call(cs, device, t1, df, rest, order):
     n = t1.numel()
     outs = [torch.empty(n, dtype=torch.float64, device=device)
             for _ in range(4 if rest else 1)]
-    ins = [t.data_ptr() for t in rest] if rest else [None] * 4
     outp = [t.data_ptr() for t in outs] + [None] * (4 - len(outs))
 
     def call():
+        # the pointers taken here, so that the call holds its inputs
+        ins = [t.data_ptr() for t in rest] if rest else [None] * 4
         launch("student_t", [VOIDP] * 10 + [I64],
                [t1.data_ptr(), df.data_ptr(), *ins, *outp, n], device)
         return outs
@@ -641,6 +769,9 @@ def host_costs(cs, device, snarls, work):
 
 
 CALLS = {"binary_stats": binary_stats_inputs,
+         "binary_from_words": binary_from_words_inputs,
+         "membership_counts": membership_counts_inputs,
+         "graph_stats": graph_stats_inputs,
          "binary_tables": binary_tables_inputs, "fisher": fisher_inputs,
          "eqtl_ols": eqtl_ols_inputs, "logreg": logreg_inputs,
          "ols": ols_inputs, "perm_binary": perm_binary_inputs,
@@ -653,9 +784,12 @@ CALLS = {"binary_stats": binary_stats_inputs,
          "student_t_perm": student_t_perm_inputs}
 # the calls that launch each version with the arguments its source declares
 BY_SOURCE = ("ols", "quant_design", "chi2_tail", "chi2_tail_perm",
-             "chi2_tail_score", "binary_stats")
-# the calls whose device ms is every kernel in their profiler window
-DEVICE_TOTAL = ("binary_stats",)
+             "chi2_tail_score", "binary_stats", "binary_from_words",
+             "graph_stats")
+# the calls whose device ms is every kernel in their profiler window (by
+# kernel, or by the label of one of a kernel's calls)
+DEVICE_TOTAL = ("binary_stats", "binary_from_words",
+                "graph_stats (with its tails)")
 # the tails' calls, which take ``--order``
 TAILS = ("chi2_tail", "chi2_tail_perm", "chi2_tail_score", "student_t",
          "student_t_perm")
@@ -735,6 +869,21 @@ def first_err(cs, kernel, outs_a, outs_b):
     return cs.stat_err(stat, a, b, p_floor=floor)
 
 
+def differing(cs, i, a, b):
+    """Output ``i``: how many elements of A differ from B's in any bit,
+    the largest relative difference and the first three (index, A, B)."""
+    import numpy as np
+    a = np.asarray(a, np.float64).ravel()
+    b = np.asarray(b, np.float64).ravel()
+    if a.shape != b.shape:
+        return f"output {i}: shapes {a.shape} and {b.shape}"
+    bad = np.flatnonzero(~((a.view(np.uint64) == b.view(np.uint64))
+                           | (np.isnan(a) & np.isnan(b))))
+    return (f"output {i}: {bad.size} elements differ, largest relative "
+            f"difference {cs.rel_err(a, b):.3g}, first "
+            + ", ".join(f"[{j}] {a[j]!r} / {b[j]!r}" for j in bad[:3]))
+
+
 def kernel_name(mangled):
     """``<name>_kernel`` (with an instantiation's integer template
     argument) out of a mangled name: the identifier whose length prefix
@@ -780,7 +929,7 @@ def time_versions(cs, torch, label, kernel, name, call, shape, tags,
             ms[tag].append(cs.cuda_ms(call, 10))
     for tag in tags:
         use(tag)
-        if kernel in DEVICE_TOTAL:
+        if kernel in DEVICE_TOTAL or label in DEVICE_TOTAL:
             dev[tag] = cs.device_total_ms(torch, call)
         else:
             dev[tag] = cs.device_ms(torch, {name: call})[name]
@@ -799,6 +948,11 @@ def time_versions(cs, torch, label, kernel, name, call, shape, tags,
         if kernel == "logreg":
             diff = (outs[tag][3] != outs["B"][3]).nonzero()[0].tolist()
             flips = f"; snarls whose Newton step counts differ: {diff}"
+        if not same:
+            flips += "; " + "; ".join(
+                differing(cs, i, a, b)
+                for i, (a, b) in enumerate(zip(outs[tag], outs["B"]))
+                if not cs.same_bits(a, b))
         cs.say(f"{label} on {shape}: outputs of {tag} and B bitwise equal: "
                f"{same}; largest relative difference of the first output: "
                f"{first:.3g}" + flips)
@@ -841,11 +995,18 @@ def main():
                for i, c in enumerate(candidates)}
     sources["B"] = args.baseline
     tags = list(sources)
+    # every version's sources built at once, one nvcc each
+    from concurrent.futures import ThreadPoolExecutor
+    jobs = [(tag, src) for tag, src_dir in sources.items()
+            for src in version_sources(kernel, src_dir)]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(
+            lambda job: build_version(build, job[1], sources[job[0]],
+                                      job[0]), jobs)))
     for tag, src_dir in sources.items():
         libs[tag], reports, sasses = {}, [], []
         for src in version_sources(kernel, src_dir):
-            libs[tag][src], report, path = build_version(build, src, src_dir,
-                                                         tag)
+            libs[tag][src], report, path = built[(tag, src)]
             reports.append(report)
             sasses.append(sass_counts(path, src))
         ptxas[tag], sass[tag] = "\n".join(reports), "; ".join(sasses)
