@@ -57,10 +57,21 @@ printing lines and each fatal on failure:
      0.01`` at full size (``-q -c`` and ``-b -c``: the table view on every
      chunk, one table per significant row) and ``-T 0.05`` CUDA against
      CPU on the sub-cohort in five modes, the ``regression/`` files
-     included; then the decomposition alone (``vcf -p -d``).  While the
-     CUDA CLI runs the binary, graph and permutation paths,
-     the plain chi-squared tail must not be called: every chi-squared
-     tail runs on the card (chi2_tail, or graph_stats' own tails);
+     included; then ``vcf -b -p <cohort GFA> -g`` on a GFA written here
+     (a node of a seeded length for every node of the snarl file's
+     paths), on the card and on the CPU: the binary table byte for byte
+     the ``vcf -b`` table, both GAF files byte for byte across the
+     devices, 1,000 rows' GAF lines recomputed from GROUP_PATHS,
+     P_FISHER and the node lengths; ``simulate -n 2504 -s 8192 --seed
+     7``, then ``vcf -b`` and ``vcf -q`` on its data on both devices and
+     ``truth`` on each table, equal across the devices; ``BHcorrect`` on
+     copies of the ``-g`` and the simulated ``-b`` tables against a numpy
+     BH written here, ``top_variant.tsv`` included (``plot`` is host work
+     and is not run); then the decomposition alone (``vcf -p -d``).
+     While the CUDA CLI runs the binary, graph, permutation and ``-g``
+     paths, the plain chi-squared tail must not be called: every
+     chi-squared tail runs on the card (chi2_tail, or graph_stats' own
+     tails);
   5. each kernel's time and its plain version's, on the card, at the main
      paths' shapes (CUDA events, after a warm-up, and profiler device
      time; binary_from_words beside the two launches it replaced), its
@@ -75,7 +86,12 @@ printing lines and each fatal on failure:
      torch._int_mm of its 0/1 count product and score_precompute beside
      torch.bmm of its weighted Gram (theirs), quant_design's
      table view, and X.zero_() on a tensor of quant_design's X, the rate
-     the card writes those bytes at.
+     the card writes those bytes at.  The profiler loses the first one
+     or two device records of a window: each window opens with
+     torch.cuda._sleep launches that no sum counts, a device time a call
+     is each kernel's mean record times its launches a call, every window
+     that is not whole is printed, and so are ten windows of the table
+     view, all_rows and the GEMM with and without the spins.
 
 The last two lines of standard output are a JSON object of the kernels and
 the contract line {"ok": true, "device": {...}}.  Without a CUDA device,
@@ -3678,6 +3694,365 @@ def phase_tables(torch, paths, sub, work, n_chroms):
     return launches, lines
 
 
+# ------------------------------------------- the command line's remnants
+
+SIM_SNARLS = 8192
+SIM_SEED = 7
+GAF_REF_ROWS = 1000
+BH_SIGNIFICANT = 1e-5
+STEP = re.compile(r"([<>])(\d+)")
+
+
+def write_cohort_gfa(paths, out_dir, seed=0):
+    """A GFA for ``vcf -g`` on a ``make_fixture`` cohort, from a seed: a
+    node for every node id of the snarl file's paths (the star node 0
+    excluded), each of a seeded length of 1 to 32 bases (most of a
+    pangenome's nodes are that short), and a reference path a chromosome
+    through the first path of each snarl, with its links.  Returns
+    {"gfa", "lengths" (node id -> length), "nodes"}."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    nodes, walks = set(), {}
+    with open(paths["snarl"]) as fh:
+        fh.readline()
+        for line in fh:
+            cols = line.rstrip("\n").split("\t")
+            steps = [[int(n) for _, n in STEP.findall(p)]
+                     for p in cols[5].split(",")]
+            for ids in steps:
+                nodes.update(ids)
+            first = [n for n in steps[0] if n]
+            walk = walks.setdefault(cols[0], [])
+            walk += first[1:] if walk and walk[-1] == first[0] else first
+    nodes.discard(0)
+    ids = sorted(nodes)
+    lengths = rng.integers(1, 33, len(ids)).tolist()
+    bases = "ACGT" * 9
+    os.makedirs(out_dir, exist_ok=True)
+    gfa = os.path.join(out_dir, "cohort.gfa")
+    with open(gfa, "w") as fh:
+        fh.write("H\tVN:Z:1.0\n")
+        fh.write("".join(f"S\t{n}\t{bases[n % 4:n % 4 + k]}\n"
+                         for n, k in zip(ids, lengths)))
+        for chrom, walk in walks.items():
+            fh.write("".join(f"L\t{u}\t+\t{v}\t+\t0M\n"
+                             for u, v in zip(walk, walk[1:])))
+            fh.write(f"P\t{chrom}\t" + ",".join(f"{n}+" for n in walk)
+                     + "\t*\n")
+    return {"gfa": gfa, "lengths": dict(zip(ids, lengths)),
+            "nodes": len(ids)}
+
+
+def gaf_proportions(g0, g1, p):
+    """The 0-60 pair of one path, skewed by -log(p): the reference's
+    calcul_proportion_signi (gaf_creator.cpp:5-43), written out here."""
+    total = g0 + g1
+    if total == 0:
+        return 0.0, 0.0
+    a = g1 / total * 60.0
+    b = 60.0 - a
+    shift = -math.log(max(p, 1e-20))
+    a, b = (a + shift, b - shift) if a > b else (a - shift, b + shift)
+    a, b = min(max(a, 0.0), 60.0), min(max(b, 0.0), 60.0)
+    if a + b not in (60.0, 0.0):
+        scale = 60.0 / (a + b)
+        a, b = a * scale, b * scale
+    return a, b
+
+
+def gaf_reference(tsv, snarl_file, lengths, gaf0, gaf1,
+                  n_rows=GAF_REF_ROWS, seed=0):
+    """The GAF lines of ``n_rows`` random rows of a binary TSV, recomputed
+    from the row's P_FISHER, P_CHI2 and GROUP_PATHS, the snarl file's
+    paths (split at the star node 0) and the node lengths, against both
+    files' lines of those snarls.  Returns the lines compared."""
+    import numpy as np
+    paths = {}
+    with open(snarl_file) as fh:
+        fh.readline()
+        for line in fh:
+            cols = line.rstrip("\n").split("\t")
+            paths[(cols[0], cols[4])] = cols[5].split(",")
+    with open(tsv) as fh:
+        rows = [line.rstrip("\n").split("\t") for line in fh][1:]
+    by_snarl = []
+    for gaf, tag in ((gaf0, "_G0_"), (gaf1, "_G1_")):
+        lines = {}
+        with open(gaf) as fh:
+            for line in fh:
+                name = line[:line.index("\t")]
+                lines.setdefault(name[:name.index(tag)], []).append(
+                    line.rstrip("\n"))
+        by_snarl.append(lines)
+
+    def p_of(s):
+        return 1.0 if s in ("NA", "") else float(s)
+    pick = np.random.default_rng(seed).choice(
+        len(rows), min(n_rows, len(rows)), replace=False)
+    compared = 0
+    for i in sorted(pick.tolist()):
+        chrom, snarl, pf_s, pc_s, groups = (rows[i][0], rows[i][3],
+                                            rows[i][5], rows[i][6],
+                                            rows[i][7])
+        pf, pc = p_of(pf_s), p_of(pc_s)
+        pairs = [tuple(int(v) for v in t.split(":", 1))
+                 for t in groups.split(",") if ":" in t]
+        want = ([], [])
+        for (g0, g1), path in zip(pairs, paths[(chrom, snarl)]):
+            props = gaf_proportions(g0, g1, pf)
+            parts = [[]]
+            for orient, nid in STEP.findall(path):
+                if nid == "0":
+                    parts.append([])
+                else:
+                    parts[-1].append((orient, nid))
+            for part in parts:
+                if not part:
+                    continue
+                sub = "".join(o + n for o, n in part)
+                length = sum(lengths.get(int(n), 0) for _, n in part)
+                for g, (count, prop) in enumerate(((g0, props[0]),
+                                                   (g1, props[1]))):
+                    want[g].append(f"{snarl}_G{g}_{count}_F{pf:.6f}_C"
+                                   f"{pc:.6f}\t{sub}\t{length}\t{prop:g}")
+        for g in (0, 1):
+            got = by_snarl[g].get(snarl, [])
+            check(got == want[g], f"GAF _{g} of {chrom} {snarl}: "
+                  f"{got[:2]} / recomputed {want[g][:2]}")
+            compared += len(got)
+    return compared
+
+
+def phase_gaf(torch, paths, work, n_chroms, cohort):
+    """``vcf -b -p <cohort GFA> -g`` on the card, then on the CPU: the
+    binary table byte for byte phase 4's ``vcf -b`` table, the two GAF
+    files byte for byte across the devices, K1-K4 and K5 once a chunk, the
+    plain chi-squared tail never, and the GAF lines of GAF_REF_ROWS rows
+    recomputed here.  Returns (launches, TSV, line)."""
+    from stoat_tpu_torch import cli, kernels
+    n_chunks = n_chunks_of(paths, n_chroms)
+    real = cli._write_gaf
+    walls, gaf_s, out = {}, {}, {}
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        real(*a, **k)
+        gaf_s[device] = time.perf_counter() - t
+    cli._write_gaf = timed
+    try:
+        for device in ("cuda", "cpu"):
+            out[device] = os.path.join(work, f"out_gaf_{device}")
+            argv = cli_args(paths, out[device], device) + [
+                "-p", cohort["gfa"], "-g"]
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with PlainTailCounter() as lib:
+                rc = cli.main(argv)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+            walls[device] = time.perf_counter() - t0
+            check(rc == 0, f"vcf -g on {device}: exit code {rc}")
+            if device == "cuda":
+                launches = dict(kernels.LAUNCHES)
+                check_launches(launches, dict.fromkeys(BINARY_KERNELS, 1),
+                               n_chunks, "vcf -g")
+                check(lib.calls == 0, f"vcf -g called the plain "
+                      f"chi-squared tail {lib.calls} times")
+    finally:
+        cli._write_gaf = real
+
+    def read(*p):
+        with open(os.path.join(*p), "rb") as fh:
+            return fh.read()
+    table = read(work, "out_cuda", "binary_table_vcf.tsv")
+    for device in out:
+        check(read(out[device], "binary_table_vcf.tsv") == table,
+              f"vcf -g on {device}: the binary table differs from phase "
+              f"4's vcf -b table")
+    sizes = []
+    for name in ("binary_table_vcf_0.gaf", "binary_table_vcf_1.gaf"):
+        data = read(out["cuda"], name)
+        check(data == read(out["cpu"], name), f"{name} differs between "
+              f"cuda and cpu")
+        n_lines = data.count(b"\n")
+        check(n_lines > paths["n_snarls"], f"{name}: {n_lines} lines")
+        sizes.append((n_lines, len(data)))
+    t0 = time.perf_counter()
+    compared = gaf_reference(
+        os.path.join(out["cuda"], "binary_table_vcf.tsv"), paths["snarl"],
+        cohort["lengths"],
+        *(os.path.join(out["cuda"], f"binary_table_vcf_{g}.gaf")
+          for g in (0, 1)))
+    ref_s = time.perf_counter() - t0
+    line = (f"phase 4 vcf -g: vcf -s -v -b -p <cohort GFA> -g on "
+            f"{paths['n_samples']} samples x {paths['n_snarls']} snarls, "
+            f"GFA of {cohort['nodes']} nodes "
+            f"({os.path.getsize(cohort['gfa']) / 1e6:.1f} MB, lengths 1-32 "
+            f"from seed 0): cuda wall {walls['cuda']:.2f}s "
+            f"(graph load and GAF {gaf_s['cuda']:.2f}s), cpu wall "
+            f"{walls['cpu']:.2f}s (graph load and GAF {gaf_s['cpu']:.2f}s);"
+            f" binary table byte-identical to phase 4's vcf -b table on "
+            f"both devices; binary_table_vcf_0.gaf and _1.gaf "
+            f"({sizes[0][0]} and {sizes[1][0]} lines, {sizes[0][1] / 1e6:.1f}"
+            f" and {sizes[1][1] / 1e6:.1f} MB) byte-identical cuda and cpu; "
+            f"{compared} lines of {GAF_REF_ROWS} random rows equal to their "
+            f"recomputation from GROUP_PATHS, P_FISHER and the node lengths "
+            f"({ref_s:.1f}s); launches "
+            f"{ {k: n for k, n in launches.items() if n} } ({n_chunks} "
+            f"chunks; the plain chi-squared tail called 0 times)")
+    return launches, os.path.join(out["cuda"], "binary_table_vcf.tsv"), line
+
+
+def bh_reference(p):
+    """Benjamini-Hochberg written out: sort, p * n / rank, the running
+    minimum from the largest rank down, clamped at 1, in input order."""
+    import numpy as np
+    p = np.asarray(p, dtype=np.float64)
+    n = p.size
+    order = np.argsort(p, kind="stable")
+    adj = p[order] * n / np.arange(1, n + 1, dtype=np.float64)
+    adj = np.minimum(np.minimum.accumulate(adj[::-1])[::-1], 1.0)
+    out = np.empty(n)
+    out[order] = adj
+    return out
+
+
+def phase_bhcorrect(work, tsv, what):
+    """``BHcorrect -t T -p 7 -a 8`` (P_CHI2 into the GROUP_PATHS column,
+    as tests/test_cli_extras.py runs it) on a copy of a binary table: the
+    adjusted column is set_precision of bh_reference on the p strings,
+    every other cell is unchanged, and top_variant.tsv holds exactly the
+    rows below BH_SIGNIFICANT.  Returns a line."""
+    from stoat_tpu_torch import cli
+    from stoat_tpu_torch.formatting import set_precision
+    d = os.path.join(work, f"bh_{what}")
+    os.makedirs(d, exist_ok=True)
+    copy = os.path.join(d, "binary_table_vcf.tsv")
+    shutil.copyfile(tsv, copy)
+    with open(copy) as fh:
+        before = fh.read().splitlines()
+    rows = [line.split("\t") for line in before[1:]]
+    adj = bh_reference([1.0 if r[6] in ("NA", "") else float(r[6])
+                        for r in rows])
+    t0 = time.perf_counter()
+    rc = cli.main(["BHcorrect", "-t", copy, "-p", "7", "-a", "8", "-o", d])
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"BHcorrect exit code {rc}")
+    with open(copy) as fh:
+        after = fh.read().splitlines()
+    check(after[0] == before[0] and len(after) == len(before),
+          f"BHcorrect: {len(after)} lines, {len(before)} before")
+    want = []
+    for r, a in zip(rows, adj.tolist()):
+        r = list(r)
+        r[7] = set_precision(a)
+        want.append("\t".join(r))
+    bad = [(g, w) for g, w in zip(after[1:], want) if g != w]
+    check(not bad, f"BHcorrect: {len(bad)} rows differ from the numpy "
+          f"BH, first {bad[0]}" if bad else "")
+    with open(os.path.join(d, "top_variant.tsv")) as fh:
+        top = fh.read().splitlines()
+    sig = [w for w, a in zip(want, adj.tolist()) if a < BH_SIGNIFICANT]
+    check(top == [before[0]] + sig, f"top_variant.tsv: {len(top) - 1} "
+          f"rows, {len(sig)} below {BH_SIGNIFICANT:g}")
+    return (f"BHcorrect -p 7 -a 8 on {what} ({len(rows)} rows): {wall:.2f}s"
+            f", every adjusted string equal to set_precision of the numpy "
+            f"BH (smallest {adj.min():.4g}), other cells unchanged, "
+            f"top_variant.tsv = the {len(sig)} rows below "
+            f"{BH_SIGNIFICANT:g}")
+
+
+def phase_simulate(torch, work):
+    """``simulate -n N_SAMPLES -s SIM_SNARLS --seed 7``, then ``vcf -b`` and
+    ``vcf -q`` on its data on the card and on the CPU (the binary table
+    byte for byte, the quantitative one by compare_quant_tsvs; each path's
+    kernels once a chunk) and ``truth`` on each table, equal across the
+    devices.  Returns (launches, binary TSV, line)."""
+    import contextlib
+    import io
+    from stoat_tpu_torch import cli, kernels
+    sim = os.path.join(work, "sim")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["simulate", "-n", str(N_SAMPLES), "-s",
+                       str(SIM_SNARLS), "--seed", str(SIM_SEED), "-o", sim])
+    sim_s = time.perf_counter() - t0
+    check(rc == 0, f"simulate exit code {rc}")
+    files = dict(line.split("\t") for line in buf.getvalue().splitlines())
+    check(sorted(files) == ["binary", "covariate", "quantitative", "snarl",
+                            "truth", "vcf"], f"simulate wrote {files}")
+    launches, walls, truth, tables = {}, {}, {}, {}
+    for flag, kernels_of, table in (
+            ("-b", BINARY_KERNELS, "binary_table_vcf.tsv"),
+            ("-q", QUANT_KERNELS, "quantitative_table_vcf.tsv")):
+        pheno = files["binary" if flag == "-b" else "quantitative"]
+        got = {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(work, f"sim_{flag[1]}_{device}")
+            kernels.reset_launch_counts()
+            t1 = time.perf_counter()
+            rc, got[device] = run_captured(cli, [
+                "vcf", "-s", files["snarl"], "-v", files["vcf"], flag, pheno,
+                "-o", out, "--device", device])
+            if device == "cuda":
+                torch.cuda.synchronize()
+                for name, n in kernels.LAUNCHES.items():
+                    launches[name] = launches.get(name, 0) + n
+                check_launches(kernels.LAUNCHES,
+                               dict.fromkeys(kernels_of, 1), 1,
+                               f"simulated vcf {flag}")
+            walls[(flag, device)] = time.perf_counter() - t1
+            check(rc == 0, f"simulated vcf {flag} on {device}: exit {rc}")
+            tables[(flag, device)] = os.path.join(out, table)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["truth", "-r", tables[(flag, device)], "-f",
+                               files["truth"]])
+            check(rc == 0, f"truth exit code {rc}")
+            truth[(flag, device)] = buf.getvalue().strip()
+            check(truth[(flag, device)].count("\n") == 0,
+                  f"truth printed {truth[(flag, device)]!r}")
+        check(truth[(flag, "cuda")] == truth[(flag, "cpu")],
+              f"truth of simulated vcf {flag}: cuda "
+              f"{truth[(flag, 'cuda')]} / cpu {truth[(flag, 'cpu')]}")
+        if flag == "-b":
+            with open(tables[(flag, "cuda")], "rb") as fa, \
+                    open(tables[(flag, "cpu")], "rb") as fb:
+                check(fa.read() == fb.read(), "simulated vcf -b: cuda and "
+                      "cpu tables differ")
+            n_rows, diffs = None, []
+        else:
+            n_rows, diffs = compare_quant_tsvs(
+                tables[(flag, "cuda")], tables[(flag, "cpu")], got["cuda"],
+                got["cpu"])
+    line = (f"phase 4 simulate: simulate -n {N_SAMPLES} -s {SIM_SNARLS} "
+            f"--seed {SIM_SEED} in {sim_s:.1f}s "
+            f"({os.path.getsize(files['vcf']) / 1e6:.0f} MB VCF, one chunk); "
+            f"vcf -b cuda wall {walls[('-b', 'cuda')]:.2f}s, cpu "
+            f"{walls[('-b', 'cpu')]:.2f}s, tables byte-identical; vcf -q "
+            f"cuda {walls[('-q', 'cuda')]:.2f}s, cpu "
+            f"{walls[('-q', 'cpu')]:.2f}s, {n_rows} rows equal in rows, "
+            f"PATH_LENGTHS/ALLELE_PATHS/DEPTH and NA cells, {len(diffs)} "
+            f"statistic strings differ (float64 values within rel "
+            f"{TSV_REL:g}){': ' + '; '.join(diffs[:5]) if diffs else ''}; "
+            f"truth equal across the devices: -b {truth[('-b', 'cuda')]}, "
+            f"-q {truth[('-q', 'cuda')]}; launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+    return launches, tables[("-b", "cuda")], line
+
+
+def plot_note():
+    """``plot`` is not run here: it is host work (matplotlib, no torch)
+    and the card's machine may lack matplotlib."""
+    import importlib.util
+    found = importlib.util.find_spec("matplotlib") is not None
+    return (f"phase 4 plot: not run on the card: plot is host work "
+            f"(matplotlib PNGs, no torch, no kernel) and is held to "
+            f"stoat_tpu's file names by the CPU tests; matplotlib "
+            f"importable here: {found}")
+
+
 def phase_case3(graph, work):
     """The decomposition alone (``vcf -p G -d G -r CHR``): the snarl file
     and its companion, no kernel launched, no device asked for."""
@@ -4079,26 +4454,90 @@ def bound_of(name, x):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_total_ms(torch, fn, reps=3):
-    """Device time per call of ``fn`` under torch.profiler, summed over
-    every kernel and copy it launches (library kernels have no name of
-    ours)."""
+# torch.profiler on the card's machine loses device records: at full size
+# a lone window of 5 quant_design calls keeps 3 or 4 of their records, of
+# 5 GEMMs with their 10 copies 13 or 14 (the first records of the window;
+# a reading that takes such a window as whole is low by 1/5 to 2/5), and
+# once a window kept none.  Each window opens with LEAD_SPINS launches of
+# torch.cuda._sleep's spin_kernel, left out of every sum; a time a call
+# is each kernel's mean record times its launches a call (per_call_ms); a
+# window in which a kernel asked for has no record is run again, up to
+# PROFILE_TRIES times; PROFILE_LOG keeps each window that was not whole.
+PROFILE_REPS = 5
+PROFILE_TRIES = 4
+LEAD_SPINS = 4
+SPIN = re.compile(r"(?<![A-Za-z0-9_])spin_kernel\b")
+PROFILE_LOG = []
+
+
+def profile_window(torch, fns, reps=PROFILE_REPS, lead=LEAD_SPINS):
+    """One torch.profiler window: ``lead`` spins, then ``reps`` calls of
+    each of ``fns``: ({kernel name: (device records, device us)} but the
+    spins, spin records kept)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        for _ in range(lead):
+            torch.cuda._sleep(1000)
+        for fn in fns:
+            for _ in range(reps):
+                fn()
         torch.cuda.synchronize()
     averages = prof.key_averages()
+    if not len(averages):
+        return {}, 0
     key = ("self_device_time_total"
            if hasattr(averages[0], "self_device_time_total")
            else "self_cuda_time_total")
-    us = sum(getattr(e, key) for e in averages
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps if us else None
+    records, spins = {}, 0
+    for e in averages:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if SPIN.search(e.key):
+            spins += e.count
+            continue
+        n, us = records.get(e.key, (0, 0.0))
+        records[e.key] = (n + e.count, us + getattr(e, key))
+    return records, spins
+
+
+def profile_records(torch, fns, what, reps=PROFILE_REPS, patterns=()):
+    """The records of a window over ``fns`` (after one untimed call of
+    each) in which every one of ``patterns`` (or, with none, any kernel)
+    has a record, or of the last of PROFILE_TRIES windows."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        records, spins = profile_window(torch, fns, reps)
+        whole = spins == LEAD_SPINS and all(
+            n % reps == 0 for n, _ in records.values())
+        found = all(any(p.search(k) for k in records) for p in patterns) \
+            if patterns else bool(records)
+        if not whole or not found:
+            PROFILE_LOG.append((what, attempt, spins, {
+                k: n for k, (n, _) in records.items()}))
+        if found:
+            break
+    return records
+
+
+def per_call_ms(records, reps=PROFILE_REPS, pattern=None):
+    """Device ms a call from a window's records (those whose name
+    ``pattern`` matches): each kernel's mean record times its launches a
+    call, ceil(records / reps) (the sum over ``reps`` on whole calls);
+    None where no record matches."""
+    us = sum(t / n * -(-n // reps) for name, (n, t) in records.items()
+             if n and (pattern is None or pattern.search(name)))
+    return us / 1e3 if us else None
+
+
+def device_total_ms(torch, fn, reps=PROFILE_REPS, what="a call"):
+    """Device time per call of ``fn`` under torch.profiler, summed over
+    every kernel and copy it launches (library kernels have no name of
+    ours)."""
+    return per_call_ms(profile_records(torch, [fn], what, reps), reps)
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -4701,33 +5140,46 @@ DEVICE_KERNELS = {"perm_ols": ("perm_ols", "perm_ols_inverse",
                   "student_t": ("student_t", "student_t_batch")}
 
 
+def kernel_pattern(name):
+    """The device kernels of entry point ``name``, by their whole names
+    ("ols_kernel" must not match perm_ols_kernel; a template instance
+    "quant_design_kernel<true, false>" matches quant_design)."""
+    names = "|".join(DEVICE_KERNELS.get(name, (name,)))
+    return re.compile(rf"(?<![A-Za-z0-9_])({names})_kernel\b")
+
+
 def device_ms(torch, calls):
     """Device time per call of each named kernel under torch.profiler
     (every device kernel of its entry point): {name: ms}, None where the
     trace shows no device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    reps = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for fn in calls.values():
-            for _ in range(reps):
-                fn()
-        torch.cuda.synchronize()
-    averages = prof.key_averages()
-    key = ("self_device_time_total"
-           if hasattr(averages[0], "self_device_time_total")
-           else "self_cuda_time_total")
-    out = {}
-    for name in calls:
-        # the whole name: "ols_kernel" must not match perm_ols_kernel
-        names = "|".join(DEVICE_KERNELS.get(name, (name,)))
-        pattern = re.compile(rf"(?<![A-Za-z0-9_])({names})_kernel\b")
-        us = sum(getattr(e, key) for e in averages
-                 if e.device_type == DeviceType.CUDA
-                 and pattern.search(e.key))
-        out[name] = us / 1e3 / reps if us else None
-    return out
+    patterns = {name: kernel_pattern(name) for name in calls}
+    records = profile_records(torch, list(calls.values()), ", ".join(calls),
+                              patterns=tuple(patterns.values()))
+    return {name: per_call_ms(records, pattern=p)
+            for name, p in patterns.items()}
+
+
+def profile_window_note(torch, what, fn, name=None, windows=10):
+    """``windows`` single windows of PROFILE_REPS calls of ``fn`` with no
+    lead (a reading without spins) and as many with LEAD_SPINS spins ahead,
+    none run again: the records of ``name``'s kernels (or of every kernel)
+    in each, and the spins kept."""
+    pattern = kernel_pattern(name) if name else None
+    fn()
+    torch.cuda.synchronize()
+    parts = []
+    for lead in (0, LEAD_SPINS):
+        kept, spins = [], []
+        for _ in range(windows):
+            records, n_spins = profile_window(torch, [fn], lead=lead)
+            kept.append(sum(n for k, (n, _) in records.items()
+                            if pattern is None or pattern.search(k)))
+            spins.append(n_spins)
+        parts.append(f"lead {lead}: records {'/'.join(map(str, kept))}"
+                     + (f", spins kept {'/'.join(map(str, spins))}"
+                        if lead else ""))
+    return f"{what} ({windows} windows of {PROFILE_REPS} calls): " + \
+        "; ".join(parts)
 
 
 def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
@@ -4907,7 +5359,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
     def parent_chain():
         return binary_stats(*membership_counts(*args), sidx, *thr)
     times[chain] = (cuda_ms(parent_chain, 50), times["binary_from_words"][1])
-    dev[chain] = device_total_ms(torch, parent_chain)
+    dev[chain] = device_total_ms(torch, parent_chain, what=chain)
     # perm_ols at the `-q` design (PT = 5) too; the row above is `-q -c`'s
     pols5 = (m["bX"], m["bused"], m["bncols"], m["phenos_q"])
     q5 = "perm_ols (PT = 5)"
@@ -5022,7 +5474,7 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
                                            * d["used"], d["used"], d["ncols"])
         return student_t_pvalues_plain(*st[:2], d["degenerate"], *st[2:])
     times[k12] = (cuda_ms(dual, 10), cuda_ms(dual_plain, 2, warmup=1))
-    dev[k12] = device_total_ms(torch, dual)
+    dev[k12] = device_total_ms(torch, dual, what=k12)
     mem, _ = pm.perm_membership(*member)
     rows = torch.arange(mem.shape[0], dtype=torch.int32,
                         device=mem.device)[:, None]
@@ -5078,8 +5530,21 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
         cuda_ms(lambda: lmm_rotate(rot, d_all["X"]), 5),
         cuda_ms(lambda: torch.einsum("mn,snp->smp", rot, d_all["X"]), 3,
                 warmup=1))
-    dev[gemm] = device_total_ms(torch, lambda: lmm_rotate(rot, d_all["X"]))
+    dev[gemm] = device_total_ms(
+        torch, lambda: lmm_rotate(rot, d_all["X"]), what=gemm)
     bounds[gemm] = bound_of("lmm_gemm", {"X": d_all["X"]})
+    # the three windows that a reading without spins put near or below
+    # their bounds, in single windows with and without the spins
+    say("phase 5 profiler windows, none run again (records of the "
+        "kernels; the GEMM's: its GEMM and its two copies a call, 15 a "
+        "window): "
+        + "; ".join((
+            profile_window_note(torch, qt, lambda: quant_design(
+                *design, tables=True), "quant_design"),
+            profile_window_note(torch, qa, lambda: quant_design(*allrows),
+                                "quant_design"),
+            profile_window_note(torch, gemm,
+                                lambda: lmm_rotate(rot, d_all["X"])))))
 
     def chain():
         st = lmm_regression_batch(d_all["X"], rot, y_rot, d_all["ncols"])
@@ -5096,12 +5561,19 @@ def phase_times(torch, chunk, g0p, g1p, tables, quant, logit, perm, modes,
                                        *st[2:])
     lc = "lmm chain (rotation, ols, student_t)"
     times[lc] = (cuda_ms(chain, 5), cuda_ms(chain_plain, 2, warmup=1))
-    dev[lc] = device_total_ms(torch, chain)
+    dev[lc] = device_total_ms(torch, chain, what=lc)
     b_ols = bound_of("ols", {"X": d_all["X"], "mask": False})[0]
     b_t = bound_of("student_t", {"t1": q["stats"][0],
                                  "df": q["stats"][1]})[0]
     bounds[lc] = (bounds[gemm][0] + b_ols + b_t, "operations"
                   if bounds[gemm][1] == "operations" else "bytes")
+    say(f"phase 5 profiler windows not whole ({len(PROFILE_LOG)}; a "
+        f"window holds {LEAD_SPINS} spins and {PROFILE_REPS} calls; run "
+        f"again where a kernel asked for has no record): " + ("; ".join(
+            f"{what} try {k}, spins {spins}: " + (", ".join(
+                f"{name[:48]} {n}" for name, n in recs.items())
+                or "no record")
+            for what, k, spins, recs in PROFILE_LOG) or "none"))
     say(f"phase 5 times on {smi} (ms per chunk call, kernel / plain; "
         f"device ms per call from torch.profiler; bound ms and what sets "
         f"it): " + "; ".join(
@@ -5708,6 +6180,21 @@ def smoke(torch, device, args, smi, make_fixture):
         say("phase 4 -T regression tables: " + "; ".join(t_lines))
         for name, n in t_launches.items():
             launches[name] = launches.get(name, 0) + n
+        t0 = time.perf_counter()
+        cohort = write_cohort_gfa(paths, os.path.join(work, "cohort"))
+        gfa_s = time.perf_counter() - t0
+        gaf_launches, gaf_tsv, line = phase_gaf(torch, paths, work,
+                                                N_CHROMS, cohort)
+        say(f"{line}; the GFA written in {gfa_s:.1f}s")
+        sim_launches, sim_tsv, line = phase_simulate(torch, work)
+        say(line)
+        for name, n in (*gaf_launches.items(), *sim_launches.items()):
+            launches[name] = launches.get(name, 0) + n
+        say("phase 4 " + "; ".join(
+            phase_bhcorrect(work, tsv, what) for tsv, what in (
+                (gaf_tsv, "the cohort's vcf -g table"),
+                (sim_tsv, "the simulated vcf -b table"))))
+        say(plot_note())
         say(phase_case3(twin, work))
         times, dev, bounds, library = phase_times(
             torch, chunks[0], g0p, g1p, tables, quant, logit, perm, modes,

@@ -31,12 +31,13 @@ device, or as their plain PyTorch versions on the CPU:
   permuted phenotypes (csrc/perm_ols.cu) and the covariate-adjusted
   score test (csrc/score_test.cu).
 
-The slices ported so far, on one device: ``stoat vcf -b`` (with or
-without ``-c``), ``stoat vcf -q`` (with or without ``-c``), each with
-``--permutations N``, and ``stoat graph``: ``python -m stoat_tpu_torch
-vcf -s SNARLS -v VCF -b PHENO | -q PHENO [-c COVAR -C NAMES]
-[--permutations N] -o OUT --device cuda`` writes the same tables as
-``python -m stoat_tpu vcf``.  ROADMAP.md lists what is still to port.
+Every command of stoat_tpu runs here on one device: ``vcf`` in each of its
+modes (``-b``, ``-q``, both, ``-b -c``, ``-q -c``, eQTL, ``--lmm``, with
+``--permutations N``, ``-T`` and ``-g``), ``graph``, and the host-only
+``BHcorrect``, ``simulate``, ``truth`` and ``plot``: ``python -m
+stoat_tpu_torch <command> ...`` writes the same files as ``python -m
+stoat_tpu <command> ...`` (``plot``: the same file names).  ROADMAP.md
+lists what is still to port: the benchmark and the multi-device mesh.
 """
 
 __version__ = "0.3.0"

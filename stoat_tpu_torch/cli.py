@@ -21,9 +21,16 @@ stops (case 3).  ``graph`` follows main_graph (:383-411): walk-set
 partitions of the graph's haplotype paths, tested against a binary
 phenotype.  ``--device`` picks the device of the GWAS (default cuda); a
 CUDA device that is not there is an error, never a quiet run on the CPU.
-The GAF output (``vcf -g``) and the ``BHcorrect``, ``simulate``, ``truth``
-and ``plot`` subcommands of stoat_tpu exit non-zero and name ROADMAP.md,
-where their port is queued.
+``vcf -g`` (with ``-b`` and a graph ``-p``) writes the GAF files of the
+binary table after the GWAS (:mod:`stoat_tpu_torch.gaf`).
+
+The host-only subcommands follow stoat_tpu's and take no ``--device``:
+``BHcorrect`` (main_bh_correct, :359-380: Benjamini-Hochberg adjustment of
+a results TSV, rewritten in place, and its rows below 1e-5),
+``simulate`` and ``truth`` (:414-447: a simulated dataset with its truth
+table, and precision and recall of a results TSV against it) and ``plot``
+(:463-520: QQ, Manhattan, boxplot, histogram, scatter and report PNGs;
+the one command that imports matplotlib).
 """
 
 from __future__ import annotations
@@ -40,9 +47,6 @@ from stoat_tpu_torch.logsetup import TRACE
 __version__ = "0.3.0"
 
 logger = logging.getLogger("stoat")
-
-_NOT_PORTED = ("is not ported to stoat_tpu_torch yet (see ROADMAP.md, "
-               "queue 1); run it with python -m stoat_tpu")
 
 _LOG_LEVELS = {0: logging.ERROR, 1: logging.WARNING, 2: logging.INFO,
                3: logging.DEBUG, 4: TRACE}
@@ -77,8 +81,12 @@ def _check_file(path: str) -> str:
     return path
 
 
-def _not_ported(what: str) -> int:
-    sys.stderr.write(f"Error: [stoat vcf] {what} {_NOT_PORTED}\n")
+def _not_ported(options: List[str]) -> int:
+    """An option that neither this ``vcf`` nor stoat_tpu's has: refused
+    with argparse's exit code, before anything runs."""
+    sys.stderr.write(f"Error: [stoat vcf] unrecognized arguments: "
+                     f"{' '.join(options)} (stoat_tpu's vcf has no such "
+                     f"option either)\n")
     return 2
 
 
@@ -131,9 +139,7 @@ def main_vcf(argv: List[str]) -> int:
     # an option stoat_tpu's vcf does not have either
     args, unknown = ap.parse_known_args(argv)
     if unknown:
-        return _not_ported(f"option {' '.join(unknown)}")
-    if args.gaf:
-        return _not_ported("the GAF output (-g)")
+        return _not_ported(unknown)
     _setup_logging(args.verbose)
     _set_threads(args.thread)
 
@@ -198,6 +204,10 @@ def main_vcf(argv: List[str]) -> int:
             "Case 2 (GWAS + snarl path decomposition): graph_path + "
             "dist_path + vcf_path + phenotype (+ optional file)\n"
             "Case 3 (snarl path decomposition): graph_path + dist_path")
+        return 1
+    if args.gaf and (not args.binary or not args.graph):
+        logger.error("[stoat vcf] GAF file can be generated only with binary "
+                     "phenotype AND with the graph graph")
         return 1
     # the mixed model's flag rules (stoat_tpu/cli.py:215-242), checked
     # before any output
@@ -316,10 +326,32 @@ def main_vcf(argv: List[str]) -> int:
         _permutations(args, snarls_chr, binary_phenotype,
                       quantitative_phenotype, covariate, mode == "lmm",
                       device)
+    if args.gaf and mode == "binary":
+        _write_gaf(args.graph, ref_chr, output_tsv, snarls_chr,
+                   os.path.join(args.output, "binary_table_vcf.gaf"))
+    elif args.gaf:
+        logger.warning(
+            "-g/--gaf: GAF emission needs the pure binary mode (it "
+            "consumes the GROUP_PATHS column, absent from the %s "
+            "layout); skipping.", mode)
     t_end = time.time()
     logger.info("GWAS time analysis : %.3f s", t_end - t_gwas)
     logger.info("Total time : %.3f s", t_end - t_start)
     return 0
+
+
+def _write_gaf(graph_path, ref_chr, output_tsv, snarls_chr,
+               output_gaf) -> None:
+    """The two GAF files of the binary table (stoat_tpu/cli.py:337-346):
+    the graph loaded by content (GFA, .hg, .pg or .gbz), its node
+    lengths, then :func:`~stoat_tpu_torch.gaf.gaf_creation`."""
+    from stoat_tpu_torch.gaf import gaf_creation
+    from stoat_tpu_torch.graph.formats import load_graph
+    t0 = time.time()
+    graph = load_graph(graph_path, ref_chr or None)
+    node_lengths = {nid: graph.node_length(nid) for nid in graph.node_ids()}
+    gaf_creation(output_tsv, snarls_chr, node_lengths, output_gaf)
+    logger.info("GAF output : %.3f s", time.time() - t0)
 
 
 def _lmm_null_model(kin, list_samples, quantitative_phenotype, covariate):
@@ -412,6 +444,128 @@ def main_graph(argv: List[str]) -> int:
         device=device)
 
 
+def main_bh_correct(argv: List[str]) -> int:
+    """stoat_tpu/cli.py:359-380: the TSV is rewritten in place."""
+    ap = argparse.ArgumentParser(prog="python -m stoat_tpu_torch BHcorrect")
+    ap.add_argument("-t", "--tsv", required=True)
+    ap.add_argument("-p", "--p-col", type=int, required=True,
+                    help="1-indexed p-value column")
+    ap.add_argument("-a", "--adjusted-col", type=int, required=True,
+                    help="1-indexed adjusted-p column")
+    ap.add_argument("-v", "--top-variant", default="top_variant.tsv")
+    ap.add_argument("-o", "--output", default="output")
+    ap.add_argument("-V", "--verbose", type=int, default=1)
+    args = ap.parse_args(argv)
+    _setup_logging(args.verbose)
+    _check_file(args.tsv)
+    os.makedirs(args.output, exist_ok=True)
+
+    from stoat_tpu_torch.post import add_bh_adjusted_column
+    add_bh_adjusted_column(
+        args.tsv, args.output,
+        os.path.join(args.output, args.top_variant),
+        args.p_col - 1, args.adjusted_col - 1)
+    return 0
+
+
+def main_simulate(argv: List[str]) -> int:
+    """stoat_tpu/cli.py:414-430."""
+    ap = argparse.ArgumentParser(prog="python -m stoat_tpu_torch simulate")
+    ap.add_argument("-o", "--output", default="simulated")
+    ap.add_argument("-n", "--samples", type=int, default=200)
+    ap.add_argument("-s", "--snarls", type=int, default=100)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--effect-fraction", type=float, default=0.2)
+    ap.add_argument("--effect-shift", type=float, default=0.35)
+    args = ap.parse_args(argv)
+    from stoat_tpu_torch.simulate import generate_dataset
+    files = generate_dataset(args.output, args.samples, args.snarls,
+                             args.seed, effect_fraction=args.effect_fraction,
+                             effect_shift=args.effect_shift)
+    for key, path in files.items():
+        print(f"{key}\t{path}")
+    return 0
+
+
+def main_truth(argv: List[str]) -> int:
+    """stoat_tpu/cli.py:433-447: one JSON line."""
+    ap = argparse.ArgumentParser(prog="python -m stoat_tpu_torch truth")
+    ap.add_argument("-r", "--results", required=True,
+                    help="results TSV from stoat vcf")
+    ap.add_argument("-f", "--freq", required=True,
+                    help="truth allele-frequency TSV")
+    ap.add_argument("-p", "--p-threshold", type=float, default=0.05)
+    ap.add_argument("-t", "--freq-threshold", type=float, default=0.2)
+    args = ap.parse_args(argv)
+    _check_file(args.results)
+    _check_file(args.freq)
+    import json
+    from stoat_tpu_torch.simulate import verify_truth
+    print(json.dumps(verify_truth(args.results, args.freq,
+                                  args.p_threshold, args.freq_threshold)))
+    return 0
+
+
+def main_plot(argv: List[str]) -> int:
+    """QQ/Manhattan plots from a results TSV and per-snarl boxplots from
+    -T table dumps (stoat_tpu/cli.py:463-520)."""
+    ap = argparse.ArgumentParser(prog="python -m stoat_tpu_torch plot")
+    ap.add_argument("kind", choices=["qq", "manhattan", "boxplot",
+                                     "histogram", "scatter", "report"])
+    ap.add_argument("-t", "--tsv", metavar="FILE",
+                    help="results TSV (qq/manhattan)")
+    ap.add_argument("-c", "--column", metavar="NAME",
+                    help="p-value column (default: the mode's P column)")
+    ap.add_argument("-d", "--tables", metavar="DIR",
+                    help="-T per-snarl table directory (boxplot)")
+    ap.add_argument("-p", "--phenotype", metavar="FILE",
+                    help="FID/IID/PHENO phenotype file (boxplot)")
+    ap.add_argument("-o", "--output", required=True,
+                    help="output PNG (qq/manhattan/histogram/scatter) "
+                         "or directory (boxplot/report)")
+    ap.add_argument("--x-col", type=int, default=0,
+                    help="x column index (scatter) / value column "
+                         "(histogram)")
+    ap.add_argument("--y-col", type=int, default=1,
+                    help="y column index (scatter)")
+    ap.add_argument("--color-col", type=int, default=-1,
+                    help="coloring column index (scatter)")
+    ap.add_argument("--bins", type=int, default=50,
+                    help="bin count (histogram)")
+    ap.add_argument("--log-y", action="store_true")
+    args = ap.parse_args(argv)
+
+    from stoat_tpu_torch import plots
+    if args.kind == "boxplot":
+        if not args.tables or not args.phenotype:
+            ap.error("boxplot requires -d/--tables and -p/--phenotype")
+        written = plots.snarl_boxplots(args.phenotype, args.tables,
+                                       args.output)
+        logger.info("Wrote %d boxplots to %s", len(written), args.output)
+        return 0
+    if not args.tsv:
+        ap.error(f"{args.kind} requires -t/--tsv")
+    _check_file(args.tsv)
+    if args.kind == "qq":
+        plots.qq_plot(args.tsv, args.output, args.column)
+    elif args.kind == "manhattan":
+        plots.manhattan_plot(args.tsv, args.output, args.column)
+    elif args.kind == "histogram":
+        plots.histogram_plot(args.tsv, args.output, column=args.x_col,
+                             bins=args.bins, log_y=args.log_y)
+    elif args.kind == "scatter":
+        plots.scatter_plot(args.tsv, args.output, x_col=args.x_col,
+                           y_col=args.y_col, color_col=args.color_col,
+                           log_y=args.log_y)
+    else:
+        written = plots.report_plots(args.tsv, args.output, args.column)
+        logger.info("Wrote %d report plots to %s", len(written),
+                    args.output)
+        return 0
+    logger.info("Wrote %s", args.output)
+    return 0
+
+
 def print_help() -> None:
     sys.stderr.write(
         "usage: python -m stoat_tpu_torch <command> [options]\n\n"
@@ -419,12 +573,21 @@ def print_help() -> None:
         "  vcf        VCF-based GWAS: binary (-b), quantitative (-q),\n"
         "             both, mixed model (-q -k --lmm) or eQTL (-e -G),\n"
         "             each with optional covariates -c/-C, -T regression\n"
-        "             tables and --permutations; or the snarl\n"
-        "             decomposition alone (-p -d)\n"
+        "             tables, --permutations and, with -b, GAF files of\n"
+        "             the graph -p (-g); or the snarl decomposition alone\n"
+        "             (-p -d)\n"
         "  graph      graph-path-based association (binary phenotype)\n"
-        "  version    print version\n\n"
-        "The GAF output (vcf -g) and the BHcorrect, simulate, truth and\n"
-        "plot commands are not ported yet; see ROADMAP.md.\n")
+        "  BHcorrect  Benjamini-Hochberg correction of a results TSV\n"
+        "  simulate   generate a simulated dataset with truth labels\n"
+        "  truth      precision/recall of results vs simulated truth\n"
+        "  plot       QQ/Manhattan/boxplot/histogram/scatter/report plots\n"
+        "             (needs matplotlib)\n"
+        "  version    print version\n")
+
+
+COMMANDS = {"vcf": main_vcf, "graph": main_graph,
+            "BHcorrect": main_bh_correct, "simulate": main_simulate,
+            "truth": main_truth, "plot": main_plot}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -433,19 +596,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         print_help()
         return 1
     cmd, rest = argv[0], argv[1:]
-    if cmd == "vcf":
-        return main_vcf(rest)
-    if cmd == "graph":
-        return main_graph(rest)
+    if cmd in COMMANDS:
+        return COMMANDS[cmd](rest)
     if cmd == "version":
         print(f"stoat-tpu-torch {__version__}")
         return 0
     if cmd in ("-h", "--help", "help"):
         print_help()
         return 0
-    if cmd in ("BHcorrect", "simulate", "truth", "plot"):
-        sys.stderr.write(f"Error: the {cmd} subcommand {_NOT_PORTED}\n")
-        return 2
     sys.stderr.write(f"unknown command: {cmd}\n")
     print_help()
     return 1

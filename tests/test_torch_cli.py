@@ -173,12 +173,46 @@ def _spy(real, seen):
     ["vcf", "--gaf"], ["plot", "manhattan"], ["BHcorrect", "-t", "x"],
     ["vcf", "--no-such-flag"], ["truth"], ["BHcorrect"],
     ["simulate", "-o", "x"], ["plot", "qq"]])
-def test_unported_modes_exit_nonzero_naming_roadmap(argv, capsys):
-    """The GAF output (-g/--gaf), an option stoat_tpu's vcf does not have
-    either, and the simulate, truth, BHcorrect and plot subcommands are
-    refused before anything runs, never run on another path."""
-    assert torch_cli.main(argv) != 0
-    assert "ROADMAP.md" in capsys.readouterr().err
+def test_unported_modes_exit_nonzero_naming_roadmap(argv, tmp_path, capsys,
+                                                    monkeypatch):
+    """The argvs that the port once refused (the GAF output, the simulate,
+    truth, BHcorrect and plot subcommands) now run as stoat_tpu runs them,
+    each package from its own directory: the same exit code, the same
+    error text (argparse's, or stoat_tpu's logged message) and, for
+    ``simulate``, the same files byte for byte.  An option that
+    stoat_tpu's vcf does not have either stays refused with argparse's
+    code, naming the option."""
+    runs = {}
+    for name, cli in (("jax", jax_cli), ("torch", torch_cli)):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        try:
+            rc = cli.main(list(argv))
+        except SystemExit as e:
+            rc = e.code
+        err = capsys.readouterr().err
+        text = [line.split("error: ")[-1] for line in err.splitlines()
+                if line and not line.startswith(("usage:", " "))]
+        files = {os.path.relpath(os.path.join(d, f), tmp_path / name):
+                 _read(os.path.join(d, f))
+                 for d, _, fs in os.walk(tmp_path / name) for f in fs}
+        runs[name] = (rc, text, files)
+    assert runs["torch"][0] == runs["jax"][0]
+    assert "ROADMAP.md" not in " ".join(runs["torch"][1])
+    if argv[1:] == ["--no-such-flag"]:
+        assert runs["torch"][0] == 2
+        assert "unrecognized arguments: --no-such-flag" in \
+            runs["jax"][1][-1]
+        assert "unrecognized arguments: --no-such-flag" in \
+            runs["torch"][1][-1]
+        return
+    assert runs["torch"][1] == runs["jax"][1]
+    assert runs["torch"][2] == runs["jax"][2]
+    if argv[0] == "simulate":
+        assert runs["torch"][0] == 0 and len(runs["torch"][2]) == 6
+    else:
+        assert runs["torch"][0] != 0 and runs["torch"][1]
+        assert not runs["torch"][2]
 
 
 @pytest.mark.parametrize("case", ["lmm without -k", "lmm with -b",

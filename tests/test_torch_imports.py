@@ -33,14 +33,30 @@ def _run(script: str, tmp_path) -> subprocess.CompletedProcess:
                           text=True, timeout=300)
 
 
+# a script's first lines: jax, jaxlib, triton and stoat_tpu cannot be
+# imported (indented as the scripts below, which _run dedents)
+BLOCK = """
+        import sys
+        class _Blocked:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "triton",
+                                          "stoat_tpu"):
+                    raise ImportError(f"{name} is blocked here")
+                return None
+        sys.meta_path.insert(0, _Blocked())
+"""
+
+
 def test_port_runs_without_jax_or_triton(tmp_path):
-    """Importing the port, its CLI, its runner, graph mode and every kernel
+    """With jax, jaxlib, triton and stoat_tpu blocked from importing:
+    importing the port, its CLI, its runner, graph mode and every kernel
     module, and whole CPU runs of ``vcf -b``, ``vcf -b -c``, ``vcf -q``,
     ``vcf -q -c`` and the dual ``vcf -b -q`` (each alone and with
     ``--permutations 20``), of eQTL (``-e -G -c``), of the mixed model
     (``-q -k --lmm -c``), of ``-q -c -T 1.0`` (the regression tables), of
     the ``-p/-d`` decomposition route, alone (case 3) and with a GWAS, and
-    of ``graph``, then importing chip_smoke.py, leave jax, jaxlib, triton and
+    of ``graph``, then importing chip_smoke.py, then ``vcf -b -p GFA -g``,
+    ``BHcorrect``, ``simulate`` and ``truth``, leave jax, jaxlib, triton and
     every stoat_tpu module out of sys.modules and need no CUDA toolkit (no
     kernel is built).  The decomposition inputs are written here: the
     module that writes them imports stoat_tpu."""
@@ -48,7 +64,7 @@ def test_port_runs_without_jax_or_triton(tmp_path):
     deco = tmp_path / "deco"
     deco.mkdir()
     gfa, dist, dvcf, dpheno = build_fixture(deco)
-    res = _run(f"""
+    res = _run(BLOCK + f"""
         import os, sys
         import stoat_tpu_torch
         import stoat_tpu_torch.cli
@@ -134,6 +150,28 @@ def test_port_runs_without_jax_or_triton(tmp_path):
         assert rc == 0, rc
         with open(os.path.join(out, "binary_table_graph.tsv")) as fh:
             assert len(fh.readlines()) > 20
+        cohort = smoke.write_cohort_gfa(p, {str(tmp_path / 'cohort')!r})
+        gout = os.path.join(out, "gaf")
+        rc = stoat_tpu_torch.cli.main(
+            ["vcf", "-s", p["snarl"], "-v", p["vcf"], "-b", p["binary"],
+             "-p", cohort["gfa"], "-g", "-o", gout, "--device", "cpu"])
+        assert rc == 0, rc
+        for g in (0, 1):
+            with open(os.path.join(gout, f"binary_table_vcf_{{g}}.gaf")) as fh:
+                assert len(fh.readlines()) > 12
+        rc = stoat_tpu_torch.cli.main(
+            ["BHcorrect", "-t", os.path.join(gout, "binary_table_vcf.tsv"),
+             "-p", "7", "-a", "8", "-o", gout])
+        assert rc == 0, rc
+        assert os.path.exists(os.path.join(gout, "top_variant.tsv"))
+        sim = os.path.join(out, "sim")
+        rc = stoat_tpu_torch.cli.main(["simulate", "-o", sim, "-n", "30",
+                                       "-s", "10"])
+        assert rc == 0, rc
+        rc = stoat_tpu_torch.cli.main(
+            ["truth", "-r", os.path.join(gout, "binary_table_vcf.tsv"), "-f",
+             os.path.join(sim, "snarls.freq.tsv")])
+        assert rc == 0, rc
         assert not build.BUILD_LOG, build.BUILD_LOG
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "triton",
@@ -168,6 +206,100 @@ def test_port_never_imports_stoat_tpu():
             found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                       for n in names if n.split(".")[0] == "stoat_tpu"]
     assert not found, found
+
+
+def test_host_commands_leave_torch_and_matplotlib_out(tmp_path):
+    """``import stoat_tpu_torch`` and its CLI, then ``simulate``, ``truth``
+    and ``BHcorrect`` import neither torch nor matplotlib (they are host
+    work, as in stoat_tpu); ``vcf -b -g`` then imports torch and still not
+    matplotlib; ``plot`` is the one command that imports it."""
+    res = _run(BLOCK + f"""
+        import os, sys
+        import stoat_tpu_torch
+        from stoat_tpu_torch import cli
+        out = {str(tmp_path / 'out')!r}
+        assert cli.main(["simulate", "-o", out, "-n", "40", "-s", "12"]) == 0
+        # a binary results table of the simulated snarls, written here
+        tsv = os.path.join(out, "results.tsv")
+        with open(os.path.join(out, "snarl_analyse.tsv")) as fh, \\
+                open(tsv, "w") as res:
+            fh.readline()
+            res.write("#CHR\\tSTART_POS\\tEND_POS\\tSNARL\\tPATH_LENGTHS\\t"
+                      "P_FISHER\\tP_CHI2\\tGROUP_PATHS\\tDEPTH\\n")
+            for i, line in enumerate(fh):
+                c = line.split("\\t")
+                res.write(f"{{c[0]}}\\t{{c[1]}}\\t{{c[2]}}\\t{{c[4]}}\\t1,1\\t"
+                          f"0.5\\t{{10.0 ** -i:.4g}}\\t3:4,5:6\\t1\\n")
+        assert cli.main(["truth", "-r", tsv, "-f",
+                         os.path.join(out, "snarls.freq.tsv")]) == 0
+        assert cli.main(["BHcorrect", "-t", tsv, "-p", "7", "-a", "8", "-o",
+                         out]) == 0
+        with open(os.path.join(out, "top_variant.tsv")) as fh:
+            assert len(fh.readlines()) > 3
+        assert "torch" not in sys.modules
+        assert "matplotlib" not in sys.modules
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", os.path.join({REPO!r}, "chip_smoke.py"))
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        from fixtures import make_fixture
+        p = make_fixture(os.path.join(out, "data"), n_samples=20,
+                         n_snarls=12, seed=4)
+        g = smoke.write_cohort_gfa(p, os.path.join(out, "graph"))
+        assert cli.main(["vcf", "-s", p["snarl"], "-v", p["vcf"], "-b",
+                         p["binary"], "-p", g["gfa"], "-g", "-o",
+                         os.path.join(out, "run"), "--device", "cpu"]) == 0
+        assert "torch" in sys.modules
+        assert "matplotlib" not in sys.modules
+        if importlib.util.find_spec("matplotlib") is not None:
+            assert cli.main(["plot", "qq", "-t", os.path.join(
+                out, "run", "binary_table_vcf.tsv"), "-o",
+                os.path.join(out, "qq.png")]) == 0
+            assert "matplotlib" in sys.modules
+        print("OK")
+    """, tmp_path)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("OK")
+
+
+def test_matplotlib_only_inside_the_plot_functions():
+    """No module of the port, not chip_smoke.py and no script under tools/
+    imports matplotlib, but the plotting functions of
+    stoat_tpu_torch/plots.py, each inside its own body."""
+    files = sorted(glob.glob(os.path.join(REPO, "stoat_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += sorted(glob.glob(os.path.join(REPO, "tools", "*.py")))
+    plots = os.path.join(REPO, "stoat_tpu_torch", "plots.py")
+    assert plots in files
+    found = []
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for func in [None] + [n for n in ast.walk(tree)
+                              if isinstance(n, ast.FunctionDef)]:
+            body = tree.body if func is None else func.body
+            for node in (n for stmt in body for n in ast.walk(stmt)):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    names = [node.module or ""]
+                else:
+                    continue
+                if any(n.split(".")[0] == "matplotlib" for n in names):
+                    found.append((os.path.relpath(path, REPO),
+                                  func and func.name, node.lineno))
+    inside = {(f, name) for f, name, _ in found if name}
+    assert inside == {("stoat_tpu_torch/plots.py", name) for name in (
+        "qq_plot", "manhattan_plot", "snarl_boxplots", "histogram_plot",
+        "scatter_plot", "report_plots")}, found
+    # every import sits in a function (ast.walk of the module reaches the
+    # same nodes through the functions)
+    by_line = {}
+    for f, name, line in found:
+        by_line.setdefault((f, line), set()).add(name)
+    assert all(names - {None} for names in by_line.values()), found
 
 
 def test_native_libraries_build_under_the_build_dir():
