@@ -8,8 +8,9 @@ g++:
 
 It builds the port's CUDA kernels (seventeen entry points in fourteen
 sources, one nvcc per source, all at once) and the native VCF and graph
-cores from the sources in the checkout, then runs five phases, each
-printing lines and each fatal on failure:
+cores from the sources in the checkout, then runs six phases, each
+printing lines and each fatal on failure (phases 1-5 on the first card, a
+bare ``--device cuda`` held to it where several are visible):
 
   1. card: nvidia-smi name and power limit, torch and CUDA versions, the
      kernels' nvcc build with ptxas register and spill counts;
@@ -91,10 +92,28 @@ printing lines and each fatal on failure:
      torch.cuda._sleep launches that no sum counts, a device time a call
      is each kernel's mean record times its launches a call, every window
      that is not whole is printed, and so are ten windows of the table
-     view, all_rows and the GEMM with and without the spins.
+     view, all_rows and the GEMM with and without the spins;
+  6. the snarl mesh (parallel/): ``vcf -b``, ``-q``, ``-q -c``, ``-b
+     -c``, the dual, ``--lmm``, eQTL and ``-q -c -T 0.01`` at full size,
+     and ``--permutations 1000`` for ``-b``, ``-q`` and ``-b -c``, through
+     the CLI with run_vcf_analysis and run_permutation_test on a mesh of
+     four shards on the first card (and on a mesh of every card where
+     several are visible): every output byte-identical to phase 4's
+     one-device run, every kernel launched shards x chunks times
+     (permutation blocks of 8,192 snarls a shard: shards x blocks), the
+     words uploaded once a chromosome and a device, the mesh ``vcf -b``'s
+     peak memory within half a chromosome's words of a one-device run's
+     (a second copy of the words fails it); the sub-cohort's runs on a
+     mesh of the card and one of the CPU, each byte-identical to the same
+     device's one-device run of phase 4 (the binary tables also across
+     the two meshes); one ``vcf -b`` chunk on one device and on the mesh:
+     bitwise equal, ms by events, device ms, and the bound of its
+     kernels' work on each.
 
 The last two lines of standard output are a JSON object of the kernels and
-the contract line {"ok": true, "device": {...}}.  Without a CUDA device,
+the contract line {"ok": true, "device": {...}}, whose ``count`` is the
+cards the run used (it fails unless that is every visible card).  Without
+a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
 result.  The generated data lives under build/stoat_tpu_torch/ and is
 removed at the end.  It imports nothing of JAX and nothing of the JAX
@@ -3306,8 +3325,6 @@ def phase_dual(torch, paths, work, n_chroms, reference):
     numpy reference; then on the CPU, byte-identical binary table and the
     quantitative table as phase 4's regression rule states."""
     from stoat_tpu_torch import cli, kernels
-    argv = ["vcf", "-s", paths["snarl"], "-v", paths["vcf"], "-b",
-            paths["binary"], "-q", paths["quantitative"]]
     n_chunks = n_chunks_of(paths, n_chroms)
     outs, got, walls = {}, {}, {}
     torch.cuda.synchronize()
@@ -3318,8 +3335,8 @@ def phase_dual(torch, paths, work, n_chroms, reference):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         with PlainTailCounter() as lib:
-            rc, got[device] = run_captured(cli, [*argv, "-o", outs[device],
-                                                 "--device", device])
+            rc, got[device] = run_captured(cli, dual_cli_args(
+                paths, outs[device], device))
         torch.cuda.synchronize()
         walls[device] = time.perf_counter() - t0
         check(rc == 0, f"dual on {device}: exit code {rc}")
@@ -3363,6 +3380,22 @@ def phase_dual(torch, paths, work, n_chroms, reference):
     return launches, walls["cuda"]
 
 
+def eqtl_cli_args(p, out, device):
+    return ["vcf", "-s", p["snarl"], "-v", p["vcf"], "-e", p["qtl_smoke"],
+            "-G", p["genes"], *covar_args(p), "-o", out, "--device", device]
+
+
+def lmm_cli_args(p, out, device):
+    return ["vcf", "-s", p["snarl"], "-v", p["vcf"], "-q", p["lmm_pheno"],
+            "-k", p["kinship"], "--lmm", *covar_args(p), "-o", out,
+            "--device", device]
+
+
+def dual_cli_args(p, out, device):
+    return ["vcf", "-s", p["snarl"], "-v", p["vcf"], "-b", p["binary"],
+            "-q", p["quantitative"], "-o", out, "--device", device]
+
+
 def phase_eqtl(torch, paths, sub, work, n_chroms, reference, genes):
     """``vcf -e E -G G -c C -C AGE,SEX`` on the card at full size: its
     kernels on every chunk, the rows exactly the unfiltered snarls' genes
@@ -3374,10 +3407,7 @@ def phase_eqtl(torch, paths, sub, work, n_chroms, reference, genes):
     from stoat_tpu_torch import writer as W
     from stoat_tpu_torch.io.snarl_file import parse_snarl_path
 
-    def argv(p, out, device):
-        return ["vcf", "-s", p["snarl"], "-v", p["vcf"], "-e", p["qtl_smoke"],
-                "-G", p["genes"], "-c", p["covariate"], "-C",
-                ",".join(COVAR_NAMES), "-o", out, "--device", device]
+    argv = eqtl_cli_args
     n_chunks = n_chunks_of(paths, n_chroms, capped_chunk(paths))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3474,10 +3504,7 @@ def phase_lmm(torch, paths, sub, work, n_chroms, reference, lmm_note):
     from stoat_tpu_torch import cli, kernels
     from stoat_tpu_torch.pipeline import quantitative as tq
 
-    def argv(p, out, device):
-        return ["vcf", "-s", p["snarl"], "-v", p["vcf"], "-q", p["lmm_pheno"],
-                "-k", p["kinship"], "--lmm", "-c", p["covariate"], "-C",
-                ",".join(COVAR_NAMES), "-o", out, "--device", device]
+    argv = lmm_cli_args
     n_chunks = n_chunks_of(paths, n_chroms, capped_chunk(paths))
     flags = []
     real = tq.quant_design
@@ -4079,6 +4106,420 @@ def phase_case3(graph, work):
     return (f"phase 4 case 3: vcf -p -d -r on {graph['n_snarls']} snarls "
             f"({2 * graph['n_samples']} haplotype paths): {n_rows} snarls "
             f"in snarl_analyse.tsv in {wall:.2f}s, no kernel launched")
+
+
+# ---------------------------------------------------------------- the mesh
+
+MESH_SHARDS = 4
+BT, QT = "binary_table_vcf.tsv", "quantitative_table_vcf.tsv"
+LT, ET = "lmm_table_vcf.tsv", "eqtl_table_vcf.tsv"
+BPT, QPT = "binary_permutation_vcf.tsv", "quantitative_permutation_vcf.tsv"
+
+
+def mesh_runs(paths):
+    """The mesh phase's full-size runs: title -> (CLI argv of (out,
+    device), phase 4's one-device output directory under ``work``, the
+    tables compared, kernels a shard a chunk, kernels a chunk (unsharded:
+    eQTL's design), kernels a shard a permutation block, the chunk, -T's
+    regression/ compared)."""
+    def ones(names):
+        return dict.fromkeys(names, 1)
+    capped = capped_chunk(paths)
+    return {
+        "vcf -b": (partial(cli_args, paths), "out_cuda", (BT,),
+                   ones(BINARY_KERNELS), {}, {}, 8192, False),
+        "vcf -q": (partial(regression_cli_args, paths, mode="q"),
+                   "out_cuda_q", (QT,), ones(QUANT_KERNELS), {}, {}, capped,
+                   False),
+        "vcf -q -c -C AGE,SEX": (
+            partial(regression_cli_args, paths, mode="q_c"), "out_cuda_q_c",
+            (QT,), ones(QUANT_KERNELS), {}, {}, capped, False),
+        "vcf -b -c -C AGE,SEX": (
+            partial(regression_cli_args, paths, mode="b_c"), "out_cuda_b_c",
+            (BT,), ones(BC_KERNELS), {}, {}, capped, False),
+        "vcf -b -q": (partial(dual_cli_args, paths), "out_cuda_dual",
+                      (BT, QT), ones(DUAL_KERNELS), {}, {}, 8192, False),
+        "vcf -q -k --lmm -c -C AGE,SEX": (
+            partial(lmm_cli_args, paths), "out_cuda_lmm", (LT,),
+            ones(LMM_KERNELS), {}, {}, capped, False),
+        "vcf -e -G -c -C AGE,SEX": (
+            partial(eqtl_cli_args, paths), "out_cuda_eqtl", (ET,),
+            ones(("eqtl_ols", "student_t")), ones(("quant_design",)), {},
+            capped, False),
+        f"vcf -q -c -C AGE,SEX -T {T_FULL}": (
+            lambda o, d: table_cli_args(paths, o, d, "q_c", T_FULL),
+            "tables_cuda_q_c", (QT,), ones(QUANT_KERNELS), {}, {}, capped,
+            True),
+        f"vcf -b --permutations {PERM_FULL}": (
+            lambda o, d: perm_cli_args(paths, o, d, "b", PERM_FULL),
+            "perm_cuda_b", (BT, BPT), ones(BINARY_KERNELS), {},
+            ones(("chi2_tail", "perm_membership", "perm_binary")), 8192,
+            False),
+        f"vcf -q --permutations {PERM_FULL}": (
+            lambda o, d: perm_cli_args(paths, o, d, "q", PERM_FULL),
+            "perm_cuda_q", (QT, QPT), ones(QUANT_KERNELS), {},
+            ones(("quant_design", "perm_ols", "student_t")), capped, False),
+        f"vcf -b -c -C AGE,SEX --permutations {PERM_FULL}": (
+            lambda o, d: perm_cli_args(paths, o, d, "b_c", PERM_FULL),
+            "perm_cuda_b_c", (BT, BPT), ones(BC_KERNELS), {},
+            ones(("quant_design", "score_precompute", "score_perm",
+                  "chi2_tail")), capped, False),
+    }
+
+
+def mesh_sub_runs(sub):
+    """The sub-cohort's runs on a mesh of the card and of the CPU: title ->
+    (CLI argv of (out, device), phase 4's one-device output directory of
+    the same device, tables, -T's regression/ compared, the binary table
+    compared across the two meshes byte for byte)."""
+    def perm(mode):
+        return lambda o, d: perm_cli_args(sub, o, d, mode, PERM_SUB)
+    return {
+        f"vcf -b --permutations {PERM_SUB}": (
+            perm("b"), "perm_sub_{}_b", (BT, BPT), False, True),
+        f"vcf -q --permutations {PERM_SUB}": (
+            perm("q"), "perm_sub_{}_q", (QT, QPT), False, False),
+        f"vcf -q -c --permutations {PERM_SUB}": (
+            perm("q_c"), "perm_sub_{}_q_c", (QT, QPT), False, False),
+        f"vcf -b -c --permutations {PERM_SUB}": (
+            perm("b_c"), "perm_sub_{}_b_c", (BT, BPT), False, False),
+        f"vcf -b -q --permutations {PERM_SUB}": (
+            perm("bq"), "perm_sub_{}_bq", (BT, QT, BPT, QPT), False, True),
+        "vcf --lmm": (partial(lmm_cli_args, sub), "sub_{}_lmm", (LT,), False,
+                      False),
+        "vcf -e -G": (partial(eqtl_cli_args, sub), "sub_{}_eqtl", (ET,),
+                      False, False),
+        f"vcf -q -c -T {T_SUB}": (
+            lambda o, d: table_cli_args(sub, o, d, "q_c", T_SUB),
+            "tables_sub_{}_q_c", (QT,), True, False),
+    }
+
+
+class OneCard:
+    """While entered, the CLI's bare ``--device cuda`` runs on one card
+    even where several are visible (where the runner's rule would shard
+    over them): phases 4 and 5 are one-device runs; phase 6 hands in its
+    meshes.  With one card visible it changes nothing."""
+
+    def __enter__(self):
+        from stoat_tpu_torch.parallel import mesh
+        from stoat_tpu_torch.pipeline import runner
+        self.mods = (mesh, runner)
+        self.real = mesh.resolve_mesh
+
+        def one_card(device, mesh=None):
+            return mesh
+        mesh.resolve_mesh = runner.resolve_mesh = one_card
+        return self
+
+    def __exit__(self, *exc):
+        mesh, runner = self.mods
+        mesh.resolve_mesh = runner.resolve_mesh = self.real
+        return False
+
+
+class OnMesh:
+    """While entered, the CLI runs its GWAS and its permutation pass on
+    ``mesh``: pipeline/runner.py run_vcf_analysis and
+    pipeline/permutation.py run_permutation_test, the entry points it
+    calls, get ``mesh=mesh``.  ``replicated`` lists the
+    parallel/sharded.py Replicated of each run, whose ``uploads`` count
+    the copies of the replicated inputs; ``words_bytes`` is the largest
+    chromosome's words."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.replicated = []
+        self.words_bytes = 0
+
+    def __enter__(self):
+        from stoat_tpu_torch.parallel import sharded
+        from stoat_tpu_torch.pipeline import permutation, runner
+        self.mods = (runner, permutation, sharded)
+        self.real = (runner.run_vcf_analysis,
+                     permutation.run_permutation_test, sharded.Replicated)
+        runner.run_vcf_analysis = partial(self.real[0], mesh=self.mesh)
+        permutation.run_permutation_test = partial(self.real[1],
+                                                   mesh=self.mesh)
+        on = self
+
+        class Seen(self.real[2]):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                on.replicated.append(self)
+
+            def get(self, name, source, make):
+                got = super().get(name, source, make)
+                if name == "words":
+                    on.words_bytes = max(on.words_bytes, got[0].numel()
+                                         * got[0].element_size())
+                return got
+        runner.Replicated = Seen
+        sharded.Replicated = Seen
+        return self
+
+    def __exit__(self, *exc):
+        runner, permutation, sharded = self.mods
+        runner.run_vcf_analysis, permutation.run_permutation_test = \
+            self.real[:2]
+        runner.Replicated = sharded.Replicated = self.real[2]
+        return False
+
+
+def same_files(a, b, what):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        check(fa.read() == fb.read(), f"{what}: {a} differs from {b}")
+
+
+def same_regression(a, b, what):
+    files = regression_files(a)
+    check(files and files == regression_files(b), f"{what}: regression/ "
+          f"differs ({len(files)} tables)")
+    return len(files)
+
+
+def mesh_chunk(torch, paths, mesh, device):
+    """One vcf -b chunk on one device and split over ``mesh``: the
+    runner's chunk calls (binary_analyze_chromosome; binary_analyze_sharded)
+    bitwise equal, their ms by events (host waits for the results inside),
+    device ms of every kernel and copy and of the two kernels alone
+    (torch.profiler), and the bound: the sum of binary_from_words' and
+    chi2_tail's bounds over the shards' inputs (one shard: the chunk)."""
+    import numpy as np
+    from stoat_tpu_torch.convert import (chunk_words, pheno_masks, upload,
+                                         upload_words)
+    from stoat_tpu_torch.io.phenotype import parse_binary_pheno
+    from stoat_tpu_torch.io.snarl_file import parse_snarl_path
+    from stoat_tpu_torch.io.vcf import VcfReader
+    from stoat_tpu_torch.parallel import (binary_analyze_sharded,
+                                          shard_packed_chromosome)
+    from stoat_tpu_torch.parallel.sharded import Replicated
+    from stoat_tpu_torch.pipeline.binary import (binary_analyze_chromosome,
+                                                 binary_tables)
+    from stoat_tpu_torch.pipeline.packed import (membership_counts,
+                                                 tail_mask_words)
+    from stoat_tpu_torch.pipeline.runner import iter_chromosome_matrices
+    from stoat_tpu_torch.tables import pack_chromosome_chunks
+
+    reader = VcfReader(paths["vcf"])
+    samples = reader.samples
+    reader.close()
+    pheno, _ = parse_binary_pheno(paths["binary"], samples)
+    snarls_chr = parse_snarl_path(paths["snarl"])
+    gen = iter_chromosome_matrices(paths["vcf"], 2 * len(samples),
+                                   snarls_chr)
+    chrom, matrix = next(gen)
+    packed = pack_chromosome_chunks(snarls_chr[chrom], matrix, 8192)[0]
+    gen.close()
+    H = packed.n_haplotypes
+    host_words = chunk_words(packed)
+    W = int(host_words.shape[1])
+    words = upload_words(host_words, device)
+    masks = pheno_masks(pheno, H, W, device)
+    sharded = shard_packed_chromosome(packed.snarls, matrix, len(mesh))
+    rep = Replicated(mesh)
+    S = packed.n_snarls
+
+    def single():
+        return binary_analyze_chromosome(packed, pheno, *THRESHOLDS, device,
+                                         words=words, pheno=masks)["p_chi2"]
+
+    def meshed():
+        return binary_analyze_sharded(sharded, pheno, mesh, *THRESHOLDS,
+                                      replicated=rep)["p_chi2"]
+    check(same_bits(single()[:S], meshed()), "one vcf -b chunk: the mesh's "
+          "p_chi2 differs from one device's")
+    two = re.compile(r"(?<![A-Za-z0-9_])(binary_from_words|chi2_tail|"
+                     r"chi2_tail_warp)_kernel\b")
+    out = {}
+    for what, fn in (("one device", single), ("mesh", meshed)):
+        records = profile_records(torch, [fn], f"mesh phase: {what}")
+        out[what] = (cuda_ms(fn, 20), per_call_ms(records),
+                     per_call_ms(records, pattern=two))
+
+    def bound(tables):
+        total = 0.0
+        for pidx, valid, sidx in tables:
+            pidx, valid, sidx = (upload(np.ascontiguousarray(a), device)
+                                 for a in (pidx, valid, sidx))
+            tail = upload(tail_mask_words(H, W).view(np.int32), device)
+            t = binary_tables(*membership_counts(words, pidx, valid, tail,
+                                                 masks[0]),
+                              sidx, *THRESHOLDS)
+            total += bound_of("binary_from_words", {
+                "words": words, "path_idx": pidx, "path_valid": valid,
+                "sidx": sidx, "abcd": tuple(t[k] for k in "abcd"),
+                "k": t["k"]})[0]
+            total += bound_of("chi2_tail", {"stat": t["chi2_stat"],
+                                            "df": t["chi2_df"]})[0]
+        return total
+    out["bound one device"] = bound([(packed.path_edge_idx(),
+                                      packed.path_valid,
+                                      packed.snarl_path_idx)])
+    out["bound mesh"] = bound(zip(sharded.path_idx, sharded.path_valid,
+                                  sharded.snarl_path_idx))
+    return chrom, S, out
+
+
+def phase_mesh(torch, device, paths, sub, work, n_chroms):
+    """The snarl mesh (parallel/) on the card: the full-size runs of
+    ``mesh_runs`` through the CLI with run_vcf_analysis and
+    run_permutation_test on a mesh of MESH_SHARDS shards on the first card
+    (and, with several visible, on every card), each output byte-identical
+    to phase 4's one-device run, every kernel launched shards x chunks
+    times (permutation blocks: shards x blocks), the replicated words
+    uploaded once a chromosome; ``vcf -b`` again on one device beside its
+    mesh run (walls, peak memory); the sub-cohort's runs on a mesh of the
+    card and of the CPU, each equal to the same device's one-device run;
+    one chunk's time.  Returns (launches over the full-size mesh runs,
+    lines, the distinct cards the meshes ran on)."""
+    from stoat_tpu_torch import cli, kernels
+    from stoat_tpu_torch.parallel import make_snarl_mesh
+
+    meshes = [make_snarl_mesh([device] * MESH_SHARDS)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_snarl_mesh())
+    launches, lines = {}, []
+
+    # vcf -b on one device again, beside its mesh run
+    out = os.path.join(work, "mesh_single_b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    check(cli.main(cli_args(paths, out, "cuda")) == 0, "vcf -b: exit code")
+    torch.cuda.synchronize()
+    single_wall = time.perf_counter() - t0
+    single_peak = torch.cuda.max_memory_allocated() - held
+    same_files(os.path.join(out, BT), os.path.join(work, "out_cuda", BT),
+               "vcf -b again")
+
+    for mesh in meshes:
+        shards = len(mesh)
+        names = ",".join(str(d) for d in mesh.devices)
+        walls = []
+        for title, (argv, single_dir, tables, per_shard, per_chunk,
+                    per_block, chunk, regression) in mesh_runs(paths).items():
+            n_chunks = n_chunks_of(paths, n_chroms, chunk)
+            n_blocks = n_chunks_of(paths, n_chroms, 8192 * shards)
+            out = os.path.join(work, f"mesh{shards}_{len(lines)}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with OnMesh(mesh) as on, PlainTailCounter() as lib:
+                rc = cli.main(argv(out, "cuda"))
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(kernels.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() - held
+            check(rc == 0, f"mesh {title}: exit code {rc}")
+            check(lib.calls == 0, f"mesh {title}: the plain chi-squared tail "
+                  f"called {lib.calls} times")
+            for name, n in got.items():
+                want = (per_shard.get(name, 0) * shards * n_chunks
+                        + per_chunk.get(name, 0) * n_chunks
+                        + per_block.get(name, 0) * shards * n_blocks)
+                check(n == want, f"mesh {title}: kernel {name} launched {n} "
+                      f"times, expected {want} ({shards} shards, {n_chunks} "
+                      f"chunks, {n_blocks} permutation blocks)")
+                launches[name] = launches.get(name, 0) + n
+            # eQTL's design runs unsharded, on the mesh's first device
+            words = [r.uploads.get("words", 0) for r in on.replicated]
+            check(per_chunk or words and all(
+                n == n_chroms * len(mesh.distinct) for n in words),
+                  f"mesh {title}: the words uploaded {words} times a run, "
+                  f"expected once a chromosome a device")
+            for table in tables:
+                same_files(os.path.join(out, table),
+                           os.path.join(work, single_dir, table),
+                           f"mesh {title}")
+            n_tables = (same_regression(out, os.path.join(work, single_dir),
+                                        f"mesh {title}") if regression
+                        else None)
+            walls.append(f"{title} {wall:.2f}s"
+                         + (f" ({n_tables} -T tables)" if n_tables else ""))
+            if title == "vcf -b":
+                line = (f"phase 6 mesh of {shards} shards ({names}): vcf -b "
+                        f"LAUNCHES binary_from_words "
+                        f"{got['binary_from_words']}, chi2_tail "
+                        f"{got['chi2_tail']} = {shards} shards x "
+                        f"{n_chunks} chunks; cuda wall {wall:.2f}s against "
+                        f"{single_wall:.2f}s on one device; "
+                        f"max_memory_allocated {peak / 1e6:.1f} MB against "
+                        f"{single_peak / 1e6:.1f} MB, the words "
+                        f"({on.words_bytes / 1e6:.1f} MB a chromosome) held "
+                        f"once a device ({words[0]} uploads, {n_chroms} "
+                        f"chromosomes)")
+                # the words held once: a second copy of a chromosome's
+                # words (one left from the chromosome before, or one a
+                # shard) adds a whole words' bytes
+                check(peak < single_peak + on.words_bytes // 2,
+                      f"mesh vcf -b: peak {peak} bytes against {single_peak} "
+                      f"on one device, more than half a chromosome's words "
+                      f"({on.words_bytes} bytes) over it")
+                lines.append(line)
+            shutil.rmtree(out, ignore_errors=True)
+        lines.append(f"phase 6 mesh of {shards} shards ({names}): every "
+                     f"output byte-identical to phase 4's one-device run, "
+                     f"every kernel launched shards x chunks (permutation "
+                     f"blocks of {8192 * shards} snarls: shards x blocks), "
+                     f"the plain chi-squared tail never; cuda walls: "
+                     + ", ".join(walls))
+
+    # the sub-cohort on a mesh of the card and of the CPU
+    parts = []
+    for title, (argv, single_dir, tables, regression, across) in \
+            mesh_sub_runs(sub).items():
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            mesh = make_snarl_mesh([dev if dev == "cpu" else device]
+                                   * MESH_SHARDS)
+            outs[dev] = os.path.join(work, f"mesh_sub_{dev}_{len(parts)}")
+            t0 = time.perf_counter()
+            with OnMesh(mesh):
+                rc = cli.main(argv(outs[dev], dev))
+            check(rc == 0, f"sub-cohort mesh {title} on {dev}: exit code")
+            for table in tables:
+                same_files(os.path.join(outs[dev], table),
+                           os.path.join(work, single_dir.format(dev), table),
+                           f"sub-cohort mesh {title} on {dev}")
+            if regression:
+                same_regression(outs[dev],
+                                os.path.join(work, single_dir.format(dev)),
+                                f"sub-cohort mesh {title} on {dev}")
+            outs[dev] = (outs[dev], time.perf_counter() - t0)
+        if across:
+            same_files(os.path.join(outs["cuda"][0], BT),
+                       os.path.join(outs["cpu"][0], BT),
+                       f"sub-cohort mesh {title}: cuda against cpu")
+        parts.append(f"{title} cuda {outs['cuda'][1]:.2f}s, cpu "
+                     f"{outs['cpu'][1]:.2f}s")
+    lines.append(f"phase 6 mesh on the sub-cohort ({sub['n_samples']} x "
+                 f"{sub['n_snarls']} snarls, {MESH_SHARDS} shards on the "
+                 f"card and on the CPU): each output byte-identical to the "
+                 f"same device's one-device run of phase 4, so the CPU mesh "
+                 f"holds to the card's mesh as phase 4's CPU runs to the "
+                 f"card's (binary tables byte for byte: checked directly); "
+                 + "; ".join(parts))
+
+    chrom, S, t = mesh_chunk(torch, paths, meshes[0], device)
+
+    def ms(v):
+        return "not measured" if v is None else f"{v:.4f} ms"
+    a, b = t["one device"], t["mesh"]
+    lines.append(
+        f"phase 6 mesh: one vcf -b chunk ({chrom}, {S} snarls), the "
+        f"runner's chunk call with its uploads and host copies, p_chi2 "
+        f"bitwise equal: one device {a[0]:.4f} ms by events, device "
+        f"{ms(a[1])} (binary_from_words + chi2_tail {ms(a[2])}), bound "
+        f"{t['bound one device']:.4f} ms; {MESH_SHARDS} shards on {device}: "
+        f"{b[0]:.4f} ms by events, device {ms(b[1])} (kernels {ms(b[2])}), "
+        f"bound {t['bound mesh']:.4f} ms (the sum of the shards' "
+        f"binary_from_words and chi2_tail bounds)")
+    cards = {d for mesh in meshes for d in mesh.devices}
+    return launches, lines, cards
 
 
 # ---------------------------------------------------------------- bounds
@@ -4848,6 +5289,16 @@ REGRESSION_PATHS = {
 }
 
 
+def regression_cli_args(p, out, device, mode):
+    """``vcf`` with the phenotype and covariates of regression path
+    ``mode`` (REGRESSION_PATHS)."""
+    _, _, flag, with_covar, _ = REGRESSION_PATHS[mode]
+    pheno = p["binary"] if flag == "-b" else p["quantitative"]
+    return ["vcf", "-s", p["snarl"], "-v", p["vcf"], flag, pheno,
+            *(covar_args(p) if with_covar else []), "-o", out, "--device",
+            device]
+
+
 def run_captured(cli, args):
     """Run the CLI; return its exit code and each snarl's results as the
     writer received them, at full precision: {(chrom, snarl): (filtered,
@@ -4930,13 +5381,7 @@ def phase_main_regression(torch, paths, work, n_chroms, mode, reference):
     out_cuda = os.path.join(work, f"out_cuda_{mode}")
     out_cpu = os.path.join(work, f"out_cpu_{mode}")
     n_chunks = n_chunks_of(paths, n_chroms, capped_chunk(paths))
-
-    def argv(p, out, device):
-        covar = (["-c", p["covariate"], "-C", ",".join(COVAR_NAMES)]
-                 if with_covar else [])
-        pheno = p["binary"] if flag == "-b" else p["quantitative"]
-        return ["vcf", "-s", p["snarl"], "-v", p["vcf"], flag, pheno, *covar,
-                "-o", out, "--device", device]
+    argv = partial(regression_cli_args, mode=mode)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
@@ -6020,9 +6465,6 @@ def lmm_null_model(paths):
 
 
 def run(args):
-    # the run uses one card, the first visible one, and so reports one
-    os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
-        "CUDA_VISIBLE_DEVICES", "0").split(",")[0]
     try:
         import torch
     except ImportError:
@@ -6047,8 +6489,9 @@ def run(args):
 
     t_start = time.perf_counter()
     smi = phase_card(torch)
-    launches, err, times, dev, bounds, library = smoke(
-        torch, device, args, smi, make_fixture)
+    with OneCard():
+        launches, err, times, dev, bounds, library, cards = smoke(
+            torch, device, args, smi, make_fixture)
     # library_ms: one PyTorch call computes K5's function
     # (torch.special.gammaincc); for perm_ols and score_perm it is their
     # GEMM core alone (one torch.matmul), for ols and eqtl_ols X^T X alone
@@ -6072,14 +6515,24 @@ def run(args):
              "library_ms": library[label]}
             for label in times if label.startswith(entry["name"] + " ")
             and label.endswith("[K, S]")]
+    # the cards the run used: phases 1-5, the kernels line and the mesh of
+    # MESH_SHARDS shards on cuda:0; phase 6's mesh of every card, where
+    # several are visible, on the others
+    used = sorted({device} | cards, key=str)
     count = torch.cuda.device_count()
-    check(count == 1, f"{count} devices visible, the run used 1")
-    say(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")
+    check(len(used) == count, f"{count} cards visible, the run used "
+          f"{len(used)}: {', '.join(map(str, used))}")
+    others = [str(d) for d in used if d != device]
+    say(f"chip_smoke total {time.perf_counter() - t_start:.1f}s on "
+        f"{len(used)} card(s): phases 1-5, the kernels line and the mesh of "
+        f"{MESH_SHARDS} shards on {device}" + (
+            f"; phase 6's mesh of every card also on {', '.join(others)}"
+            if others else ""))
     say(smi)
     say(json.dumps({"kernels": kernels_json}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": count}}))
+        "count": len(used)}}))
     return 0
 
 
@@ -6206,6 +6659,12 @@ def smoke(torch, device, args, smi, make_fixture):
                 f" permuted snarl-tests/s)" for m, w in perm_walls.items())
             + "; second runs: " + ", ".join(
                 f"{PERM_TITLES[m]} {w:.3f}" for m, w in again.items()))
+        mesh_launches, mesh_lines, cards = phase_mesh(torch, device, paths,
+                                                      sub, work, N_CHROMS)
+        for line in mesh_lines:
+            say(line)
+        for name, n in mesh_launches.items():
+            launches[name] = launches.get(name, 0) + n
         if args.profile:
             for mode in ("b", "q_c", "b_c"):
                 say(profile_main_path(torch, device, paths, work,
@@ -6216,7 +6675,7 @@ def smoke(torch, device, args, smi, make_fixture):
                                  mode))
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return launches, err, times, dev, bounds, library
+    return launches, err, times, dev, bounds, library, cards
 
 
 def main():

@@ -31,13 +31,16 @@ device, or as their plain PyTorch versions on the CPU:
   permuted phenotypes (csrc/perm_ols.cu) and the covariate-adjusted
   score test (csrc/score_test.cu).
 
-Every command of stoat_tpu runs here on one device: ``vcf`` in each of its
-modes (``-b``, ``-q``, both, ``-b -c``, ``-q -c``, eQTL, ``--lmm``, with
+Every command of stoat_tpu runs here: ``vcf`` in each of its modes
+(``-b``, ``-q``, both, ``-b -c``, ``-q -c``, eQTL, ``--lmm``, with
 ``--permutations N``, ``-T`` and ``-g``), ``graph``, and the host-only
 ``BHcorrect``, ``simulate``, ``truth`` and ``plot``: ``python -m
 stoat_tpu_torch <command> ...`` writes the same files as ``python -m
-stoat_tpu <command> ...`` (``plot``: the same file names).  ROADMAP.md
-lists what is still to port: the benchmark and the multi-device mesh.
+stoat_tpu <command> ...`` (``plot``: the same file names).  ``vcf`` runs
+on one device, or with its snarls split over several (``parallel``: the
+snarl mesh, each shard on the kernels above on its own device; ``vcf
+--device cuda`` takes every visible card when there are several).
+ROADMAP.md lists what is still to port: the benchmark.
 """
 
 __version__ = "0.3.0"

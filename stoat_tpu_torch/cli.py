@@ -1,8 +1,8 @@
-"""Command line of the PyTorch/CUDA port: ``stoat vcf`` (every
-single-device mode, with the permutation test, the ``-T`` regression tables
-and the decomposition alone) and ``stoat graph``.
+"""Command line of the PyTorch/CUDA port: ``stoat vcf`` (every mode, with
+the permutation test, the ``-T`` regression tables and the decomposition
+alone) and ``stoat graph``.
 
-``vcf`` follows stoat_tpu/cli.py main_vcf (:57-356) on one device: a binary
+``vcf`` follows stoat_tpu/cli.py main_vcf (:57-356): a binary
 phenotype (``-b``, chi-squared + Fisher; with ``-c FILE -C NAME[,NAME...]``,
 IRLS logistic regression, whose model leaves the covariates out as the
 reference does), a quantitative phenotype (``-q``, OLS) with or without
@@ -21,6 +21,9 @@ stops (case 3).  ``graph`` follows main_graph (:383-411): walk-set
 partitions of the graph's haplotype paths, tested against a binary
 phenotype.  ``--device`` picks the device of the GWAS (default cuda); a
 CUDA device that is not there is an error, never a quiet run on the CPU.
+``vcf --device cuda`` with more than one visible card splits the snarls
+over every card (the mesh, parallel/), as stoat_tpu does over every
+device; ``cuda:N`` (or ``CUDA_VISIBLE_DEVICES``) pins one card.
 ``vcf -g`` (with ``-b`` and a graph ``-p``) writes the GAF files of the
 binary table after the GWAS (:mod:`stoat_tpu_torch.gaf`).
 
@@ -66,13 +69,20 @@ def _set_threads(n: int) -> None:
         os.environ["STOAT_THREADS"] = str(n)
 
 
-def _resolve(device: str, command: str):
-    """The torch device, or exit naming why (before any output)."""
+def _resolve(device: str, command: str, mesh: bool = False):
+    """The torch device, or exit naming why (before any output).  With
+    ``mesh``, a bare ``cuda`` stays bare: the GWAS then runs on every
+    visible card when there are several (parallel/mesh.py
+    resolve_mesh)."""
+    import torch
     from stoat_tpu_torch.device import resolve_device
     try:
-        return resolve_device(device)
+        dev = resolve_device(device)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"Error: [stoat {command}] {e}") from e
+    if mesh and dev.type == "cuda" and torch.device(device).index is None:
+        return torch.device("cuda")
+    return dev
 
 
 def _check_file(path: str) -> str:
@@ -134,7 +144,8 @@ def main_vcf(argv: List[str]) -> int:
     ap.add_argument("-V", "--verbose", type=int, default=1)
     ap.add_argument("-o", "--output", default="output")
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the GWAS: cuda (default), cuda:N "
+                    help="torch device of the GWAS: cuda (default; every "
+                         "visible card when there are several), cuda:N "
                          "or cpu; cuda without a card is an error")
     # an option stoat_tpu's vcf does not have either
     args, unknown = ap.parse_known_args(argv)
@@ -219,7 +230,8 @@ def main_vcf(argv: List[str]) -> int:
                          "quantitative phenotype (-q)")
 
     # the decomposition alone runs on the host: no device to resolve
-    device = None if only_snarl_parsing else _resolve(args.device, "vcf")
+    device = (None if only_snarl_parsing
+              else _resolve(args.device, "vcf", mesh=True))
     os.makedirs(args.output, exist_ok=True)
     regression_dir = os.path.join(args.output, "regression")
     if args.table_threshold != -1:

@@ -303,7 +303,9 @@ extern "C" int binary_from_words_launch(
   const bool rows_staged =
       from_words_shared(tile, Pmax, K, W, true) <= kRowsBudget;
   const size_t smem = from_words_shared(tile, Pmax, K, W, rows_staged);
-  static const cudaError_t allowed = cudaFuncSetAttribute(
+  // set at every launch: the runtime keeps a function's attributes for
+  // each device apart, and a launch may go to any card
+  const cudaError_t allowed = cudaFuncSetAttribute(
       binary_from_words_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(kMaxShared));
   if (allowed != cudaSuccess) return int(allowed);

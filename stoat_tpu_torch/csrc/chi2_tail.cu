@@ -48,6 +48,7 @@
 //        -fmad=false -shared -Xcompiler -fPIC
 //        (stoat_tpu_torch/kernels/build.py)
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -261,17 +262,31 @@ __global__ void __launch_bounds__(kWarpThreads)
   }
 }
 
-// blocks of ``kernel`` resident on the card at once (every SM full)
+// blocks of ``kernel`` resident on the current card at once (every SM
+// full): the card's own answer, computed at its first launch there and
+// kept in ``cache`` by device index (a device past the cache asks again)
+constexpr int kMaxDevices = 64;
+
 template <typename Kernel>
-int resident_blocks(Kernel kernel, int threads) {
+int resident_blocks(Kernel kernel, int threads, std::atomic<int>* cache) {
   int device = 0;
+  cudaGetDevice(&device);
+  const bool cached = device >= 0 && device < kMaxDevices;
+  if (cached) {
+    const int got = cache[device].load(std::memory_order_relaxed);
+    if (got > 0) return got;
+  }
   int sms = 0;
   int per_sm = 0;
-  cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  return sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (cached) cache[device].store(blocks, std::memory_order_relaxed);
+  return blocks;
 }
+
+std::atomic<int> tile_blocks_of[kMaxDevices];
+std::atomic<int> warp_blocks_of[kMaxDevices];
 
 }  // namespace
 
@@ -283,9 +298,10 @@ extern "C" int chi2_tail_launch(const void* stat, const void* df,
       (n > 0 && n % df_period != 0)) {
     return int(cudaErrorInvalidValue);
   }
-  static const int tile_blocks = resident_blocks(chi2_tail_kernel, kThreads);
-  static const int warp_blocks =
-      resident_blocks(chi2_tail_warp_kernel, kWarpThreads);
+  const int tile_blocks =
+      resident_blocks(chi2_tail_kernel, kThreads, tile_blocks_of);
+  const int warp_blocks =
+      resident_blocks(chi2_tail_warp_kernel, kWarpThreads, warp_blocks_of);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* st = static_cast<const double*>(stat);
   const auto* d = static_cast<const double*>(df);

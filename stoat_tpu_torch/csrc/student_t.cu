@@ -58,6 +58,7 @@
 //        (stoat_tpu_torch/kernels/build.py)
 
 #include <cmath>
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -335,17 +336,31 @@ __global__ void __launch_bounds__(kBatchThreads) student_t_batch_kernel(
   }
 }
 
-// blocks of ``kernel`` resident on the card at once (every SM full)
+// blocks of ``kernel`` resident on the current card at once (every SM
+// full): the card's own answer, computed at its first launch there and
+// kept in ``cache`` by device index (a device past the cache asks again)
+constexpr int kMaxDevices = 64;
+
 template <typename Kernel>
-int resident_blocks(Kernel kernel, int threads) {
+int resident_blocks(Kernel kernel, int threads, std::atomic<int>* cache) {
   int device = 0;
+  cudaGetDevice(&device);
+  const bool cached = device >= 0 && device < kMaxDevices;
+  if (cached) {
+    const int got = cache[device].load(std::memory_order_relaxed);
+    if (got > 0) return got;
+  }
   int sms = 0;
   int per_sm = 0;
-  cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
-  return sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = sms * (per_sm > 0 ? per_sm : 1);
+  if (cached) cache[device].store(blocks, std::memory_order_relaxed);
+  return blocks;
 }
+
+std::atomic<int> wave_of[kMaxDevices];
+std::atomic<int> batch_blocks_of[kMaxDevices];
 
 }  // namespace
 
@@ -354,9 +369,9 @@ extern "C" int student_t_launch(const void* t1, const void* df,
                                 const void* se, const void* r2, void* p_out,
                                 void* beta_out, void* se_out, void* r2_out,
                                 int64_t S, void* stream) {
-  static const int wave = resident_blocks(student_t_kernel, kThreads);
-  static const int batch_blocks =
-      resident_blocks(student_t_batch_kernel, kBatchThreads);
+  const int wave = resident_blocks(student_t_kernel, kThreads, wave_of);
+  const int batch_blocks = resident_blocks(student_t_batch_kernel,
+                                           kBatchThreads, batch_blocks_of);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* t = static_cast<const double*>(t1);
   const auto* d = static_cast<const double*>(df);

@@ -34,6 +34,13 @@ package's, so a seed gives the same permutations.
 Each kernel's plain PyTorch version stands beside its wrapper: a CUDA
 tensor launches the kernel or raises, a CPU tensor runs the plain version.
 The plain versions take the permutations one row at a time.
+
+On a mesh of several devices (``mesh``; parallel/) the pass
+takes blocks of ``snarl_chunk_size`` snarls a device, one shard a device,
+each block's invariants computed once per shard for every job, the
+observed phenotype as row 0 (stoat_tpu's :493-557); the p-values come back
+in snarl order and go through the same accounting, so the tables are
+byte-identical to one device's.
 """
 
 from __future__ import annotations
@@ -562,9 +569,11 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
                          = None,
                          output_tsv_quant: Optional[str] = None,
                          covariate: Optional[np.ndarray] = None,
-                         device=None) -> int:
+                         device=None, mesh=None) -> int:
     """Genome-wide permutation pass on ``device`` (default: the CUDA card;
-    "cpu" runs the plain versions).
+    "cpu" runs the plain versions), or on a mesh: ``mesh``, else every
+    visible card when ``device`` is None or a bare ``cuda`` and more than
+    one is visible (parallel/mesh.py resolve_mesh).
 
     With BOTH phenotypes supplied, one VCF pass serves both.  Writes per
     snarl the observed asymptotic p (``P_ASY``), the empirical p and the
@@ -572,10 +581,18 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
     with ``covariate`` the binary pass runs the covariate-adjusted score
     test and the quantitative pass Freedman–Lane.  Returns the number of
     tested (non-filtered) snarls across all outputs."""
+    from stoat_tpu_torch.parallel.mesh import resolve_mesh
+    from stoat_tpu_torch.parallel.sharded import Replicated
     from stoat_tpu_torch.pipeline.runner import iter_chromosome_matrices
     from stoat_tpu_torch.tables import pack_chromosome_chunks
 
-    device = resolve_device("cuda" if device is None else device)
+    device = "cuda" if device is None else device
+    mesh = resolve_mesh(device, mesh)
+    if mesh is not None:
+        logger.info("Permutations: sharding snarls over %d devices: %s",
+                    len(mesh), ", ".join(str(d) for d in mesh.devices))
+        device = mesh.devices[0]
+    device = resolve_device(device)
     jobs = []   # (kind, output path, phenotype)
     if pheno_bin is not None:
         if output_tsv is None:
@@ -604,10 +621,17 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
     inputs = {}     # per job: PermInputs of the observed row + K rows
     state = {kind: {"rows": [], "null_min": np.full(n_perms, np.inf)}
              for kind, _o, _p in jobs}
+    replicated = None if mesh is None else Replicated(mesh)
 
     for chrom, matrix in iter_chromosome_matrices(vcf_path, n_hap,
                                                   snarls_chr):
         if chrom not in snarls_chr:
+            continue
+        if mesh is not None:
+            _mesh_blocks(jobs, state, inputs, chrom, matrix,
+                         snarls_chr[chrom], mesh, replicated,
+                         snarl_chunk_size, covariate, perm_idx, n_perms,
+                         seed, th)
             continue
         words = tail = None
         for packed in pack_chromosome_chunks(snarls_chr[chrom], matrix,
@@ -621,9 +645,9 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
             chunk.tail = tail
             for kind, _out, pheno in jobs:
                 if kind not in inputs:
-                    inputs[kind] = _job_inputs(kind, pheno, covariate,
-                                               perm_idx, n_perms, seed,
-                                               int(words.shape[1]), device)
+                    inputs[kind] = to_perm_inputs(device, **_job_rows(
+                        kind, pheno, covariate, perm_idx, n_perms, seed,
+                        int(words.shape[1])))
                 covar = covar_q if kind == "quantitative" else no_covar
                 p = _chunk_pvalues(kind, chunk, inputs[kind], covar, th,
                                    packed.n_haplotypes)
@@ -637,18 +661,54 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
     return n_tested
 
 
-def _job_inputs(kind: str, pheno: np.ndarray, covariate, perm_idx,
-                n_perms: int, seed: int, n_words: int, device):
-    """The observed row and the K permuted rows of one job, on device."""
+def _job_rows(kind: str, pheno: np.ndarray, covariate, perm_idx,
+              n_perms: int, seed: int, n_words: int) -> Dict[str, np.ndarray]:
+    """The observed row and the K permuted rows of one job, on the host
+    (``convert.to_perm_inputs``' keywords)."""
     if kind == "binary":
         obs = pack_hap_mask_words(np.repeat(pheno.astype(bool), 2), n_words)
         masks = permutation_masks(pheno, n_perms, seed, n_words, perm_idx)
-        return to_perm_inputs(device, masks=np.concatenate(
-            [obs[None, :], masks]))
+        return {"masks": np.concatenate([obs[None, :], masks])}
     if kind == "binary_score":
         Z, w, e = logistic_null_context(pheno, covariate)
-        return to_perm_inputs(device, Z=Z, w=w, e=np.concatenate(
-            [e[None, :], e[perm_idx]]))
+        return {"Z": Z, "w": w,
+                "e": np.concatenate([e[None, :], e[perm_idx]])}
     ph = np.asarray(pheno, np.float64)
-    return to_perm_inputs(device, phenos=np.concatenate(
-        [ph[None, :], freedman_lane_phenos(ph, covariate, perm_idx)]))
+    return {"phenos": np.concatenate(
+        [ph[None, :], freedman_lane_phenos(ph, covariate, perm_idx)])}
+
+
+def _mesh_blocks(jobs, state, rows, chrom, matrix, snarls, mesh, replicated,
+                 snarl_chunk_size, covariate, perm_idx, n_perms, seed,
+                 th) -> None:
+    """One chromosome of the pass on the mesh (stoat_tpu, :493-557):
+    blocks of ``snarl_chunk_size`` snarls a device, one
+    ``ShardedPermState`` a block serving every job; ``rows`` keeps each
+    job's host rows (:func:`_job_rows`) for the run."""
+    from stoat_tpu_torch.parallel.mesh import shard_chromosome_chunks
+    from stoat_tpu_torch.parallel.sharded import (
+        ShardedPermState, binary_perm_pvalues_sharded,
+        logistic_score_perm_sharded, quant_perm_pvalues_sharded)
+
+    for sharded in shard_chromosome_chunks(
+            snarls, matrix, snarl_chunk_size * len(mesh), len(mesh)):
+        pstate = ShardedPermState(sharded, mesh, replicated)
+        for kind, _out, pheno in jobs:
+            if kind not in rows:
+                rows[kind] = _job_rows(kind, pheno, covariate, perm_idx,
+                                       n_perms, seed,
+                                       int(sharded.words.shape[1]))
+            r = rows[kind]
+            if kind == "binary":
+                p = binary_perm_pvalues_sharded(sharded, r["masks"], mesh,
+                                                *th, state=pstate)
+            elif kind == "binary_score":
+                p = logistic_score_perm_sharded(sharded, r["Z"], r["w"],
+                                                r["e"], mesh, *th,
+                                                state=pstate)
+            else:
+                p = quant_perm_pvalues_sharded(sharded, r["phenos"],
+                                               covariate, mesh, *th,
+                                               state=pstate)
+            accumulate_chunk(state[kind], chrom, sharded.snarls,
+                             torch.from_numpy(p))

@@ -1,22 +1,27 @@
-"""VCF-mode orchestration on one device: stream -> pack -> device batch ->
-TSV, for every single-device ``vcf`` mode: a binary trait (``-b``, or ``-b
--c``: logistic regression), a quantitative one (``-q``, with optional
-covariates), both in one pass (``-b -q``), the mixed model (``-q -k
---lmm``) and eQTL (``-e -G``).
+"""VCF-mode orchestration: stream -> pack -> device batch -> TSV, for
+every ``vcf`` mode: a binary trait (``-b``, or ``-b -c``: logistic
+regression), a quantitative one (``-q``, with optional covariates), both
+in one pass (``-b -q``), the mixed model (``-q -k --lmm``) and eQTL
+(``-e -G``), on one device or on a mesh of several.
 
-The port of the single-device paths of stoat_tpu/pipeline/runner.py
-run_vcf_analysis (:412-814).  The VCF is read one chromosome at a time by
-the native C++ core on a prefetch thread; each chromosome's packed words
-are uploaded once, after the parse, from pinned memory; its snarls go
-through the mode's pipeline in chunks; and a writer thread waits for each
-chunk's host copies, formats the rows and writes them in snarl-file
-order.  eQTL runs inline instead, as in stoat_tpu (:551, :1067-1107): its
-gene pairing needs each chunk's filter flags on the host.  A
-``secondary`` phenotype (:440-481) runs a second analysis on the same
-chunks into a second table; binary with a quantitative secondary shares
-one K1 pass (pipeline/quantitative.py dual_analyze_chromosome), unless -T
-asks for tables (:690-694).  With -T (``table_threshold``), the regression
-modes also write, for each snarl whose printed P passes the threshold, its
+The port of stoat_tpu/pipeline/runner.py run_vcf_analysis (:412-814).
+The VCF is read one chromosome at a time by the native C++ core on a
+prefetch thread; each chromosome's packed words are uploaded once, after
+the parse, from pinned memory; its snarls go through the mode's pipeline
+in chunks; and a writer thread waits for each chunk's host copies,
+formats the rows and writes them in snarl-file order.  eQTL runs inline
+instead, as in stoat_tpu (:551, :1067-1107): its gene pairing needs each
+chunk's filter flags on the host.  A ``secondary`` phenotype (:440-481)
+runs a second analysis on the same chunks into a second table; binary
+with a quantitative secondary shares one K1 pass (pipeline/quantitative.py
+dual_analyze_chromosome), unless -T asks for tables (:690-694).  On a
+mesh of several devices (``mesh``; parallel/) each chunk's
+snarls are split over the devices and every shard runs the single-device
+kernels on its own device (:449-482, :657-682, :824-861); eQTL builds
+each chunk's design on the mesh's first device and splits its (snarl,
+gene) pairs (:1092-1095).  Every output is byte-identical to the same
+run on one device.  With -T (``table_threshold``), the regression modes
+also write, for each snarl whose printed P passes the threshold, its
 sample x path table into ``regression_dir`` (:1019-1064); binary and eQTL
 runs write none.  ``--resume`` checkpoints every completed chromosome in a
 ``<output>.progress`` sidecar per output.
@@ -43,16 +48,23 @@ import numpy as np
 import torch
 
 from stoat_tpu_torch import writer as W
-from stoat_tpu_torch.convert import (chunk_words, pheno_masks,
-                                     to_binary_pheno, to_covariates,
-                                     to_eqtl_expr, to_eqtl_pairs,
-                                     to_lmm_inputs, to_quant_inputs,
-                                     upload_words)
+from stoat_tpu_torch.convert import (chunk_words, eqtl_expr_rows,
+                                     pheno_masks, to_binary_pheno,
+                                     to_covariates, to_eqtl_expr,
+                                     to_eqtl_pairs, to_lmm_inputs,
+                                     to_quant_inputs, upload_words)
+from stoat_tpu_torch.device import resolve_device
 from stoat_tpu_torch.formatting import is_pvalue_significant, pair_to_string
 from stoat_tpu_torch.io.phenotype import QtlData
 from stoat_tpu_torch.io.snarl_file import SnarlData
 from stoat_tpu_torch.io.vcf import VcfReader
 from stoat_tpu_torch.matrix import EdgeHaplotypeMatrix
+from stoat_tpu_torch.parallel.mesh import (SnarlMesh, resolve_mesh,
+                                           shard_chromosome_chunks)
+from stoat_tpu_torch.parallel.sharded import (
+    Replicated, binary_analyze_sharded, binary_covar_analyze_sharded,
+    dual_analyze_sharded, eqtl_regress_pairs_sharded, lmm_analyze_sharded,
+    quantitative_analyze_sharded)
 from stoat_tpu_torch.pipeline.binary import binary_analyze_chromosome
 from stoat_tpu_torch.pipeline.fetch import fetch_async
 from stoat_tpu_torch.pipeline.quantitative import (
@@ -301,7 +313,8 @@ def _validate_secondary(secondary: Dict) -> None:
 @dataclass
 class _Run:
     """One run's settings and its per-run device inputs (``consts``,
-    uploaded on the first chunk that needs them)."""
+    uploaded on the first chunk that needs them; on a mesh, ``replicated``
+    holds them on each of its devices)."""
 
     mode: str
     phenotype: object
@@ -316,6 +329,8 @@ class _Run:
     secondary: Optional[Dict] = None
     sec_fh: object = None
     consts: Dict[str, object] = field(default_factory=dict)
+    mesh: Optional[SnarlMesh] = None
+    replicated: Optional[Replicated] = None
 
     @property
     def dual(self) -> bool:
@@ -354,18 +369,11 @@ def _analyze(run: _Run, key: str, mode: str, phenotype, packed, words):
     ``fetch.HostResult`` and the writer function of its table."""
     c = _inputs(run, key, mode, phenotype, packed, words)
     th, device = run.thresholds, run.device
+    write = _writer_of(run, mode)
     if mode == "binary":
         return (binary_analyze_chromosome(packed, phenotype, *th, device,
-                                          words=words, pheno=c),
-                W.write_binary_rows_batch)
-    has_r2 = mode != "binary_covar"
+                                          words=words, pheno=c), write)
     tables = run.table_threshold != -1
-    if tables:
-        write = partial(_write_quant_family, threshold=run.table_threshold,
-                        regression_dir=run.regression_dir,
-                        samples=run.samples, has_r2=has_r2)
-    else:
-        write = partial(W.write_quant_rows_batch, has_r2=has_r2)
     if mode == "binary_covar":
         res = binary_covar_analyze_chromosome(packed, c, *th, device,
                                               words=words, tables=tables)
@@ -376,6 +384,66 @@ def _analyze(run: _Run, key: str, mode: str, phenotype, packed, words):
         res = lmm_analyze_chromosome(packed, *c, *th, device, words=words,
                                      tables=tables)
     return res, write
+
+
+def _writer_of(run: _Run, mode: str):
+    """The writer of ``mode``'s table: (outf, chrom, snarls, res) ->
+    filtered count."""
+    if mode == "binary":
+        return W.write_binary_rows_batch
+    has_r2 = mode != "binary_covar"
+    if run.table_threshold != -1:
+        return partial(_write_quant_family, threshold=run.table_threshold,
+                       regression_dir=run.regression_dir,
+                       samples=run.samples, has_r2=has_r2)
+    return partial(W.write_quant_rows_batch, has_r2=has_r2)
+
+
+def _analyze_sharded(run: _Run, sharded):
+    """Queue one chunk of the run's mode on the mesh, its snarls split
+    over the devices (stoat_tpu's _analyze_sharded, :824-861); returns
+    its ``parallel.sharded.ShardedResult``."""
+    th = run.thresholds
+    kw = {"replicated": run.replicated}
+    if run.mode == "binary":
+        return binary_analyze_sharded(sharded, run.phenotype, run.mesh, *th,
+                                      **kw)
+    kw["return_tables"] = run.table_threshold != -1
+    if run.mode == "binary_covar":
+        return binary_covar_analyze_sharded(sharded, run.phenotype, run.mesh,
+                                            *th, **kw)
+    if run.mode == "quantitative":
+        return quantitative_analyze_sharded(sharded, run.phenotype,
+                                            run.covariate, run.mesh, *th,
+                                            **kw)
+    return lmm_analyze_sharded(sharded, run.phenotype, run.covariate,
+                               run.mesh, *th, **kw)
+
+
+def _dispatch_sharded(outf, chrom, matrix, snarls, writer, run: _Run,
+                      quad_cache) -> None:
+    """Queue one chromosome's chunks on the mesh and their writes on the
+    writer thread (stoat_tpu, :657-682): each chunk of ``chunk_size``
+    snarls is split into one shard per device, the paths resolved once
+    for the chromosome from the tokenizer's ``quad_cache``; the dual run
+    (binary with a quantitative secondary, no -T) writes both tables from
+    one sharded pass."""
+    sec = run.secondary
+    for sharded in shard_chromosome_chunks(snarls, matrix, run.chunk_size,
+                                           len(run.mesh), quad_cache):
+        if run.dual:
+            res = dual_analyze_sharded(
+                sharded, run.phenotype, sec["quantitative_phenotype"],
+                run.mesh, *run.thresholds, covariate=run.covariate,
+                replicated=run.replicated)
+            writer.submit(partial(W.write_binary_rows_batch, outf, chrom,
+                                  sharded.snarls, res))
+            writer.submit(partial(W.write_quant_rows_batch, run.sec_fh, chrom,
+                                  sharded.snarls, PrefixView(res)),
+                          tag="secondary")
+            continue
+        writer.submit(partial(_writer_of(run, run.mode), outf, chrom,
+                              sharded.snarls, _analyze_sharded(run, sharded)))
 
 
 def _write_quant_family(outf, chrom, snarls, res, threshold: float,
@@ -446,8 +514,14 @@ def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
     writer.submit(lambda: chr_state.__setitem__("start", writer.count()))
     sec = run.secondary
     words = None
-    for packed in pack_chromosome_chunks(snarls, matrix, run.chunk_size,
-                                         quad_cache=tokenizer.get(chrom)):
+    if run.mesh is not None:
+        _dispatch_sharded(outf, chrom, matrix, snarls, writer, run,
+                          tokenizer.get(chrom))
+        chunks = ()
+    else:
+        chunks = pack_chromosome_chunks(snarls, matrix, run.chunk_size,
+                                        quad_cache=tokenizer.get(chrom))
+    for packed in chunks:
         if words is None:
             # one upload per chromosome: every chunk shares its words
             words = upload_words(chunk_words(packed), run.device)
@@ -510,8 +584,10 @@ def _eqtl_chromosome(outf, chrom, matrix, snarls, tokenizer,
     flags and allele counts on the host, the (snarl, gene) pairs of the
     unfiltered snarls in (snarl, gene) order (genes within the window,
     :func:`found_gene_snarl`), their OLS on the device
-    (quantitative.eqtl_regress_pairs) and one row per pair.  Filtered
-    snarls write no row; returns their number."""
+    (quantitative.eqtl_regress_pairs; on a mesh, the design on its first
+    device and the pairs split over its devices,
+    parallel.sharded.eqtl_regress_pairs_sharded) and one row per pair.
+    Filtered snarls write no row; returns their number."""
     gene_list = run.phenotype.get(chrom, [])
     th, device = run.thresholds, run.device
     words = expr = None
@@ -539,12 +615,21 @@ def _eqtl_chromosome(outf, chrom, matrix, snarls, tokenizer,
                 pair_gene.append(g)
         if not pair_snarl:
             continue
-        if expr is None:
-            # the chromosome's expression, uploaded once
-            expr = to_eqtl_expr(gene_list, device)
-        res = eqtl_regress_pairs(
-            design, *to_eqtl_pairs(pair_snarl, pair_gene,
-                                   int(design["X"].shape[0]), device), expr)
+        if run.mesh is not None:
+            if expr is None:
+                # the chromosome's expression, uploaded once to each device
+                expr = eqtl_expr_rows(gene_list)
+            res = eqtl_regress_pairs_sharded(design, pair_snarl, pair_gene,
+                                             expr, run.mesh,
+                                             replicated=run.replicated)
+        else:
+            if expr is None:
+                # the chromosome's expression, uploaded once
+                expr = to_eqtl_expr(gene_list, device)
+            res = eqtl_regress_pairs(
+                design, *to_eqtl_pairs(pair_snarl, pair_gene,
+                                       int(design["X"].shape[0]), device),
+                expr)
         del design
         p, r2, beta, se = (res[k] for k in ("p", "r2", "beta", "se"))
         for b, (s, g) in enumerate(zip(pair_snarl, pair_gene)):
@@ -575,6 +660,7 @@ def run_vcf_analysis(
     snarl_chunk_size: int = 8192,
     secondary: Optional[Dict] = None,
     resume: bool = False,
+    mesh: Optional[SnarlMesh] = None,
 ) -> int:
     """Run the GWAS over a VCF on ``device``; returns the number of snarls
     filtered (in the primary output).  ``phenotype`` is the mode's input:
@@ -598,7 +684,16 @@ def run_vcf_analysis(
     -1 (the CLI's -T) writes the regression modes' significant tables into
     ``regression_dir``, which the caller has made, with the columns named
     by ``sample_names``.  Each output is byte-identical to stoat_tpu's
-    run_vcf_analysis with the same arguments."""
+    run_vcf_analysis with the same arguments.
+
+    ``mesh`` (a ``parallel.mesh.SnarlMesh``) splits each chunk's snarls
+    over several devices, each shard on the single-device kernels of its
+    device; without one, a bare ``cuda`` ``device`` does so over every
+    visible card when there are several (``cuda:N``: that card alone).
+    The outputs are byte-identical to one device's.  Of the secondary runs
+    only the dual (binary with a quantitative secondary, no -T) runs on a
+    mesh: the automatic rule takes one device for the others, an explicit
+    mesh raises."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     if secondary is not None:
@@ -606,6 +701,26 @@ def run_vcf_analysis(
             raise ValueError("secondary phenotype runs do not support eQTL "
                              "primaries")
         _validate_secondary(secondary)
+    # stoat_tpu, :449-482: the dual pass shards only as the fused binary +
+    # quantitative run without -T tables
+    dual_mesh_ok = (secondary is not None and mode == "binary"
+                    and secondary["mode"] == "quantitative"
+                    and table_threshold == -1)
+    run_mesh = resolve_mesh(device, mesh)
+    if run_mesh is not None and secondary is not None and not dual_mesh_ok:
+        if mesh is not None:
+            raise ValueError(
+                "mesh-sharded secondary runs support only the fused binary "
+                "primary + quantitative secondary without -T tables")
+        logger.info("Dual-phenotype run: using the single-device pipelined "
+                    "path")
+        run_mesh = None
+    if run_mesh is not None:
+        logger.info("Sharding snarls over %d devices: %s", len(run_mesh),
+                    ", ".join(str(d) for d in run_mesh.devices))
+        device = run_mesh.devices[0]
+    else:
+        device = resolve_device(device)
     header_reader = VcfReader(vcf_path)
     samples = sample_names or header_reader.samples
     header_reader.close()
@@ -659,7 +774,8 @@ def run_vcf_analysis(
     run = _Run(mode, phenotype, covariate, device,
                (min_individuals, min_haplotypes, maf_threshold),
                snarl_chunk_size, windows_gene_threshold, table_threshold,
-               regression_dir, samples, secondary)
+               regression_dir, samples, secondary, mesh=run_mesh,
+               replicated=None if run_mesh is None else Replicated(run_mesh))
     total_analyzed = total_filtered = 0
     with _open_output(output_tsv, mode, prim_prog) as outf:
         if secondary is not None:

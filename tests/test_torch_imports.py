@@ -10,6 +10,7 @@ present is decided inside each test, never at import time.
 import ast
 import glob
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -56,7 +57,9 @@ def test_port_runs_without_jax_or_triton(tmp_path):
     (``-q -k --lmm -c``), of ``-q -c -T 1.0`` (the regression tables), of
     the ``-p/-d`` decomposition route, alone (case 3) and with a GWAS, and
     of ``graph``, then importing chip_smoke.py, then ``vcf -b -p GFA -g``,
-    ``BHcorrect``, ``simulate`` and ``truth``, leave jax, jaxlib, triton and
+    ``BHcorrect``, ``simulate`` and ``truth``, and the runner and the
+    permutation pass on a mesh of two CPU devices (parallel/), leave jax,
+    jaxlib, triton and
     every stoat_tpu module out of sys.modules and need no CUDA toolkit (no
     kernel is built).  The decomposition inputs are written here: the
     module that writes them imports stoat_tpu."""
@@ -69,6 +72,7 @@ def test_port_runs_without_jax_or_triton(tmp_path):
         import stoat_tpu_torch
         import stoat_tpu_torch.cli
         import stoat_tpu_torch.graph
+        import stoat_tpu_torch.parallel
         import stoat_tpu_torch.pipeline.permutation
         import stoat_tpu_torch.pipeline.runner
         import stoat_tpu_torch.pipeline.quantitative
@@ -172,6 +176,19 @@ def test_port_runs_without_jax_or_triton(tmp_path):
             ["truth", "-r", os.path.join(gout, "binary_table_vcf.tsv"), "-f",
              os.path.join(sim, "snarls.freq.tsv")])
         assert rc == 0, rc
+        import torch
+        from stoat_tpu_torch.io import parse_binary_pheno, parse_snarl_path
+        from stoat_tpu_torch.pipeline.permutation import run_permutation_test
+        from stoat_tpu_torch.pipeline.runner import run_vcf_analysis
+        mesh = stoat_tpu_torch.parallel.make_snarl_mesh(["cpu"] * 2)
+        pheno, samples = parse_binary_pheno(p["binary"], list(p["samples"]))
+        snarls_chr = parse_snarl_path(p["snarl"])
+        run_vcf_analysis(p["vcf"], snarls_chr, os.path.join(out, "m.tsv"),
+                         pheno, torch.device("cpu"), sample_names=samples,
+                         mesh=mesh)
+        assert run_permutation_test(p["vcf"], snarls_chr,
+                                    os.path.join(out, "mp.tsv"),
+                                    pheno_bin=pheno, n_perms=5, mesh=mesh) > 0
         assert not build.BUILD_LOG, build.BUILD_LOG
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "triton",
@@ -184,14 +201,16 @@ def test_port_runs_without_jax_or_triton(tmp_path):
 
 
 def test_port_never_imports_stoat_tpu():
-    """No module of the port, not chip_smoke.py and no script under
-    tools/ names the JAX package in an import statement (stoat_tpu_torch
-    is the port itself)."""
+    """No module of the port (its mesh, parallel/, included), not
+    chip_smoke.py and no script under tools/ names the JAX package, jax or
+    jaxlib in an import statement (stoat_tpu_torch is the port itself)."""
     files = sorted(glob.glob(os.path.join(REPO, "stoat_tpu_torch", "**",
                                           "*.py"), recursive=True))
     files.append(os.path.join(REPO, "chip_smoke.py"))
     files += sorted(glob.glob(os.path.join(REPO, "tools", "*.py")))
     assert len(files) > 30
+    assert {os.path.join(REPO, "stoat_tpu_torch", "parallel", f"{name}.py")
+            for name in ("__init__", "mesh", "sharded")} <= set(files)
     found = []
     for path in files:
         with open(path) as fh:
@@ -204,7 +223,32 @@ def test_port_never_imports_stoat_tpu():
             else:
                 continue
             found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
-                      for n in names if n.split(".")[0] == "stoat_tpu"]
+                      for n in names
+                      if n.split(".")[0] in ("stoat_tpu", "jax", "jaxlib")]
+    assert not found, found
+
+
+def test_kernel_attributes_are_not_kept_per_process():
+    """The CUDA runtime keeps a function's attributes and occupancy for
+    each device apart, so no source keeps the result of
+    cudaFuncSetAttribute, or a resident-block count, in a ``static``: one
+    stored at the first launch would hold for that card only, and a
+    launch on a second card of a mesh would run without it."""
+    sources = sorted(glob.glob(os.path.join(REPO, "stoat_tpu_torch", "csrc",
+                                            "*.cu"))
+                     + glob.glob(os.path.join(REPO, "stoat_tpu_torch",
+                                              "csrc", "*.cuh")))
+    assert len(sources) > 15
+    kept = re.compile(r"\bstatic\b[^;{}]*?=\s*(cudaFuncSetAttribute|"
+                      r"resident_blocks)\s*\(")
+    found, calls = [], 0
+    for path in sources:
+        with open(path) as fh:
+            text = fh.read()
+        calls += text.count("cudaFuncSetAttribute(")
+        found += [f"{os.path.basename(path)}: {m.group(0)!r}"
+                  for m in kept.finditer(text)]
+    assert calls >= 6
     assert not found, found
 
 

@@ -474,3 +474,30 @@ def test_counting_matches_numpy_recount(data, tmp_path, monkeypatch):
         assert fwer_s == set_precision((1 + fw) / (n_perms + 1)), key
         checked += 1
     assert checked > 0
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 12])
+def test_mesh_sharded_matches_single_device(data, tmp_path, n):
+    """The pass over a mesh of ``n`` CPU devices writes the one-device
+    pass's bytes (stoat_tpu's tests/test_permutation.py:309): ``-b -q`` in
+    one pass (K15 and K16a), then ``-b -q -c`` (the score test and the
+    Freedman–Lane OLS), in blocks of 4 snarls a device: several blocks a
+    chromosome, an uneven split at 3, empty shards at 12."""
+    from stoat_tpu_torch.parallel import make_snarl_mesh
+
+    paths, snarls_chr, pheno, pheno_q, covar, _t = data
+    for with_c in (False, True):
+        outs = {}
+        for label, mesh in (("single", None),
+                            ("mesh", make_snarl_mesh([CPU] * n))):
+            b = str(tmp_path / f"{label}_{with_c}_b.tsv")
+            q = str(tmp_path / f"{label}_{with_c}_q.tsv")
+            got = tperm.run_permutation_test(
+                paths["vcf"], snarls_chr, b, pheno_bin=pheno,
+                quantitative_phenotype=pheno_q, output_tsv_quant=q,
+                n_perms=20, seed=5, covariate=covar if with_c else None,
+                snarl_chunk_size=4, device="cpu", mesh=mesh)
+            outs[label] = (got, b, q)
+        assert outs["mesh"][0] == outs["single"][0] > 0
+        for single, meshed in zip(outs["single"][1:], outs["mesh"][1:]):
+            assert filecmp.cmp(single, meshed, shallow=False), (with_c, n)
