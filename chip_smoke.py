@@ -14,8 +14,9 @@ bare ``--device cuda`` held to it where several are visible):
 
   1. card: nvidia-smi name and power limit, torch and CUDA versions, the
      kernels' nvcc build with ptxas register and spill counts;
-  2. native cores: built into build/stoat_tpu_torch/native under their
-     host-keyed names and loaded;
+  2. native cores: the VCF core, the graph core and the single-core C++
+     baseline built into build/stoat_tpu_torch/native under their
+     host-keyed names and loaded (a baseline that does not build fails);
   3. kernels against their plain PyTorch versions, on the card, at the
      main paths' shapes (the first chunk of ``vcf -b`` (binary_from_words
      also on the dual's rows and with invalid paths, and on its grid),
@@ -68,7 +69,11 @@ bare ``--device cuda`` held to it where several are visible):
      ``truth`` on each table, equal across the devices; ``BHcorrect`` on
      copies of the ``-g`` and the simulated ``-b`` tables against a numpy
      BH written here, ``top_variant.tsv`` included (``plot`` is host work
-     and is not run); then the decomposition alone (``vcf -p -d``).
+     and is not run); then the decomposition alone (``vcf -p -d``); then
+     the single-core C++ baseline on the host CPU: its count on the
+     sub-cohort against the scalar oracle's, its rate on the first 2,000
+     snarls of the cohort and its graph loop on the main graph, printed
+     with the host CPU and the card's name and power limit.
      While the CUDA CLI runs the binary, graph, permutation and ``-g``
      paths, the plain chi-squared tail must not be called: every
      chi-squared tail runs on the card (chi2_tail, or graph_stats' own
@@ -148,6 +153,10 @@ GRAPH_SAMPLES = 45
 GRAPH_SNARLS = 100000
 # the Python twin (STOAT_GRAPH_PYTHON=1) walks a smaller graph
 TWIN_SNARLS = 2000
+# the single-core C++ baseline is timed, best of BASELINE_REPS, on the
+# first BASELINE_SAMPLE snarls of the full cohort (bench.py:67)
+BASELINE_SAMPLE = 2000
+BASELINE_REPS = 3
 
 # tests/test_stats_oracle.py:105, the reference's pinned strings
 FISHER_CASES = [
@@ -667,6 +676,174 @@ def quant_reference(paths, pheno, covar, case, n_sample=512, seed=0,
     return table, stats, eqtl, gls
 
 
+def baseline_reference_count(paths, thresholds=THRESHOLDS):
+    """The analyses the single-core baseline must run to a p-value on a
+    ``make_fixture`` cohort, counted as tests/test_baseline_core.py:40-49
+    counts the scalar oracle's: each snarl's binary row when it passes
+    the filter (reference_rows), and its quantitative row when it is
+    neither filtered nor degenerate (no variant column left once the
+    identical columns are merged and the last dropped), from the VCF text
+    alone (quant_reference's tables)."""
+    import numpy as np
+    binary = len(reference_rows(paths, *thresholds)[0])
+    with open(paths["binary"]) as fh:
+        next(fh)
+        N = sum(1 for _ in fh)
+    sample_of = np.arange(2 * N) // 2
+    quantitative = 0
+    with open(paths["vcf"], "rb") as fh:
+        for line in fh:
+            if line.startswith(b"#"):
+                continue
+            f = line.rstrip(b"\n").split(b"\t", 9)
+            n_paths = f[7].split(b";")[0].count(b",") + 1
+            gt = np.frombuffer(f[9] + b"\t", np.uint8).reshape(-1, 4)
+            hap = gt[:, [0, 2]].reshape(-1).astype(np.int64) - ord("0")
+            called = hap >= 0
+            counts = np.bincount(sample_of[called] * n_paths + hap[called],
+                                 minlength=N * n_paths).reshape(N, n_paths)
+            ck = counts[:, counts.sum(axis=0) > 0].astype(np.float64)
+            rows = ck.sum(axis=1)
+            df = ck[rows > 0] / rows[rows > 0][:, None]
+            if (not filtration_quantitative(df, *thresholds)
+                    and combine_identical_columns(df).shape[1] > 1):
+                quantitative += 1
+    return binary + quantitative
+
+
+def host_cpu():
+    """The host CPU as /proc/cpuinfo gives its first processor: the model
+    name, or, where the machine hides it ("unknown"), the vendor, family,
+    model and stepping; and the count of logical CPUs."""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            blocks = [b for b in fh.read().split("\n\n") if b.strip()]
+    except OSError:
+        return "unknown host CPU"
+    info = {}
+    for line in blocks[0].splitlines() if blocks else ():
+        key, _, value = line.partition(":")
+        info.setdefault(key.strip(), value.strip())
+    name = info.get("model name", "")
+    if name.lower() in ("", "unknown"):
+        name = (f"{info.get('vendor_id', 'unknown vendor')} family "
+                f"{info.get('cpu family', '?')} model "
+                f"{info.get('model', '?')} stepping "
+                f"{info.get('stepping', '?')} (model name {name or 'absent'})")
+    return f"{name}, {len(blocks)} logical CPUs"
+
+
+def baseline_inputs(paths, snarl_limit=None):
+    """Per chromosome of a ``make_fixture`` cohort, the single-core
+    baseline's inputs as bench.py:386-400 builds them, through the port:
+    (dense uint8 [E + 1, H] with the all-zero row last, path_rows,
+    row_offsets, snarl_offsets, binary phenotype uint8, quantitative
+    phenotype), for the chromosome's first ``snarl_limit`` snarls (all
+    when None) and, with a limit, the first chromosome alone."""
+    import numpy as np
+    from stoat_tpu_torch.io import (parse_binary_pheno,
+                                    parse_quantitative_pheno,
+                                    parse_snarl_path)
+    from stoat_tpu_torch.native.baseline import pack_for_baseline
+    from stoat_tpu_torch.pipeline.runner import iter_chromosome_matrices
+    from stoat_tpu_torch.tables import pack_chromosome
+    pheno, samples = parse_binary_pheno(paths["binary"],
+                                        list(paths["samples"]))
+    pheno_q = parse_quantitative_pheno(paths["quantitative"], samples)
+    snarls_chr = parse_snarl_path(paths["snarl"])
+    out = []
+    chroms = iter_chromosome_matrices(paths["vcf"], 2 * len(samples),
+                                      snarls_chr)
+    try:
+        for chrom, matrix in chroms:
+            packed = pack_chromosome(snarls_chr[chrom][:snarl_limit], matrix)
+            dense = np.ascontiguousarray(np.vstack([
+                packed.dense_matrix(),
+                np.zeros((1, packed.n_haplotypes), bool)]), np.uint8)
+            out.append((dense, *pack_for_baseline(packed, matrix,
+                                                  dense.shape[0] - 1),
+                        pheno.astype(np.uint8), pheno_q))
+            if snarl_limit is not None:
+                break
+    finally:
+        chroms.close()
+    return out
+
+
+def phase_baseline(paths, sub, graph, twin, work, smi):
+    """The single-core C++ baseline (native/baseline.py), on the host CPU
+    of the card's machine: its count on the sub-cohort against
+    baseline_reference_count; its rate, best of BASELINE_REPS, on the
+    first BASELINE_SAMPLE snarls of the full cohort, the inputs built
+    before the timer (bench.py:386-420); the graph loop on phase 4's
+    graph from the native cores' flat arrays (write_graph's, held here to
+    the port's own graph/partition.py flat_steps on the twin graph), its
+    count against the rows of phase 4's graph table."""
+    import numpy as np
+    from stoat_tpu_torch.graph.association import PathPartitioner
+    from stoat_tpu_torch.graph.gfa import load_gfa
+    from stoat_tpu_torch.graph.partition import flat_steps
+    from stoat_tpu_torch.graph.snarls import find_snarls
+    from stoat_tpu_torch.native.baseline import (run_baseline_cpp,
+                                                 run_baseline_graph_cpp)
+    t0 = time.perf_counter()
+    got = sum(run_baseline_cpp(*args, *THRESHOLDS)
+              for args in baseline_inputs(sub))
+    want = baseline_reference_count(sub)
+    check(got == want, f"baseline: {got} analyses on the sub-cohort, the "
+          f"scalar oracle's count is {want}")
+    count_s = time.perf_counter() - t0
+
+    (dense, rows, offs, soffs, pb, pq), = baseline_inputs(
+        paths, BASELINE_SAMPLE)
+    check(len(soffs) - 1 == BASELINE_SAMPLE, f"baseline sample: "
+          f"{len(soffs) - 1} snarls")
+    run_baseline_cpp(dense, rows, offs, soffs, pb, pq, *THRESHOLDS)   # warm
+    times = []
+    for _ in range(BASELINE_REPS):
+        t1 = time.perf_counter()
+        n_sample = run_baseline_cpp(dense, rows, offs, soffs, pb, pq,
+                                    *THRESHOLDS)
+        times.append(time.perf_counter() - t1)
+    vcf_rate = 2 * BASELINE_SAMPLE / min(times)
+
+    g = load_gfa(twin["gfa"], {"ref"})
+    forest = find_snarls(g)
+    part = PathPartitioner(g, [p for p in g.paths if p.sample != "ref"])
+    _names, steps, offsets, path_sample, starts = flat_steps(forest, part)
+    b = twin["baseline"]
+    check(np.array_equal(steps, b["steps"])
+          and np.array_equal(offsets, b["offsets"])
+          and np.array_equal(np.sort(starts), np.sort(b["starts"]))
+          and np.array_equal(path_sample, np.arange(len(offsets) - 1) // 2),
+          "baseline: write_graph's flat arrays differ from flat_steps' on "
+          "the twin graph")
+    b = graph["baseline"]
+    g_times = []
+    for _ in range(BASELINE_REPS):
+        t1 = time.perf_counter()
+        tested = run_baseline_graph_cpp(b["steps"], b["offsets"],
+                                        b["starts"], b["pheno"])
+        g_times.append(time.perf_counter() - t1)
+    with open(os.path.join(work, "g_cuda", "binary_table_graph.tsv")) as fh:
+        rows_written = sum(1 for _ in fh) - 1
+    check(tested == rows_written, f"baseline graph loop tested {tested} "
+          f"snarls; phase 4's graph table has {rows_written} rows")
+    return (f"phase 4 single-core C++ baseline (host CPU: {host_cpu()}; "
+            f"card {smi}): {got} analyses on the sub-cohort of "
+            f"{sub['n_snarls']} snarls, equal to the scalar oracle's count "
+            f"({count_s:.1f}s); vcf loop on the first {BASELINE_SAMPLE} "
+            f"snarls of the full cohort ({n_sample} analyses) "
+            f"{vcf_rate:.1f} snarl-tests/s (2 a snarl, best of "
+            f"{BASELINE_REPS}: {', '.join(f'{t:.4f}' for t in times)} s); "
+            f"graph loop on {len(b['starts'])} snarls x "
+            f"{len(b['offsets']) - 1} haplotype paths, {tested} tested, as "
+            f"many as the table's rows: {tested / min(g_times):.1f} "
+            f"snarls/s (best of {BASELINE_REPS}: "
+            f"{', '.join(f'{t:.4f}' for t in g_times)} s); the twin "
+            f"graph's flat arrays equal flat_steps'")
+
+
 def write_graph(out_dir, n_snarls, n_samples=GRAPH_SAMPLES, seed=0):
     """A GFA for ``graph`` mode and its binary phenotype, from a seed.
 
@@ -680,8 +857,12 @@ def write_graph(out_dir, n_snarls, n_samples=GRAPH_SAMPLES, seed=0):
     its second branch when k % 11 == 4 (depth 2).  Allele frequencies
     are random; one snarl in ten shifts them in cases, and one in fifty
     splits cases from controls exactly (``-T exact`` reports those).
-    Returns {"gfa",
-    "pheno", "n_snarls", "n_samples"}."""
+    Returns {"gfa", "pheno", "n_snarls", "n_samples", "baseline"}:
+    "baseline" holds the single-core baseline's inputs, the native
+    cores' flat view of the haplotype paths and snarls
+    (graph/partition.py flat_steps: "steps" uint64, "offsets" int64,
+    "starts" uint64 of every snarl, the nested ones too, in snarl order)
+    and "pheno" uint8 per path, 1 for a case."""
     import numpy as np
     rng = np.random.default_rng(seed)
     os.makedirs(out_dir, exist_ok=True)
@@ -703,11 +884,13 @@ def write_graph(out_dir, n_snarls, n_samples=GRAPH_SAMPLES, seed=0):
 
     choice = np.zeros((H, n_snarls), np.int64)
     anchor = node("ACGT")
-    ref_steps = []
+    ref_steps, codes, starts = [], [], []
     for k in range(n_snarls):
         m1, m2 = node("C"), node("GG")
         alleles = [[m1]]
+        starts.append(anchor)
         if k % 11 == 4:                       # m2 -> (n1 | n2) -> m3
+            starts.append(m2)
             n1, n2, m3 = node("A"), node("CC"), node("G")
             for u, v in ((m2, n1), (m2, n2), (n1, m3), (n2, m3)):
                 link(u, v)
@@ -733,6 +916,7 @@ def write_graph(out_dir, n_snarls, n_samples=GRAPH_SAMPLES, seed=0):
         for branch in alleles:
             tokens.append("".join(f"{n}+," for n in [anchor, *branch])
                           .encode())
+            codes.append(np.array([anchor, *branch], np.uint64) << 1)
         offs.append(len(tokens))
         ref_steps.append(f"{anchor}+,{m1}+,".encode())
         freq = rng.dirichlet(np.ones(len(alleles)))
@@ -746,7 +930,17 @@ def write_graph(out_dir, n_snarls, n_samples=GRAPH_SAMPLES, seed=0):
         anchor = nxt
     table = np.empty(len(tokens), object)
     table[:] = tokens
+    code_table = np.empty(len(codes), object)
+    code_table[:] = codes
     base = np.asarray(offs[:-1], np.int64)
+    tail_code = np.array([anchor << 1], np.uint64)
+    path_steps = [np.concatenate([*code_table[base + choice[h]], tail_code])
+                  for h in range(H)]
+    baseline = {"steps": np.concatenate(path_steps),
+                "offsets": np.cumsum([0] + [len(p) for p in path_steps],
+                                     dtype=np.int64),
+                "starts": np.array(starts, np.uint64) << 1,
+                "pheno": case_hap.astype(np.uint8)}
     gfa = os.path.join(out_dir, "graph.gfa")
     with open(gfa, "wb") as fh:
         fh.write(b"H\tVN:Z:1.0\n")
@@ -763,7 +957,7 @@ def write_graph(out_dir, n_snarls, n_samples=GRAPH_SAMPLES, seed=0):
         for s in range(n_samples):
             fh.write(f"S{s:03d}\tS{s:03d}\t{2 if case[s] else 1}\n")
     return {"gfa": gfa, "pheno": pheno, "n_snarls": n_snarls,
-            "n_samples": n_samples}
+            "n_samples": n_samples, "baseline": baseline}
 
 
 def write_genes(paths, seed=0):
@@ -5020,23 +5214,33 @@ def phase_card(torch):
 
 
 def phase_native():
+    """Builds (g++ at once, one each) and loads the VCF core, the graph
+    core and the single-core baseline under their host-keyed names."""
     from concurrent.futures import ThreadPoolExecutor
     from stoat_tpu_torch import native
+    from stoat_tpu_torch.native import baseline
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:   # two g++ at once
-        lib, glib = (f.result() for f in [pool.submit(native.get_lib),
-                                          pool.submit(native.get_graph_lib)])
-    for got, src, what in ((lib, native._SRC, "native core"),
-                           (glib, native._GRAPH_SRC, "native graph core")):
+    with ThreadPoolExecutor(max_workers=3) as pool:   # three g++ at once
+        jobs = [pool.submit(native.get_lib), pool.submit(native.get_graph_lib),
+                pool.submit(baseline.get_baseline_lib)]
+        try:
+            lib, glib, blib = (f.result() for f in jobs)
+        except native.NativeBuildError as e:
+            raise SmokeFailure(f"the baseline core did not build: {e}")
+    for got, src, libs, what in (
+            (lib, native._SRC, native._CORE_LIBS, "native core"),
+            (glib, native._GRAPH_SRC, (), "native graph core"),
+            (blib, baseline.BASELINE_SRC, baseline.BASELINE_LIBS,
+             "baseline core")):
         check(got is not None, f"{what} failed to build or load")
-        path = native.library_path(src, native._CORE_LIBS
-                                   if got is lib else ())
+        path = native.library_path(src, libs)
         check(os.path.samefile(got._name, path)
               and os.path.dirname(path) == native.BUILD_DIR,
               f"{what} loaded from {got._name}, expected {path}")
-    say(f"phase 2 native cores: {os.path.basename(lib._name)} and "
-        f"{os.path.basename(glib._name)} in {native.BUILD_DIR} loaded in "
-        f"{time.perf_counter() - t0:.1f}s")
+    say(f"phase 2 native cores: {os.path.basename(lib._name)}, "
+        f"{os.path.basename(glib._name)} and the single-core baseline "
+        f"{os.path.basename(blib._name)} in {native.BUILD_DIR} built and "
+        f"loaded in {time.perf_counter() - t0:.1f}s")
 
 
 def main_path_chunks(paths, device):
@@ -6649,6 +6853,7 @@ def smoke(torch, device, args, smi, make_fixture):
                 (sim_tsv, "the simulated vcf -b table"))))
         say(plot_note())
         say(phase_case3(twin, work))
+        say(phase_baseline(paths, sub, graph, twin, work, smi))
         times, dev, bounds, library = phase_times(
             torch, chunks[0], g0p, g1p, tables, quant, logit, perm, modes,
             smi)

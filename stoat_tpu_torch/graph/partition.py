@@ -16,7 +16,7 @@ import numpy as np
 from stoat_tpu_torch.graph.gfa import GfaGraph, GfaPath, Handle, flip
 from stoat_tpu_torch.graph.snarls import SnarlForest
 
-__all__ = ["PathPartitioner"]
+__all__ = ["PathPartitioner", "flat_steps"]
 
 
 class PathPartitioner:
@@ -146,6 +146,26 @@ class PathPartitioner:
         return handles
 
 
+def flat_steps(forest: SnarlForest, partitioner: PathPartitioner):
+    """The native cores' view of the sample paths and snarls: (sorted
+    sample names, steps uint64 (node id << 1 | reverse) of every path one
+    after the other, offsets int64 [paths + 1], each path's sample index
+    int32, each snarl's start handle uint64 (node id << 1 | orientation))."""
+    names = sorted({key[0] for key, _s, _o in partitioner.sample_paths})
+    name_to_id = {n: i for i, n in enumerate(names)}
+    steps: List[int] = []
+    offsets = [0]
+    path_sample = []
+    for key, psteps, _off in partitioner.sample_paths:
+        steps.extend((st[0] << 1) | int(st[1]) for st in psteps)
+        offsets.append(len(steps))
+        path_sample.append(name_to_id[key[0]])
+    starts = np.array([(s.start[0] << 1) | int(s.start[1])
+                       for s in forest.snarls], np.uint64)
+    return (names, np.array(steps, np.uint64), np.array(offsets, np.int64),
+            np.array(path_sample, np.int32), starts)
+
+
 class _NativePartitions:
     """Per-snarl walk-set partition counts from the native core.
 
@@ -159,23 +179,11 @@ class _NativePartitions:
                  case_set: Set[str], control_set: Set[str]):
         from stoat_tpu_torch.native import graph_partitions_native
 
-        names = sorted({key[0] for key, _s, _o in
-                        partitioner.sample_paths})
-        name_to_id = {n: i for i, n in enumerate(names)}
-        steps: List[int] = []
-        offsets = [0]
-        path_sample = []
-        for key, psteps, _off in partitioner.sample_paths:
-            steps.extend((st[0] << 1) | int(st[1]) for st in psteps)
-            offsets.append(len(steps))
-            path_sample.append(name_to_id[key[0]])
-        starts = np.array([(s.start[0] << 1) | int(s.start[1])
-                           for s in forest.snarls], np.uint64)
+        names, steps, offsets, path_sample, starts = flat_steps(
+            forest, partitioner)
         sample_case = np.array([n in case_set for n in names], np.uint8)
-        got = graph_partitions_native(
-            np.array(steps, np.uint64), np.array(offsets, np.int64),
-            np.array(path_sample, np.int32), len(names), starts,
-            sample_case)
+        got = graph_partitions_native(steps, offsets, path_sample,
+                                      len(names), starts, sample_case)
         if got is None:
             raise RuntimeError("native graph core unavailable")
         self.offs, self.n_case, self.n_ctrl, self.rep = got

@@ -68,7 +68,11 @@ def library_path(src: str, libs: Tuple[str, ...] = ()) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}-{key.hexdigest()[:16]}.so")
 
 
-def _compile(src: str, lib: str, extra=()) -> bool:
+class NativeBuildError(RuntimeError):
+    """A native core that did not build; the message holds g++'s stderr."""
+
+
+def _compile(src: str, lib: str, extra=()) -> None:
     tmp = f"{lib}.{os.getpid()}.tmp"
     for flags in (CXX_FLAGS, tuple(f for f in CXX_FLAGS
                                    if f != "-march=native")):
@@ -76,28 +80,37 @@ def _compile(src: str, lib: str, extra=()) -> bool:
         try:
             res = subprocess.run(cmd, capture_output=True, timeout=300)
         except (OSError, subprocess.TimeoutExpired) as e:
-            logger.warning("native build failed to launch: %s", e)
-            return False
+            raise NativeBuildError(
+                f"native build of {src} failed to launch: {e}") from e
         if res.returncode == 0:
             os.replace(tmp, lib)
-            return True
-    logger.warning("native build failed:\n%s",
-                   res.stderr.decode(errors="replace"))
-    return False
+            return
+    raise NativeBuildError(f"native build of {src} failed:\n"
+                           + res.stderr.decode(errors="replace"))
 
 
-def _built(src: str, libs: Tuple[str, ...]) -> Optional[str]:
+def build_library(src: str, libs: Tuple[str, ...] = ()) -> str:
     """The path of ``src``'s library, built first when it is not there
-    (one build at a time per library), or None when the build fails."""
+    (one build at a time per library); raises :class:`NativeBuildError`
+    when the build fails."""
     lib = library_path(src, libs)
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     with open(lib + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(lib) or _compile(src, lib, libs):
-            return lib
-    return None
+        if not os.path.exists(lib):
+            _compile(src, lib, libs)
+    return lib
+
+
+def _built(src: str, libs: Tuple[str, ...]) -> Optional[str]:
+    """:func:`build_library`, or None (logged) when the build fails."""
+    try:
+        return build_library(src, libs)
+    except NativeBuildError as e:
+        logger.warning("%s", e)
+        return None
 
 
 def get_lib() -> Optional[ctypes.CDLL]:

@@ -58,7 +58,8 @@ def test_port_runs_without_jax_or_triton(tmp_path):
     the ``-p/-d`` decomposition route, alone (case 3) and with a GWAS, and
     of ``graph``, then importing chip_smoke.py, then ``vcf -b -p GFA -g``,
     ``BHcorrect``, ``simulate`` and ``truth``, and the runner and the
-    permutation pass on a mesh of two CPU devices (parallel/), leave jax,
+    permutation pass on a mesh of two CPU devices (parallel/), and the
+    single-core C++ baseline on the fixture (native/baseline.py), leave jax,
     jaxlib, triton and
     every stoat_tpu module out of sys.modules and need no CUDA toolkit (no
     kernel is built).  The decomposition inputs are written here: the
@@ -189,6 +190,23 @@ def test_port_runs_without_jax_or_triton(tmp_path):
         assert run_permutation_test(p["vcf"], snarls_chr,
                                     os.path.join(out, "mp.tsv"),
                                     pheno_bin=pheno, n_perms=5, mesh=mesh) > 0
+        import numpy as np
+        from stoat_tpu_torch.io import parse_quantitative_pheno
+        from stoat_tpu_torch.io.vcf import VcfReader
+        from stoat_tpu_torch.matrix import EdgeHaplotypeMatrix
+        from stoat_tpu_torch.native import baseline
+        from stoat_tpu_torch.tables import pack_chromosome
+        _, recs = next(iter(VcfReader(p["vcf"]).chromosome_chunks()))
+        em = EdgeHaplotypeMatrix(40)
+        for rec in recs:
+            em.add_record(rec)
+        packed = pack_chromosome(snarls_chr["ref"], em)
+        dense = np.vstack([packed.dense_matrix(),
+                           np.zeros((1, 40), bool)]).astype(np.uint8)
+        arrays = baseline.pack_for_baseline(packed, em, dense.shape[0] - 1)
+        pq = parse_quantitative_pheno(p["quantitative"], samples)
+        assert baseline.run_baseline_cpp(dense, *arrays, pheno.astype(
+            np.uint8), pq, 3, 5, 0.05) > 0
         assert not build.BUILD_LOG, build.BUILD_LOG
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "triton",
@@ -201,9 +219,11 @@ def test_port_runs_without_jax_or_triton(tmp_path):
 
 
 def test_port_never_imports_stoat_tpu():
-    """No module of the port (its mesh, parallel/, included), not
+    """No module of the port (its mesh, parallel/, and the baseline,
+    native/baseline.py, included), not
     chip_smoke.py and no script under tools/ names the JAX package, jax or
-    jaxlib in an import statement (stoat_tpu_torch is the port itself)."""
+    jaxlib in an import statement, and none imports bench.py (which
+    imports jax; stoat_tpu_torch is the port itself)."""
     files = sorted(glob.glob(os.path.join(REPO, "stoat_tpu_torch", "**",
                                           "*.py"), recursive=True))
     files.append(os.path.join(REPO, "chip_smoke.py"))
@@ -211,6 +231,8 @@ def test_port_never_imports_stoat_tpu():
     assert len(files) > 30
     assert {os.path.join(REPO, "stoat_tpu_torch", "parallel", f"{name}.py")
             for name in ("__init__", "mesh", "sharded")} <= set(files)
+    assert os.path.join(REPO, "stoat_tpu_torch", "native",
+                        "baseline.py") in files
     found = []
     for path in files:
         with open(path) as fh:
@@ -224,7 +246,8 @@ def test_port_never_imports_stoat_tpu():
                 continue
             found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                       for n in names
-                      if n.split(".")[0] in ("stoat_tpu", "jax", "jaxlib")]
+                      if n.split(".")[0] in ("stoat_tpu", "jax", "jaxlib",
+                                             "bench")]
     assert not found, found
 
 
@@ -365,23 +388,33 @@ def test_native_libraries_build_under_the_build_dir():
 
 def test_native_key_change_forces_rebuild(monkeypatch):
     """A library built for another host (another key) is never loaded:
-    with the key changed, the core is built again, under the new name."""
+    with the key changed, each core and the baseline is built again,
+    under the new name.  A core whose build fails leaves its caller to
+    the Python reader (None); the baseline raises."""
     from stoat_tpu_torch import native
-    before = native.library_path(native._SRC, native._CORE_LIBS)
+    from stoat_tpu_torch.native import baseline
+    cores = ((native._SRC, native._CORE_LIBS),
+             (baseline.BASELINE_SRC, baseline.BASELINE_LIBS))
+    before = [native.library_path(src, libs) for src, libs in cores]
     built = []
 
     def fake_compile(src, lib, extra=()):
         built.append((src, lib))
-        return False                      # nothing is written
+        raise native.NativeBuildError("nothing is written")
 
     monkeypatch.setattr(native, "host_key", lambda: "another host")
     monkeypatch.setattr(native, "_compile", fake_compile)
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", False)
-    after = native.library_path(native._SRC, native._CORE_LIBS)
-    assert after != before and os.path.dirname(after) == native.BUILD_DIR
+    monkeypatch.setattr(baseline, "_lib", None)
+    after = [native.library_path(src, libs) for src, libs in cores]
+    for b, a in zip(before, after):
+        assert a != b and os.path.dirname(a) == native.BUILD_DIR
     assert native.get_lib() is None
-    assert built == [(native._SRC, after)]
+    with pytest.raises(native.NativeBuildError):
+        baseline.get_baseline_lib()
+    assert built == [(native._SRC, after[0]),
+                     (baseline.BASELINE_SRC, after[1])]
 
 
 def test_cuda_device_never_falls_back_to_cpu(tmp_path):

@@ -20,6 +20,7 @@ from stoat_tpu.stats import chi2_2xn as jchi2_2xn
 from stoat_tpu.stats import fisher_exact_2x2 as jfisher
 from stoat_tpu.stats.special import chi2_sf as jchi2_sf
 from stoat_tpu.writer import format_p
+from stoat_tpu_torch.formatting import set_precision
 from stoat_tpu_torch.stats.chi2 import (chi2_2x2_stat, chi2_2xn_stat,
                                         finish_chi2_pvalues)
 from stoat_tpu_torch.stats.fisher import fisher_exact_2x2
@@ -36,6 +37,7 @@ FISHER_CASES = [
     ((122, 78, 27, 173), "1.4799e-23"),
 ]
 # tests/test_extreme_tails.py:65: the scan overflows, the answer is "0"
+# (this file holds test_extreme_tails.py's four tests on the port)
 OVERFLOW_TABLES = [(1000, 2, 3, 1500), (2000, 1, 1, 3000),
                    (5000, 10, 4, 8000)]
 # tests/test_extreme_tails.py:23-26
@@ -46,6 +48,14 @@ TAIL_DFS = [1, 2, 3, 7]
 
 def _t(x):
     return torch.as_tensor(np.asarray(x, np.float64))
+
+
+def _mp_chi2_sf(stat, df):
+    """50-digit Q(df/2, stat/2) (tests/test_extreme_tails.py:17)."""
+    with mpmath.workdps(50):
+        return float(mpmath.gammainc(mpmath.mpf(df) / 2,
+                                     a=mpmath.mpf(stat) / 2,
+                                     regularized=True))
 
 
 def _assert_close(got, want, rel=1e-12):
@@ -100,11 +110,13 @@ def test_fisher_random_batch(seed, hi):
 @pytest.mark.parametrize("stat", TAIL_STATS)
 @pytest.mark.parametrize("df", TAIL_DFS)
 def test_chi2_sf_matches_jax(stat, df):
+    """tests/test_extreme_tails.py::test_chi2_tail_matches_multiprecision
+    on the port: the tail against 50-digit mpmath (with its strings above
+    the branch), and against stoat_tpu's."""
     got = float(chi2_sf(_t([stat]), _t([df]))[0])
     want = float(np.asarray(jchi2_sf(np.float64(stat), np.float64(df))))
     assert format_p(got) == format_p(want)
-    exact = float(mpmath.gammainc(mpmath.mpf(df) / 2,
-                                  a=mpmath.mpf(stat) / 2, regularized=True))
+    exact = _mp_chi2_sf(stat, df)
     if stat <= 85.0:
         # the reference's double branch: 1 - fl(1 - q)
         assert got == pytest.approx(want, rel=1e-12, abs=1.2e-16)
@@ -112,6 +124,7 @@ def test_chi2_sf_matches_jax(stat, df):
     else:
         assert got == pytest.approx(want, rel=1e-12)
         assert got == pytest.approx(exact, rel=1e-10)
+        assert format_p(got) == set_precision(exact)
 
 
 def test_chi2_sf_branch_boundary():
@@ -120,7 +133,20 @@ def test_chi2_sf_branch_boundary():
     below = float(chi2_sf(_t([84.999999]), _t([1.0]))[0])
     above = float(chi2_sf(_t([85.000001]), _t([1.0]))[0])
     assert below == 0.0
+    assert format_p(below) == "0"
+    assert above == pytest.approx(_mp_chi2_sf(85.000001, 1), rel=1e-10)
     assert format_p(above) == "2.9836e-20"
+
+
+def test_double_branch_last_representable_tail():
+    """tests/test_extreme_tails.py:55: at df 7, stat 84 the tail (about
+    2.3e-15) is still above one ulp of 1.0 in the double branch, and
+    quantized to multiples of 2^-52 by its 1 - (1 - q)."""
+    got = float(chi2_sf(_t([84.0]), _t([7.0]))[0])
+    assert got > 0.0
+    assert abs(got - _mp_chi2_sf(84.0, 7)) <= 2 ** -52
+    assert got == float(np.asarray(jchi2_sf(np.float64(84.0),
+                                            np.float64(7.0))))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
