@@ -45,6 +45,7 @@ import sys
 import time
 from typing import List, Optional
 
+from stoat_tpu_torch import trace
 from stoat_tpu_torch.logsetup import TRACE
 
 __version__ = "0.3.0"
@@ -238,60 +239,60 @@ def main_vcf(argv: List[str]) -> int:
         os.makedirs(regression_dir, exist_ok=True)
     t_start = time.time()
 
-    from stoat_tpu_torch.io import (parse_binary_pheno,
-                                    parse_chromosome_reference,
-                                    parse_covariates, parse_kinship_matrix,
-                                    parse_qtl_gene_file,
-                                    parse_quantitative_pheno,
-                                    parse_snarl_path)
-    from stoat_tpu_torch.io.vcf import VcfReader
+    with trace.span("cli.parse"):
+        from stoat_tpu_torch.io import (parse_binary_pheno,
+                                        parse_chromosome_reference,
+                                        parse_covariates, parse_kinship_matrix,
+                                        parse_qtl_gene_file,
+                                        parse_quantitative_pheno,
+                                        parse_snarl_path)
+        from stoat_tpu_torch.io.vcf import VcfReader
 
-    list_samples: List[str] = []
-    if not only_snarl_parsing:
-        header_reader = VcfReader(args.vcf)
-        list_samples = header_reader.samples
-        header_reader.close()
-    covariate = None
-    if args.covariate:
-        covariate = parse_covariates(args.covariate, covar_names,
-                                     list_samples)
-    binary_phenotype = quantitative_phenotype = None
-    mode = phenotype = None
-    if args.binary:
-        # -b -c: the covariates are parsed and validated above, and then
-        # stay out of the logistic model (stoat_tpu/stats/logreg.py:9-14)
-        mode = "binary_covar" if covariate is not None else "binary"
-        binary_phenotype, list_samples = parse_binary_pheno(args.binary,
-                                                            list_samples)
-        phenotype = binary_phenotype
-    if args.quantitative:
-        quantitative_phenotype = parse_quantitative_pheno(
-            args.quantitative, list_samples)
-        if not args.binary:
-            mode, phenotype = "quantitative", quantitative_phenotype
-    elif args.eqtl:
-        mode = "eqtl"
-        phenotype = parse_qtl_gene_file(args.eqtl, args.gene_position,
-                                        list_samples)
+        list_samples: List[str] = []
+        if not only_snarl_parsing:
+            header_reader = VcfReader(args.vcf)
+            list_samples = header_reader.samples
+            header_reader.close()
+        covariate = None
+        if args.covariate:
+            covariate = parse_covariates(args.covariate, covar_names,
+                                         list_samples)
+        binary_phenotype = quantitative_phenotype = None
+        mode = phenotype = None
+        if args.binary:
+            # -b -c: the covariates are parsed and validated above, and then
+            # stay out of the logistic model (stoat_tpu/stats/logreg.py:9-14)
+            mode = "binary_covar" if covariate is not None else "binary"
+            binary_phenotype, list_samples = parse_binary_pheno(args.binary,
+                                                                list_samples)
+            phenotype = binary_phenotype
+        if args.quantitative:
+            quantitative_phenotype = parse_quantitative_pheno(
+                args.quantitative, list_samples)
+            if not args.binary:
+                mode, phenotype = "quantitative", quantitative_phenotype
+        elif args.eqtl:
+            mode = "eqtl"
+            phenotype = parse_qtl_gene_file(args.eqtl, args.gene_position,
+                                            list_samples)
 
-    if args.kinship:
-        t0 = time.time()
-        kin = parse_kinship_matrix(args.kinship)
-        logger.info("Kinship parse : %.3f s", time.time() - t0)
-        if args.lmm:
-            phenotype = _lmm_null_model(kin, list_samples,
-                                        quantitative_phenotype, covariate)
-            mode = "lmm"
-        else:
-            logger.warning("Kinship matrix parsed but unused (parity with "
-                           "the reference stub, stats_test.hpp:115-125). "
-                           "Pass --lmm with -q to run the mixed model.")
+        if args.kinship:
+            t0 = time.time()
+            kin = parse_kinship_matrix(args.kinship)
+            logger.info("Kinship parse : %.3f s", time.time() - t0)
+            if args.lmm:
+                phenotype = _lmm_null_model(kin, list_samples,
+                                            quantitative_phenotype, covariate)
+                mode = "lmm"
+            else:
+                logger.warning("Kinship matrix parsed but unused (parity with "
+                               "the reference stub, stats_test.hpp:115-125). "
+                               "Pass --lmm with -q to run the mixed model.")
 
-    ref_chr = (parse_chromosome_reference(args.chr_file)
-               if args.chr_file else set())
-    if args.snarl:
-        snarls_chr = parse_snarl_path(args.snarl)
-    else:
+        ref_chr = (parse_chromosome_reference(args.chr_file)
+                   if args.chr_file else set())
+        snarls_chr = parse_snarl_path(args.snarl) if args.snarl else None
+    if snarls_chr is None:
         logger.info("Starting snarl decomposition... ")
         t0 = time.time()
         from stoat_tpu_torch.graph.decompose import decompose_to_snarl_file
@@ -602,6 +603,7 @@ COMMANDS = {"vcf": main_vcf, "graph": main_graph,
             "truth": main_truth, "plot": main_plot}
 
 
+@trace.spanned("job", root=True)
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv:

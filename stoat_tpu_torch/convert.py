@@ -22,6 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from stoat_tpu_torch import trace
 from stoat_tpu_torch.pipeline.packed import (pack_hap_mask_words,
                                              pack_matrix_words,
                                              pack_path_edge_idx,
@@ -49,14 +50,17 @@ class DeviceChunk:
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Copy a numpy array to ``device`` (pinned, non-blocking on CUDA)."""
-    arr = np.ascontiguousarray(arr)
-    if device.type != "cuda":
-        return torch.from_numpy(arr.copy())
-    dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
-    staged = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
-    staged.numpy()[...] = arr
-    return staged.to(device, non_blocking=True)
+    """Copy a numpy array to ``device`` (pinned, non-blocking on CUDA);
+    its bytes count as ``h2d_bytes``."""
+    with trace.span("upload"):
+        arr = np.ascontiguousarray(arr)
+        trace.count("h2d_bytes", arr.nbytes)
+        if device.type != "cuda":
+            return torch.from_numpy(arr.copy())
+        dtype = torch.from_numpy(np.empty(0, arr.dtype)).dtype
+        staged = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+        staged.numpy()[...] = arr
+        return staged.to(device, non_blocking=True)
 
 
 def upload_words(words: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from stoat_tpu_torch import trace
 from stoat_tpu_torch import writer as W
 from stoat_tpu_torch.convert import (DeviceChunk, chunk_words,
                                      to_device_chunk, to_perm_inputs, upload,
@@ -496,10 +497,13 @@ def score_perm_pvalues(T: torch.Tensor, df: torch.Tensor,
 
 # ---------------------------------------------------------------- the pass
 
+@trace.spanned("perm.dispatch")
 def _chunk_pvalues(kind: str, chunk: DeviceChunk, inputs, covar, th,
                    n_haplotypes: int) -> torch.Tensor:
     """[1 + K, S] sanitised p-values of one chunk for one job: row 0 the
-    observed phenotype, then the permutations."""
+    observed phenotype, then the permutations (its S snarls, padding
+    included, count as ``perm.snarls_computed``)."""
+    trace.count("perm.snarls_computed", chunk.snarl_path_idx.shape[0])
     if kind == "binary":
         mem, g_all = perm_membership(chunk.words, chunk.path_idx,
                                      chunk.path_valid, chunk.tail)
@@ -523,19 +527,23 @@ def accumulate_chunk(state: Dict, chrom: str, snarls, p: torch.Tensor
     """The Westfall–Young accounting of one chunk (:476-486): per snarl the
     observed p (row 0) and the number of permutations at or below it, and
     the running minimum of each permutation over all snarls.  The counts
-    and minima are taken on the device; [S] and [K] come back."""
+    and minima are taken on the device; [S] and [K] come back.  The
+    snarls with a finite observed p count as ``perm.snarls_tested``."""
     S = len(snarls)
     obs, perm = p[0, :S], p[1:, :S]
     exc = (perm <= obs[None, :]).sum(dim=0)
-    if S:
-        state["null_min"] = np.minimum(
-            state["null_min"], perm.amin(dim=1).cpu().numpy())
-    obs = obs.cpu().numpy()
-    exc = exc.cpu().numpy()
+    with trace.span("perm.wait_card"):
+        if S:
+            state["null_min"] = np.minimum(
+                state["null_min"], perm.amin(dim=1).cpu().numpy())
+        obs = obs.cpu().numpy()
+        exc = exc.cpu().numpy()
+    trace.count("perm.snarls_tested", np.isfinite(obs).sum())
     state["rows"].extend((chrom, sn, float(obs[i]), int(exc[i]))
                          for i, sn in enumerate(snarls))
 
 
+@trace.spanned("perm.write")
 def _write_permutation_tsv(out_path: str, state: Dict, n_perms: int) -> int:
     """The permutation TSV (:593-613); returns the tested snarls."""
     n_tested = 0
@@ -557,6 +565,7 @@ def _write_permutation_tsv(out_path: str, state: Dict, n_perms: int) -> int:
     return n_tested
 
 
+@trace.spanned("perm")
 def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
                          output_tsv: Optional[str] = None,
                          pheno_bin: Optional[np.ndarray] = None,
@@ -612,7 +621,8 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
 
     n_samples = len(jobs[0][2])
     n_hap = 2 * n_samples
-    perm_idx = permutation_indices(n_samples, n_perms, seed)
+    with trace.span("perm.rows"):
+        perm_idx = permutation_indices(n_samples, n_perms, seed)
     th = (min_individuals, min_haplotypes, maf_threshold)
     covar_q = upload(np.zeros((n_samples, 0)) if covariate is None
                      else np.asarray(covariate, np.float64), device)
@@ -623,8 +633,8 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
              for kind, _o, _p in jobs}
     replicated = None if mesh is None else Replicated(mesh)
 
-    for chrom, matrix in iter_chromosome_matrices(vcf_path, n_hap,
-                                                  snarls_chr):
+    for chrom, matrix in trace.each("perm.ingest", iter_chromosome_matrices(
+            vcf_path, n_hap, snarls_chr)):
         if chrom not in snarls_chr:
             continue
         if mesh is not None:
@@ -634,8 +644,8 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
                          seed, th)
             continue
         words = tail = None
-        for packed in pack_chromosome_chunks(snarls_chr[chrom], matrix,
-                                             snarl_chunk_size):
+        for packed in trace.each("perm.pack", pack_chromosome_chunks(
+                snarls_chr[chrom], matrix, snarl_chunk_size)):
             if words is None:
                 # one upload per chromosome: every chunk shares its words
                 words = upload_words(chunk_words(packed), device)
@@ -645,9 +655,10 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
             chunk.tail = tail
             for kind, _out, pheno in jobs:
                 if kind not in inputs:
-                    inputs[kind] = to_perm_inputs(device, **_job_rows(
-                        kind, pheno, covariate, perm_idx, n_perms, seed,
-                        int(words.shape[1])))
+                    with trace.span("perm.rows"):
+                        inputs[kind] = to_perm_inputs(device, **_job_rows(
+                            kind, pheno, covariate, perm_idx, n_perms, seed,
+                            int(words.shape[1])))
                 covar = covar_q if kind == "quantitative" else no_covar
                 p = _chunk_pvalues(kind, chunk, inputs[kind], covar, th,
                                    packed.n_haplotypes)
@@ -690,25 +701,31 @@ def _mesh_blocks(jobs, state, rows, chrom, matrix, snarls, mesh, replicated,
         ShardedPermState, binary_perm_pvalues_sharded,
         logistic_score_perm_sharded, quant_perm_pvalues_sharded)
 
-    for sharded in shard_chromosome_chunks(
-            snarls, matrix, snarl_chunk_size * len(mesh), len(mesh)):
+    for sharded in trace.each("perm.pack", shard_chromosome_chunks(
+            snarls, matrix, snarl_chunk_size * len(mesh), len(mesh))):
         pstate = ShardedPermState(sharded, mesh, replicated)
+        n_shards, s_local = sharded.snarl_path_idx.shape[:2]
         for kind, _out, pheno in jobs:
             if kind not in rows:
-                rows[kind] = _job_rows(kind, pheno, covariate, perm_idx,
-                                       n_perms, seed,
-                                       int(sharded.words.shape[1]))
+                with trace.span("perm.rows"):
+                    rows[kind] = _job_rows(kind, pheno, covariate, perm_idx,
+                                           n_perms, seed,
+                                           int(sharded.words.shape[1]))
             r = rows[kind]
-            if kind == "binary":
-                p = binary_perm_pvalues_sharded(sharded, r["masks"], mesh,
-                                                *th, state=pstate)
-            elif kind == "binary_score":
-                p = logistic_score_perm_sharded(sharded, r["Z"], r["w"],
-                                                r["e"], mesh, *th,
-                                                state=pstate)
-            else:
-                p = quant_perm_pvalues_sharded(sharded, r["phenos"],
-                                               covariate, mesh, *th,
-                                               state=pstate)
+            # the sharded calls return host p-values: the card's time is
+            # inside the dispatch span
+            trace.count("perm.snarls_computed", n_shards * s_local)
+            with trace.span("perm.dispatch"):
+                if kind == "binary":
+                    p = binary_perm_pvalues_sharded(
+                        sharded, r["masks"], mesh, *th, state=pstate)
+                elif kind == "binary_score":
+                    p = logistic_score_perm_sharded(
+                        sharded, r["Z"], r["w"], r["e"], mesh, *th,
+                        state=pstate)
+                else:
+                    p = quant_perm_pvalues_sharded(
+                        sharded, r["phenos"], covariate, mesh, *th,
+                        state=pstate)
             accumulate_chunk(state[kind], chrom, sharded.snarls,
                              torch.from_numpy(p))

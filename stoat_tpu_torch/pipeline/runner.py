@@ -47,6 +47,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from stoat_tpu_torch import trace
 from stoat_tpu_torch import writer as W
 from stoat_tpu_torch.convert import (chunk_words, eqtl_expr_rows,
                                      pheno_masks, to_binary_pheno,
@@ -101,21 +102,29 @@ def iter_chromosome_matrices(vcf_path: str, n_haplotypes: int,
     try:
         from stoat_tpu_torch.matrix import PackedEdgeMatrix
         from stoat_tpu_torch.native import NativeVcfMatrixReader
-        reader = NativeVcfMatrixReader(vcf_path)
+        with trace.span("ingest"):
+            reader = NativeVcfMatrixReader(vcf_path)
         try:
-            for chrom, words, n_haps, edges in reader.chunks_packed():
-                yielded_any = True
-                matrix = PackedEdgeMatrix(words, n_haps, edges)
-                matrix.n_records, matrix.n_with_at = \
-                    getattr(reader, "last_counts", (-1, -1))
-                matrix.resolve_idx_native = \
-                    getattr(reader, "last_resolver", None)
-                INGEST_COUNTS["native"] += 1
+            chunks = reader.chunks_packed()
+            while True:
+                with trace.span("ingest"):
+                    try:
+                        chrom, words, n_haps, edges = next(chunks)
+                    except StopIteration:
+                        break
+                    yielded_any = True
+                    matrix = PackedEdgeMatrix(words, n_haps, edges)
+                    matrix.n_records, matrix.n_with_at = \
+                        getattr(reader, "last_counts", (-1, -1))
+                    matrix.resolve_idx_native = \
+                        getattr(reader, "last_resolver", None)
+                    INGEST_COUNTS["native"] += 1
                 yield chrom, matrix
         finally:
             # also runs on GeneratorExit when a consumer abandons the
             # generator early: the producer thread must not leak
-            reader.close()
+            with trace.span("ingest"):
+                reader.close()
         return
     except (RuntimeError, OSError) as e:
         if yielded_any:
@@ -126,19 +135,22 @@ def iter_chromosome_matrices(vcf_path: str, n_haplotypes: int,
         logger.warning("native VCF core unavailable (%s); using the "
                        "Python reader", e)
 
-    reader = VcfReader(vcf_path)
+    with trace.span("ingest"):
+        reader = VcfReader(vcf_path)
     try:
         for chrom, records in reader.chromosome_chunks():
-            matrix = EdgeHaplotypeMatrix(
-                n_haplotypes,
-                initial_rows=max(4 * len(snarls_chr.get(chrom, [])), 64))
-            n_records = n_with_at = 0
-            for rec in records:
-                n_records += 1
-                n_with_at += 1 if rec.at_paths else 0
-                matrix.add_record(rec)
-            matrix.n_records, matrix.n_with_at = n_records, n_with_at
-            INGEST_COUNTS["python"] += 1
+            with trace.span("ingest"):
+                matrix = EdgeHaplotypeMatrix(
+                    n_haplotypes,
+                    initial_rows=max(4 * len(snarls_chr.get(chrom, [])),
+                                     64))
+                n_records = n_with_at = 0
+                for rec in records:
+                    n_records += 1
+                    n_with_at += 1 if rec.at_paths else 0
+                    matrix.add_record(rec)
+                matrix.n_records, matrix.n_with_at = n_records, n_with_at
+                INGEST_COUNTS["python"] += 1
             yield chrom, matrix
     finally:
         reader.close()
@@ -190,11 +202,13 @@ def _prefetched(gen):
     q: "queue.Queue" = queue.Queue(maxsize=1)
     sentinel = object()
     err: List[BaseException] = []
+    parent = trace.current()
 
     def worker():
         try:
-            for item in gen:
-                q.put(item)
+            with trace.adopt(parent):
+                for item in gen:
+                    q.put(item)
         except BaseException as e:  # re-raised on the consumer side
             err.append(e)
         finally:
@@ -202,7 +216,8 @@ def _prefetched(gen):
 
     threading.Thread(target=worker, daemon=True).start()
     while True:
-        item = q.get()
+        with trace.span("runner.wait_ingest"):
+            item = q.get()
         if item is sentinel:
             if err:
                 raise err[0]
@@ -233,7 +248,8 @@ class _QuadTokenizer:
         event = self._events.get(chrom)
         if event is None:
             return None
-        event.wait()
+        with trace.span("runner.wait_tokens"):
+            event.wait()
         return self._results.get(chrom)
 
 
@@ -271,11 +287,13 @@ class _PipelinedWriter:
     def submit(self, fn, tag: str = "primary") -> None:
         if self._errors:
             raise self._errors[0]
-        self._q.put((fn, tag))
+        with trace.span("runner.wait_writer"):
+            self._q.put((fn, tag))
 
     def close(self) -> Dict[str, int]:
-        self._q.put(None)
-        self._thread.join()
+        with trace.span("runner.wait_writer"):
+            self._q.put(None)
+            self._thread.join()
         if self._errors:
             raise self._errors[0]
         return self.filtered
@@ -429,21 +447,24 @@ def _dispatch_sharded(outf, chrom, matrix, snarls, writer, run: _Run,
     (binary with a quantitative secondary, no -T) writes both tables from
     one sharded pass."""
     sec = run.secondary
-    for sharded in shard_chromosome_chunks(snarls, matrix, run.chunk_size,
-                                           len(run.mesh), quad_cache):
+    for sharded in trace.each("runner.pack", shard_chromosome_chunks(
+            snarls, matrix, run.chunk_size, len(run.mesh), quad_cache)):
         if run.dual:
-            res = dual_analyze_sharded(
-                sharded, run.phenotype, sec["quantitative_phenotype"],
-                run.mesh, *run.thresholds, covariate=run.covariate,
-                replicated=run.replicated)
+            with trace.span("runner.dispatch"):
+                res = dual_analyze_sharded(
+                    sharded, run.phenotype, sec["quantitative_phenotype"],
+                    run.mesh, *run.thresholds, covariate=run.covariate,
+                    replicated=run.replicated)
             writer.submit(partial(W.write_binary_rows_batch, outf, chrom,
                                   sharded.snarls, res))
             writer.submit(partial(W.write_quant_rows_batch, run.sec_fh, chrom,
                                   sharded.snarls, PrefixView(res)),
                           tag="secondary")
             continue
+        with trace.span("runner.dispatch"):
+            res = _analyze_sharded(run, sharded)
         writer.submit(partial(_writer_of(run, run.mode), outf, chrom,
-                              sharded.snarls, _analyze_sharded(run, sharded)))
+                              sharded.snarls, res))
 
 
 def _write_quant_family(outf, chrom, snarls, res, threshold: float,
@@ -519,21 +540,22 @@ def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
                           tokenizer.get(chrom))
         chunks = ()
     else:
-        chunks = pack_chromosome_chunks(snarls, matrix, run.chunk_size,
-                                        quad_cache=tokenizer.get(chrom))
+        chunks = trace.each("runner.pack", pack_chromosome_chunks(
+            snarls, matrix, run.chunk_size, quad_cache=tokenizer.get(chrom)))
     for packed in chunks:
         if words is None:
             # one upload per chromosome: every chunk shares its words
             words = upload_words(chunk_words(packed), run.device)
         if run.dual:
-            masks = _inputs(run, "primary", "binary", run.phenotype, packed,
-                            words)
-            qpheno, covar = _inputs(run, "secondary", "quantitative",
-                                    sec["quantitative_phenotype"], packed,
-                                    words)
-            res = dual_analyze_chromosome(packed, masks, qpheno, covar,
-                                          *run.thresholds, run.device,
-                                          words=words)
+            with trace.span("runner.dispatch"):
+                masks = _inputs(run, "primary", "binary", run.phenotype,
+                                packed, words)
+                qpheno, covar = _inputs(run, "secondary", "quantitative",
+                                        sec["quantitative_phenotype"], packed,
+                                        words)
+                res = dual_analyze_chromosome(packed, masks, qpheno, covar,
+                                              *run.thresholds, run.device,
+                                              words=words)
             writer.submit(partial(W.write_binary_rows_batch, outf, chrom,
                                   packed.snarls, res))
             writer.submit(partial(W.write_quant_rows_batch, run.sec_fh, chrom,
@@ -542,14 +564,16 @@ def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
             continue
         # the writer thread waits for the chunk's host copies, then
         # formats and writes its rows (returns the filtered count)
-        res, write = _analyze(run, "primary", run.mode, run.phenotype, packed,
-                              words)
+        with trace.span("runner.dispatch"):
+            res, write = _analyze(run, "primary", run.mode, run.phenotype,
+                                  packed, words)
         writer.submit(partial(write, outf, chrom, packed.snarls, res))
         if sec is not None:
             mode = sec["mode"]
-            res, write = _analyze(run, "secondary", mode,
-                                  sec[SECONDARY_PHENOTYPE[mode]], packed,
-                                  words)
+            with trace.span("runner.dispatch"):
+                res, write = _analyze(run, "secondary", mode,
+                                      sec[SECONDARY_PHENOTYPE[mode]], packed,
+                                      words)
             writer.submit(partial(write, run.sec_fh, chrom, packed.snarls,
                                   res), tag="secondary")
 
@@ -592,8 +616,8 @@ def _eqtl_chromosome(outf, chrom, matrix, snarls, tokenizer,
     th, device = run.thresholds, run.device
     words = expr = None
     filtered = 0
-    for packed in pack_chromosome_chunks(snarls, matrix, run.chunk_size,
-                                         quad_cache=tokenizer.get(chrom)):
+    for packed in trace.each("runner.pack", pack_chromosome_chunks(
+            snarls, matrix, run.chunk_size, quad_cache=tokenizer.get(chrom))):
         if words is None:
             words = upload_words(chunk_words(packed), device)
         covar = _inputs(run, "primary", "eqtl", None, packed, words)
@@ -642,6 +666,7 @@ def _eqtl_chromosome(outf, chrom, matrix, snarls, tokenizer,
     return filtered
 
 
+@trace.spanned("runner")
 def run_vcf_analysis(
     vcf_path: str,
     snarls_chr: Dict[str, List[SnarlData]],
