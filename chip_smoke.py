@@ -3264,19 +3264,16 @@ PERM_TITLES = {"b": "vcf -b", "q": "vcf -q", "q_c": "vcf -q -c -C AGE,SEX",
 def gene_pairs(snarls, filtered, genes, window=1000000):
     """A chunk's (snarl, gene) pairs as the runner builds them: for each
     unfiltered snarl, in order, the genes of ``genes`` ([(name, start,
-    end, expression)]) within the window (runner.found_gene_snarl)."""
+    end, expression)]) within the window (runner.GeneWindows)."""
+    import numpy as np
     from stoat_tpu_torch.io.phenotype import QtlData
-    from stoat_tpu_torch.pipeline.runner import found_gene_snarl
+    from stoat_tpu_torch.pipeline.runner import GeneWindows
     qtl = [QtlData(g, e, lo, hi) for g, lo, hi, e in genes]
-    pair_snarl, pair_gene = [], []
-    for s, snarl in enumerate(snarls):
-        if filtered[s]:
-            continue
-        for g in found_gene_snarl(qtl, snarl.start_pos, snarl.end_pos,
-                                  window):
-            pair_snarl.append(s)
-            pair_gene.append(g)
-    return pair_snarl, pair_gene
+    live = [s for s in range(len(snarls)) if not filtered[s]]
+    pair_snarl, pair_gene = GeneWindows(qtl).pairs(
+        np.asarray(live, np.int64), [snarls[s].start_pos for s in live],
+        [snarls[s].end_pos for s in live], window)
+    return pair_snarl.tolist(), pair_gene.tolist()
 
 
 def compare_eqtl(d, pairs, expr, err, what, noise_genes=(),
@@ -6429,7 +6426,7 @@ def profile_mode(torch, device, paths, work, out_dir, mode):
     from stoat_tpu_torch.io.snarl_file import parse_snarl_path
     from stoat_tpu_torch.io.vcf import VcfReader
     from stoat_tpu_torch.pipeline import quantitative as tq
-    from stoat_tpu_torch.pipeline.runner import (found_gene_snarl,
+    from stoat_tpu_torch.pipeline.runner import (GeneWindows,
                                                  iter_chromosome_matrices)
     from stoat_tpu_torch.stats.lmm import fit_null_reml
     from stoat_tpu_torch.tables import pack_chromosome_chunks
@@ -6521,14 +6518,13 @@ def profile_mode(torch, device, paths, work, out_dir, mode):
                 flags = timed("fetch", lambda: d["filtered"].cpu().numpy())
 
                 def pairs():
-                    ps, pg = [], []
-                    for i, sn in enumerate(packed.snarls):
-                        if not flags[i]:
-                            for g in found_gene_snarl(genes, sn.start_pos,
-                                                      sn.end_pos, 1000000):
-                                ps.append(i)
-                                pg.append(g)
-                    return ps, pg
+                    live = [i for i in range(len(packed.snarls))
+                            if not flags[i]]
+                    ps, pg = GeneWindows(genes).pairs(
+                        np.asarray(live, np.int64),
+                        [packed.snarls[i].start_pos for i in live],
+                        [packed.snarls[i].end_pos for i in live], 1000000)
+                    return ps.tolist(), pg.tolist()
                 ps, pg = timed("pairs", pairs)
                 res = timed("kernels", lambda: tq.eqtl_regress_pairs(
                     d, *to_eqtl_pairs(ps, pg, int(d["X"].shape[0]), device),

@@ -350,6 +350,11 @@ def main_vcf(argv: List[str]) -> int:
     t_end = time.time()
     logger.info("GWAS time analysis : %.3f s", t_end - t_gwas)
     logger.info("Total time : %.3f s", t_end - t_start)
+    # the job's parsed inputs (every snarl of the snarl file, the
+    # phenotypes) are freed here, in a stage of their own, not on return
+    with trace.span("cli.release"):
+        del snarls_chr, phenotype, binary_phenotype, \
+            quantitative_phenotype, covariate, secondary, list_samples
     return 0
 
 

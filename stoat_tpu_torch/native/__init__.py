@@ -192,6 +192,16 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
         ctypes.POINTER(ctypes.c_uint64)]
+    lib.stoat_format_eqtl_rows.restype = ctypes.c_void_p
+    lib.stoat_format_eqtl_rows.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+        ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_uint64)]
     _lib = lib
     return _lib
 
@@ -255,6 +265,42 @@ def format_quant_rows(chrom: str, prefixes: bytes, depths, filtered,
         allele_paths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         n_paths.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         S, allele_paths.shape[1], 1 if has_r2 else 0,
+        ctypes.byref(out_len))
+    if not ptr:
+        return None
+    blob = ctypes.string_at(ptr, out_len.value)
+    lib.stoat_free_buf(ptr)
+    return blob
+
+
+def format_eqtl_rows(chrom: str, prefixes: bytes, depths, allele_paths,
+                     n_paths, genes: bytes, n_genes: int, pair_snarl,
+                     pair_gene, p, r2, beta, se):
+    """C++ batch formatter for a chunk's eQTL rows, one a (snarl, gene)
+    pair in pair order; returns bytes, or None when the native core is
+    unavailable or a pair's index is out of range.  ``genes`` holds the
+    chromosome's gene names, each NUL-terminated.  Exact twin of the
+    per-row Python path (writer.write_eqtl_row + format_p), pinned by
+    tests."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    depths = np.ascontiguousarray(depths, np.int64)
+    allele_paths = np.ascontiguousarray(allele_paths, np.int32)
+    n_paths = np.ascontiguousarray(n_paths, np.int64)
+    pair_snarl = np.ascontiguousarray(pair_snarl, np.int64)
+    pair_gene = np.ascontiguousarray(pair_gene, np.int64)
+    p, r2, beta, se = (np.ascontiguousarray(a, np.float64)
+                       for a in (p, r2, beta, se))
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    out_len = ctypes.c_uint64()
+    ptr = lib.stoat_format_eqtl_rows(
+        chrom.encode(), prefixes, depths.ctypes.data_as(i64),
+        allele_paths.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n_paths.ctypes.data_as(i64), depths.shape[0],
+        allele_paths.shape[1], genes, n_genes,
+        pair_snarl.ctypes.data_as(i64), pair_gene.ctypes.data_as(i64),
+        _dptr(p), _dptr(r2), _dptr(beta), _dptr(se), pair_snarl.shape[0],
         ctypes.byref(out_len))
     if not ptr:
         return None

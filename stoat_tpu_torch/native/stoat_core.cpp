@@ -36,6 +36,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <charconv>
 #include <chrono>
 #include <condition_variable>
 #include <cmath>
@@ -44,6 +45,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <deque>
+#include <functional>
 #include <mutex>
 #include <string>
 #include <thread>
@@ -567,6 +569,72 @@ static void intern_and_fill(MatrixBuilder& mb, const Arena& ar) {
     }
 }
 
+// A reader's parse workers, started at its first batch and reused for
+// every batch after it.  Started and joined once a 4 MB batch instead
+// (one thread a core, ~165 batches a read of a 2,504-sample VCF), the
+// threads cost a clone and an exit each, seconds of system time a job on
+// a sandboxed host, and the job's time swung with the host's load.
+class ParsePool {
+public:
+    ParsePool() = default;
+    ParsePool(const ParsePool&) = delete;
+    ParsePool& operator=(const ParsePool&) = delete;
+
+    ~ParsePool() {
+        {
+            std::lock_guard<std::mutex> lk(mu_);
+            stop_ = true;
+        }
+        cv_work_.notify_all();
+        for (auto& th : threads_) th.join();
+    }
+
+    // Runs task(t) for t in [0, n) on workers 0..n-1 (started on first
+    // need) and returns at once; wait() before the next run().
+    void run(unsigned n, std::function<void(unsigned)> task) {
+        while (threads_.size() < n) {
+            unsigned t = unsigned(threads_.size());
+            threads_.emplace_back([this, t, g = gen_] { work(t, g); });
+        }
+        {
+            std::lock_guard<std::mutex> lk(mu_);
+            task_ = std::move(task);
+            n_tasks_ = n;
+            pending_ = n;
+            ++gen_;
+        }
+        cv_work_.notify_all();
+    }
+
+    void wait() {
+        std::unique_lock<std::mutex> lk(mu_);
+        cv_done_.wait(lk, [&] { return pending_ == 0; });
+    }
+
+private:
+    void work(unsigned t, uint64_t seen) {
+        std::unique_lock<std::mutex> lk(mu_);
+        for (;;) {
+            cv_work_.wait(lk, [&] { return stop_ || gen_ != seen; });
+            if (stop_) return;
+            seen = gen_;
+            if (t >= n_tasks_) continue;
+            lk.unlock();
+            task_(t);       // task_ changes only once pending_ is 0
+            lk.lock();
+            if (--pending_ == 0) cv_done_.notify_one();
+        }
+    }
+
+    std::vector<std::thread> threads_;
+    std::mutex mu_;
+    std::condition_variable cv_work_, cv_done_;
+    std::function<void(unsigned)> task_;
+    unsigned n_tasks_ = 0, pending_ = 0;
+    uint64_t gen_ = 0;      // written by the caller alone
+    bool stop_ = false;
+};
+
 struct Reader {
     BlockSource src;
     std::atomic<bool> read_error{false};
@@ -578,6 +646,7 @@ struct Reader {
     std::vector<Arena> arenas;         // parse arenas (double-buffered
     std::vector<Arena> arenas2;        //  across the parse/intern pipeline)
     MatrixBuilder mb;                  // reused: keeps row capacity
+    ParsePool pool;                    // after the arenas: joins first
     // profiling counter snapshots taken at open (per-reader deltas)
     uint64_t ns_read0 = 0, ns_parse0 = 0, ns_intern0 = 0;
 
@@ -674,30 +743,25 @@ static size_t chrom_len(const char* line) {
     return t ? size_t(t - line) : strlen(line);
 }
 
-// Kick off asynchronous parsing of lines [0, n) of `batch` into
-// per-worker arenas on `nt` detached worker threads (the CALLER does not
-// participate — it interns the previous batch concurrently; join the
-// returned threads before touching the arenas).
-static std::vector<std::thread> parse_batch_async(
-        Batch& batch, size_t n, size_t n_samples,
+// Start parsing lines [0, n) of `batch` into per-worker arenas on `nt`
+// workers of `pool` (the CALLER does not participate — it interns the
+// previous batch concurrently; pool.wait() before touching the arenas).
+static void parse_batch_async(
+        ParsePool& pool, Batch& batch, size_t n, size_t n_samples,
         std::vector<Arena>& arenas, unsigned nt, size_t W) {
     if (n < 64) nt = 1;
     if (arenas.size() < nt) arenas.resize(nt);
     for (unsigned t = 0; t < arenas.size(); ++t) arenas[t].begin(0);
     size_t per = (n + nt - 1) / nt;
-    std::vector<std::thread> threads;
-    for (unsigned t = 0; t < nt; ++t) {
+    pool.run(nt, [&batch, &arenas, per, n, n_samples, W](unsigned t) {
+        uint64_t t0 = profile_enabled() ? now_ns() : 0;
         size_t lo = t * per, hi = std::min(n, lo + per);
-        threads.emplace_back([&batch, &arenas, t, lo, hi, n_samples, W] {
-            uint64_t t0 = profile_enabled() ? now_ns() : 0;
-            Arena& ar = arenas[t];
-            ar.begin(lo < hi ? hi - lo : 0);
-            for (size_t i = lo; i < hi; ++i)
-                parse_line(batch.line_mut(i), n_samples, ar, i - lo, W);
-            if (t0) g_ns_parse.fetch_add(now_ns() - t0);
-        });
-    }
-    return threads;
+        Arena& ar = arenas[t];
+        ar.begin(lo < hi ? hi - lo : 0);
+        for (size_t i = lo; i < hi; ++i)
+            parse_line(batch.line_mut(i), n_samples, ar, i - lo, W);
+        if (t0) g_ns_parse.fetch_add(now_ns() - t0);
+    });
 }
 
 
@@ -944,8 +1008,8 @@ static void* next_chunk_impl(void* rp, uint64_t initial_rows,
         std::vector<Arena>& setB = r->arenas2;
         std::vector<Arena>* parsing = &setA;
         std::vector<Arena>* interning = &setB;
-        auto threads = parse_batch_async(*cur, cur_n, n_samples,
-                                         *parsing, nt, W);
+        parse_batch_async(r->pool, *cur, cur_n, n_samples, *parsing, nt,
+                          W);
         uint64_t cb_done = 0;
         while (true) {
             Batch* nxt = nullptr;
@@ -955,12 +1019,11 @@ static void* next_chunk_impl(void* rp, uint64_t initial_rows,
                 nxt = got.first;
                 nxt_n = got.second;
             }
-            for (auto& th : threads) th.join();
+            r->pool.wait();
             std::swap(parsing, interning);
-            std::vector<std::thread> next_threads;
             if (nxt)
-                next_threads = parse_batch_async(*nxt, nxt_n, n_samples,
-                                                 *parsing, nt, W);
+                parse_batch_async(r->pool, *nxt, nxt_n, n_samples,
+                                  *parsing, nt, W);
             uint64_t ti0 = profile_enabled() ? now_ns() : 0;
             for (Arena& ar : *interning) {
                 intern_and_fill(mb, ar);
@@ -979,7 +1042,6 @@ static void* next_chunk_impl(void* rp, uint64_t initial_rows,
             }
             r->queue.recycle(cur);
             cur = nxt;
-            threads = std::move(next_threads);
             if (!cur) break;
         }
     }
@@ -1200,16 +1262,24 @@ void stoat_free_buf(void* p) {
 // formatting.set_precision (pinned against it by tests).  NaN renders as
 // "NA" for statistics (format_p semantics).
 
+// std::to_chars with a precision prints "in the style of printf" (C++17
+// [charconv.to.chars]), correctly rounded as glibc's printf is, at about a
+// third of snprintf's cost; libstdc++ has it for doubles from GCC 11.
 static inline void fmt_p(double v, std::string& out) {
     char buf[48];
     if (v != v) { out += "NA"; return; }
     if (v == HUGE_VAL) { out += "inf"; return; }
     if (v == -HUGE_VAL) { out += "-inf"; return; }
-    if (v != 0.0 && v < 0.1 && v > -0.1)
-        snprintf(buf, sizeof buf, "%.4e", v);
-    else
-        snprintf(buf, sizeof buf, "%.4g", v);
+    const bool sci = v != 0.0 && v < 0.1 && v > -0.1;
+#if defined(__cpp_lib_to_chars) && __cpp_lib_to_chars >= 201611L
+    const auto r = std::to_chars(buf, buf + sizeof buf, v,
+                                 sci ? std::chars_format::scientific
+                                     : std::chars_format::general, 4);
+    out.append(buf, r.ptr);
+#else
+    snprintf(buf, sizeof buf, sci ? "%.4e" : "%.4g", v);
     out += buf;
+#endif
 }
 
 static inline void append_int(long long v, std::string& out) {
@@ -1314,6 +1384,83 @@ char* stoat_format_quant_rows(
         pre += pre_len + 1;
     }
     return finish_blob(out, out_len);
+}
+
+// eQTL rows (writer.cpp's eQTL layout), one a (snarl, gene) pair in pair
+// order:
+//   <chrom>\t<prefix>\t<GENE>\t<P>\t<RSQUARE>\t<BETA>\t<SE>\t<allele_paths>\t<depth>\n
+// prefixes = the chunk's S NUL-terminated row prefixes, genes = the
+// chromosome's G NUL-terminated names; pair b is snarl pair_snarl[b] with
+// gene pair_gene[b].  A chunk holds ~10^4-10^5 pairs, four numbers each:
+// the pairs are cut into up to num_threads() ranges of at least
+// kEqtlRowsPerThread, formatted at once and joined in order.  Returns
+// nullptr when an index is out of range.
+static const int64_t kEqtlRowsPerThread = 8192;
+
+char* stoat_format_eqtl_rows(
+        const char* chrom, const char* prefixes, const int64_t* depths,
+        const int32_t* allele_paths, const int64_t* n_paths, int64_t S,
+        int64_t Pmax, const char* genes, int64_t G,
+        const int64_t* pair_snarl, const int64_t* pair_gene,
+        const double* p, const double* r2, const double* beta,
+        const double* se, int64_t B, uint64_t* out_len) {
+    *out_len = 0;
+    std::vector<const char*> pre(size_t(S > 0 ? S : 0));
+    std::vector<size_t> pre_len(pre.size());
+    for (int64_t s = 0, at = 0; s < S; ++s) {
+        pre[s] = prefixes + at;
+        pre_len[s] = strlen(pre[s]);
+        at += int64_t(pre_len[s]) + 1;
+    }
+    std::vector<const char*> gene(size_t(G > 0 ? G : 0));
+    for (int64_t g = 0, at = 0; g < G; ++g) {
+        gene[g] = genes + at;
+        at += int64_t(strlen(gene[g])) + 1;
+    }
+    for (int64_t b = 0; b < B; ++b)
+        if (pair_snarl[b] < 0 || pair_snarl[b] >= S || pair_gene[b] < 0 ||
+            pair_gene[b] >= G)
+            return nullptr;
+    auto rows = [&](int64_t lo, int64_t hi, std::string& out) {
+        out.reserve(size_t(hi - lo) * 112);
+        for (int64_t b = lo; b < hi; ++b) {
+            const int64_t s = pair_snarl[b];
+            out += chrom;
+            out += '\t';
+            out.append(pre[s], pre_len[s]);
+            out += '\t';
+            out += gene[pair_gene[b]];
+            out += '\t';
+            fmt_p(p[b], out);
+            out += '\t';
+            fmt_p(r2[b], out);
+            out += '\t';
+            fmt_p(beta[b], out);
+            out += '\t';
+            fmt_p(se[b], out);
+            out += '\t';
+            const int32_t* ap = allele_paths + s * Pmax;
+            int64_t n = n_paths[s] < Pmax ? n_paths[s] : Pmax;
+            for (int64_t c = 0; c < n; ++c) {
+                if (c) out += ',';
+                append_int(ap[c], out);
+            }
+            out += '\t';
+            append_int(depths[s], out);
+            out += '\n';
+        }
+    };
+    int64_t T = B / kEqtlRowsPerThread;
+    T = T < 1 ? 1 : (T > int64_t(num_threads()) ? int64_t(num_threads()) : T);
+    std::vector<std::string> parts(static_cast<size_t>(T));
+    std::vector<std::thread> threads;
+    for (int64_t t = 1; t < T; ++t)
+        threads.emplace_back(rows, B * t / T, B * (t + 1) / T,
+                             std::ref(parts[size_t(t)]));
+    rows(0, B / T, parts[0]);
+    for (auto& th : threads) th.join();
+    for (int64_t t = 1; t < T; ++t) parts[0] += parts[size_t(t)];
+    return finish_blob(parts[0], out_len);
 }
 
 }  // extern "C"

@@ -78,7 +78,7 @@ from stoat_tpu_torch.tables import (pack_chromosome_chunks,
 logger = logging.getLogger("stoat")
 
 __all__ = ["run_vcf_analysis", "iter_chromosome_matrices", "INGEST_COUNTS",
-           "MODES", "found_gene_snarl"]
+           "MODES", "GeneWindows"]
 
 MODES = ("binary", "binary_covar", "quantitative", "lmm", "eqtl")
 # a secondary phenotype's modes and the key of its phenotype input
@@ -299,14 +299,42 @@ class _PipelinedWriter:
         return self.filtered
 
 
-def found_gene_snarl(gene_position: List[QtlData], start_pos: int,
-                     end_pos: int, window: int) -> List[int]:
-    """Genes overlapping [start-window, end+window]
-    (snarl_analyzer.cpp:471-491)."""
-    lo = start_pos - window if start_pos > window else 0
-    hi = end_pos + window
-    return [i for i, g in enumerate(gene_position)
-            if not (g.end_pos < lo or g.start_pos > hi)]
+class GeneWindows:
+    """A chromosome's genes sorted by start, for the genes that overlap a
+    snarl's window [start - window, end + window] (snarl_analyzer.cpp:
+    471-491): a gene overlaps when its end is at or past the window's low
+    end and its start at or before the high end, so its start lies between
+    the low end less the longest gene and the high end, two bisections of
+    the sorted starts.  Indices are given in the gene list's own order."""
+
+    def __init__(self, gene_position: List[QtlData]):
+        start = np.fromiter((g.start_pos for g in gene_position), np.int64,
+                            len(gene_position))
+        end = np.fromiter((g.end_pos for g in gene_position), np.int64,
+                          len(gene_position))
+        self.order = np.argsort(start, kind="stable")
+        self.start = start[self.order]
+        self.end = end[self.order]
+        self.reach = int(max(0, (end - start).max())) if end.size else 0
+
+    def pairs(self, snarl_index: np.ndarray, start_pos: np.ndarray,
+              end_pos: np.ndarray, window: int):
+        """(pair_snarl, pair_gene) int64 [B] of the snarls ``snarl_index``
+        (ascending) with their ``start_pos`` and ``end_pos``: every gene in
+        each snarl's window, in (snarl, gene list) order."""
+        start_pos = np.asarray(start_pos, np.int64)
+        lo = np.where(start_pos > window, start_pos - window, 0)
+        hi = np.asarray(end_pos, np.int64) + window
+        first = np.searchsorted(self.start, lo - self.reach, side="left")
+        n = np.searchsorted(self.start, hi, side="right") - first
+        n = np.maximum(n, 0)
+        total = int(n.sum())
+        at = np.repeat(first - (np.cumsum(n) - n), n) + np.arange(total)
+        keep = self.end[at] >= np.repeat(lo, n)
+        snarl = np.repeat(np.asarray(snarl_index, np.int64), n)[keep]
+        gene = self.order[at[keep]]
+        order = np.lexsort((gene, snarl))
+        return snarl[order], gene[order]
 
 
 def _validate_secondary(secondary: Dict) -> None:
@@ -607,12 +635,24 @@ def _eqtl_chromosome(outf, chrom, matrix, snarls, tokenizer,
     :1067-1107), inline: per chunk the design on the device, its filter
     flags and allele counts on the host, the (snarl, gene) pairs of the
     unfiltered snarls in (snarl, gene) order (genes within the window,
-    :func:`found_gene_snarl`), their OLS on the device
+    :class:`GeneWindows`), their OLS on the device
     (quantitative.eqtl_regress_pairs; on a mesh, the design on its first
     device and the pairs split over its devices,
-    parallel.sharded.eqtl_regress_pairs_sharded) and one row per pair.
-    Filtered snarls write no row; returns their number."""
+    parallel.sharded.eqtl_regress_pairs_sharded) and one row per pair,
+    formatted in one batch.  Filtered snarls write no row; returns their
+    number.
+
+    Spans: ``runner.dispatch`` (the design, then K13 and its tail,
+    queued), ``runner.eqtl_wait_card`` (the host waits for the flags and
+    for the pairs' statistics), ``runner.eqtl_pairs`` (the pairing and its
+    upload) and ``runner.eqtl_write`` (the rows).  Counters of each K13
+    call: ``eqtl.calls``, and summed over the calls ``eqtl.snarls`` (the
+    snarls with pairs), ``eqtl.pairs``, ``eqtl.genes`` (the chromosome's
+    expression rows), ``eqtl.samples`` (N) and ``eqtl.columns`` (the
+    design's width)."""
     gene_list = run.phenotype.get(chrom, [])
+    windows = GeneWindows(gene_list)
+    gene_names = [g.gene_name for g in gene_list]
     th, device = run.thresholds, run.device
     words = expr = None
     filtered = 0
@@ -620,49 +660,54 @@ def _eqtl_chromosome(outf, chrom, matrix, snarls, tokenizer,
             snarls, matrix, run.chunk_size, quad_cache=tokenizer.get(chrom))):
         if words is None:
             words = upload_words(chunk_words(packed), device)
-        covar = _inputs(run, "primary", "eqtl", None, packed, words)
-        design = eqtl_design_for_chromosome(packed, covar, *th, device,
-                                            words=words)
-        flags = fetch_async({"filtered": design["filtered"],
-                             "allele_paths": design["allele_paths"]})
-        filtered_arr = flags["filtered"]
-        allele_arr = flags["allele_paths"]
-        pair_snarl: List[int] = []
-        pair_gene: List[int] = []
-        for s, snarl in enumerate(packed.snarls):
-            if filtered_arr[s]:
-                filtered += 1
-                continue
-            for g in found_gene_snarl(gene_list, snarl.start_pos,
-                                      snarl.end_pos, run.window):
-                pair_snarl.append(s)
-                pair_gene.append(g)
-        if not pair_snarl:
+        with trace.span("runner.dispatch"):
+            covar = _inputs(run, "primary", "eqtl", None, packed, words)
+            design = eqtl_design_for_chromosome(packed, covar, *th, device,
+                                                words=words)
+            flags = fetch_async({"filtered": design["filtered"],
+                                 "allele_paths": design["allele_paths"]})
+        with trace.span("runner.eqtl_wait_card"):
+            filtered_arr = np.asarray(flags["filtered"])[:len(packed.snarls)]
+            allele_arr = flags["allele_paths"]
+        with trace.span("runner.eqtl_pairs"):
+            live = np.flatnonzero(~filtered_arr.astype(bool))
+            filtered += len(packed.snarls) - live.size
+            pair_snarl, pair_gene = windows.pairs(
+                live,
+                [packed.snarls[s].start_pos for s in live],
+                [packed.snarls[s].end_pos for s in live], run.window)
+            if pair_snarl.size and run.mesh is None:
+                pairs = to_eqtl_pairs(pair_snarl, pair_gene,
+                                      int(design["X"].shape[0]), device)
+        if not pair_snarl.size:
             continue
-        if run.mesh is not None:
-            if expr is None:
-                # the chromosome's expression, uploaded once to each device
-                expr = eqtl_expr_rows(gene_list)
-            res = eqtl_regress_pairs_sharded(design, pair_snarl, pair_gene,
-                                             expr, run.mesh,
-                                             replicated=run.replicated)
-        else:
-            if expr is None:
-                # the chromosome's expression, uploaded once
-                expr = to_eqtl_expr(gene_list, device)
-            res = eqtl_regress_pairs(
-                design, *to_eqtl_pairs(pair_snarl, pair_gene,
-                                       int(design["X"].shape[0]), device),
-                expr)
+        _, n_samples, n_columns = design["X"].shape
+        for name, n in (("calls", 1),
+                        # the pairs are in snarl order
+                        ("snarls", 1 + np.count_nonzero(np.diff(pair_snarl))),
+                        ("pairs", pair_snarl.size), ("genes", len(gene_list)),
+                        ("samples", n_samples), ("columns", n_columns)):
+            trace.count("eqtl." + name, n)
+        with trace.span("runner.dispatch"):
+            if run.mesh is not None:
+                if expr is None:
+                    # the chromosome's expression, uploaded once to each
+                    # device
+                    expr = eqtl_expr_rows(gene_list)
+                res = eqtl_regress_pairs_sharded(design, pair_snarl,
+                                                 pair_gene, expr, run.mesh,
+                                                 replicated=run.replicated)
+            else:
+                if expr is None:
+                    # the chromosome's expression, uploaded once
+                    expr = to_eqtl_expr(gene_list, device)
+                res = eqtl_regress_pairs(design, *pairs, expr)
         del design
-        p, r2, beta, se = (res[k] for k in ("p", "r2", "beta", "se"))
-        for b, (s, g) in enumerate(zip(pair_snarl, pair_gene)):
-            snarl = packed.snarls[s]
-            W.write_eqtl_row(
-                outf, chrom, snarl, snarl.type_var_str,
-                gene_list[g].gene_name, W.format_p(p[b]),
-                W.format_p(r2[b]), W.format_p(beta[b]), W.format_p(se[b]),
-                allele_arr[s][: snarl.n_paths])
+        with trace.span("runner.eqtl_wait_card"):
+            stats = {k: res[k] for k in ("p", "r2", "beta", "se")}
+        with trace.span("runner.eqtl_write"):
+            W.write_eqtl_rows_batch(outf, chrom, packed.snarls, gene_names,
+                                    pair_snarl, pair_gene, stats, allele_arr)
     return filtered
 
 

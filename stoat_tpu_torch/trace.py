@@ -36,16 +36,20 @@ any thread that adopted one of its spans, carries that id.  The spans
 and counters of the program (span names as recorded; ``stoat.`` in the
 profiler):
 
-  job, cli.parse                      cli.py
+  job, cli.parse, cli.release         cli.py
   runner, runner.wait_ingest, runner.wait_tokens, runner.pack,
   runner.dispatch, runner.wait_writer pipeline/runner.py
+  runner.eqtl_pairs, runner.eqtl_wait_card,
+  runner.eqtl_write                   pipeline/runner.py, the eQTL mode
   perm, perm.ingest, perm.pack, perm.rows, perm.dispatch,
   perm.wait_card, perm.write          pipeline/permutation.py
   ingest                              a VCF reader's open, each
                                       chromosome and its close
   upload                              convert.upload
   counters: h2d_bytes (convert.upload), perm.snarls_computed,
-  perm.snarls_tested (pipeline/permutation.py), spans (records a job)
+  perm.snarls_tested (pipeline/permutation.py), eqtl.calls,
+  eqtl.snarls, eqtl.pairs, eqtl.genes, eqtl.samples, eqtl.columns
+  (pipeline/runner.py, each eQTL OLS call), spans (records a job)
 """
 
 from __future__ import annotations

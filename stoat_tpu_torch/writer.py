@@ -13,6 +13,7 @@ stoat_core.cpp) or row by row in Python; the permutation tables reuse
 
 from __future__ import annotations
 
+import threading
 from typing import List, Sequence
 
 import numpy as np
@@ -29,6 +30,7 @@ __all__ = [
     "write_eqtl_header", "write_eqtl_row",
     "write_significant_table",
     "write_binary_rows_batch", "write_quant_rows_batch",
+    "write_eqtl_rows_batch",
 ]
 
 BINARY_HEADER = ("#CHR\tSTART_POS\tEND_POS\tSNARL\tPATH_LENGTHS\tP_FISHER\t"
@@ -125,31 +127,38 @@ def _prefix_blob(snarls) -> bytes:
 
 
 # Per-chunk formatting metadata (prefix blob, depth and path-count
-# arrays) is pure snarl-file data: cache it across runs/modes keyed by
-# the chunk's first SnarlData identity (the objects persist for the
-# process; a bench or multi-phenotype session re-formats the same chunks
-# several times).
+# arrays) is pure snarl-file data: cached for the chunks formatted last,
+# keyed by the chunk list's identity (a secondary table, the dual run's
+# quantitative one, re-formats the chunk list its primary table just
+# formatted).  The cache holds a strong reference to each list, so it is
+# kept to a few chunks: a process that runs job after job (a benchmark, a
+# service) would otherwise keep every job's snarls alive, and each full
+# garbage collection would walk all of them.
 _META_CACHE: dict = {}
+_META_CACHE_CHUNKS = 4
+_META_LOCK = threading.Lock()
 
 
 def _chunk_meta(snarls):
     # cache hit requires the SAME LIST OBJECT (the dual-run secondary
-    # and bench re-format the identical chunk list); a (first-element,
-    # length) key could alias a reordered/subset list sharing its head
-    # and silently pair stale coordinates with fresh p-values
+    # re-formats the identical chunk list); a (first-element, length) key
+    # could alias a reordered/subset list sharing its head and silently
+    # pair stale coordinates with fresh p-values
     key = id(snarls)
-    got = _META_CACHE.get(key)
+    with _META_LOCK:
+        got = _META_CACHE.get(key)
     if got is not None and got[0] is snarls:
         return got[1]
     meta = (_prefix_blob(snarls),
             np.fromiter((s.depth for s in snarls), np.int64, len(snarls)),
             np.fromiter((s.n_paths for s in snarls), np.int64,
                         len(snarls)))
-    if len(_META_CACHE) > 256:
-        _META_CACHE.clear()
-    # the cached strong reference to the list keeps its id from being
-    # recycled, making the identity check sound
-    _META_CACHE[key] = (snarls, meta)
+    with _META_LOCK:
+        while len(_META_CACHE) >= _META_CACHE_CHUNKS:
+            del _META_CACHE[next(iter(_META_CACHE))]     # the oldest
+        # the cached strong reference to the list keeps its id from being
+        # recycled, making the identity check sound
+        _META_CACHE[key] = (snarls, meta)
     return meta
 
 
@@ -252,3 +261,34 @@ def write_quant_rows_batch(fh, chrom: str, snarls, res,
                 format_p(float(beta_arr[s])),
                 format_p(float(se_arr[s])), ap)
     return n_filtered
+
+
+def write_eqtl_rows_batch(fh, chrom: str, snarls, gene_names: Sequence[str],
+                          pair_snarl, pair_gene, res, allele_paths) -> None:
+    """Write a chunk's eQTL rows, one a (snarl, gene) pair in pair order:
+    pair b is ``snarls[pair_snarl[b]]`` with gene
+    ``gene_names[pair_gene[b]]``, its p, r2, beta and se from ``res``, the
+    snarl's allele counts from ``allele_paths`` [S, Pmax].  One C++
+    batch-format call and one write; the per-row path
+    (:func:`write_eqtl_row`), whose bytes it equals, where the native core
+    is unavailable."""
+    p, r2, beta, se = (np.asarray(res[k]) for k in ("p", "r2", "beta", "se"))
+    allele_arr = np.asarray(allele_paths)
+    try:
+        from stoat_tpu_torch import native
+        prefixes, depths, n_paths = _chunk_meta(snarls)
+        genes = "".join(g + "\0" for g in gene_names).encode()
+        blob = native.format_eqtl_rows(
+            chrom, prefixes, depths, allele_arr[:len(snarls)], n_paths,
+            genes, len(gene_names), pair_snarl, pair_gene, p, r2, beta, se)
+    except (OSError, AttributeError):
+        blob = None
+    if blob is not None:
+        _write_blob(fh, blob)
+        return
+    for b, (s, g) in enumerate(zip(pair_snarl, pair_gene)):
+        snarl = snarls[s]
+        write_eqtl_row(fh, chrom, snarl, snarl.type_var_str, gene_names[g],
+                       format_p(float(p[b])), format_p(float(r2[b])),
+                       format_p(float(beta[b])), format_p(float(se[b])),
+                       allele_arr[s][: snarl.n_paths])

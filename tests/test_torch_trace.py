@@ -18,11 +18,11 @@ from stoat_tpu_torch.pipeline import permutation
 MODES = {"q": ("-q", "quantitative", "quantitative_permutation_vcf.tsv"),
          "b": ("-b", "binary", "binary_permutation_vcf.tsv")}
 # every span the single-device path of a vcf job with permutations crosses
-PATH_SPANS = {"job", "cli.parse", "runner", "runner.wait_ingest",
-              "runner.wait_tokens", "runner.pack", "runner.dispatch",
-              "runner.wait_writer", "perm", "perm.ingest", "perm.pack",
-              "perm.rows", "perm.dispatch", "perm.wait_card", "perm.write",
-              "ingest", "upload"}
+PATH_SPANS = {"job", "cli.parse", "cli.release", "runner",
+              "runner.wait_ingest", "runner.wait_tokens", "runner.pack",
+              "runner.dispatch", "runner.wait_writer", "perm", "perm.ingest",
+              "perm.pack", "perm.rows", "perm.dispatch", "perm.wait_card",
+              "perm.write", "ingest", "upload"}
 
 
 def _tables(out):
