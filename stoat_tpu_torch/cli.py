@@ -291,11 +291,15 @@ def main_vcf(argv: List[str]) -> int:
 
         ref_chr = (parse_chromosome_reference(args.chr_file)
                    if args.chr_file else set())
-        snarls_chr = parse_snarl_path(args.snarl) if args.snarl else None
+        snarls_chr = None
+        if args.snarl:
+            with trace.span("cli.snarls"):
+                snarls_chr = parse_snarl_path(args.snarl)
     if snarls_chr is None:
         logger.info("Starting snarl decomposition... ")
         t0 = time.time()
         from stoat_tpu_torch.graph.decompose import decompose_to_snarl_file
+        from stoat_tpu_torch.io.snarl_file import SnarlTable
         snarls_chr = decompose_to_snarl_file(
             args.graph, args.dist, args.output, ref_chr,
             children_threshold=args.children,
@@ -304,6 +308,10 @@ def main_vcf(argv: List[str]) -> int:
         logger.info("Snarl time decomposition : %.3f s", time.time() - t0)
         if only_snarl_parsing:
             return 0
+        # one representation downstream: the decomposition's objects as the
+        # same tables the snarl file gives
+        snarls_chr = {chrom: SnarlTable.of(snarls)
+                      for chrom, snarls in snarls_chr.items()}
 
     t_gwas = time.time()
     logger.info("Starting GWAS analysis on %s...", device)

@@ -13,16 +13,27 @@ Format contract (snarl_data_t.cpp:114-116 writer, :8-112 reader):
 Path strings are parsed into (node_id, is_reverse) tuples and then into
 consecutive-node edges, matching ``decompose_path_str_to_edge``
 (snarl_analyzer.cpp:277-303).
+
+A file is read into columns (:class:`SnarlTable`), one table a
+chromosome, in one native pass where the native core can read it exactly
+as the Python parser does; the pipeline reads the columns, and an item of
+a table is a :class:`SnarlData` built on demand.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import operator
+import os
+from collections.abc import Sequence
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
+from stoat_tpu_torch import trace
 from stoat_tpu_torch.formatting import string_to_pair
 
-__all__ = ["SnarlData", "parse_snarl_path", "parse_path_string",
-           "path_to_edges", "EXPECTED_HEADER"]
+__all__ = ["SnarlData", "SnarlTable", "parse_snarl_path",
+           "parse_path_string", "path_to_edges", "EXPECTED_HEADER"]
 
 EXPECTED_HEADER = [
     "CHR", "START_POS", "END_POS", "SNARL_HANDLEGRAPH",
@@ -143,17 +154,170 @@ class SnarlData:
                 f"{len(self.path_strings)} paths)")
 
 
-def parse_snarl_path(file_path: str) -> Dict[str, List[SnarlData]]:
-    """Load a snarl decomposition TSV into {chr: [SnarlData...]}.
+def _column(k: int, doc: str):
+    return property(lambda self: self._ints[k], doc=doc)
 
-    Keeps file order within each chromosome (the reference's per-chromosome
-    vectors, snarl_data_t.cpp:49-99).  Note the reference reassigns
-    ``chr_snarl_matrix[chr]`` on every chromosome *change*, so a chromosome
-    split into non-contiguous blocks keeps only its last block — we
-    replicate that quirk for parity.
-    """
-    chr_map: Dict[str, List[SnarlData]] = {}
-    current: List[SnarlData] = []
+
+def _blob(fields: List[str], sep: bytes = b""):
+    """The fields as one bytes object, each followed by ``sep``, and the
+    int64 [n + 1] offsets of their starts."""
+    encoded = [f.encode() for f in fields]
+    offsets = np.zeros(len(encoded) + 1, np.int64)
+    np.cumsum([len(e) + len(sep) for e in encoded], out=offsets[1:])
+    return b"".join(e + sep for e in encoded), offsets
+
+
+class SnarlTable(Sequence):
+    """One chromosome's snarls as columns, in file order: a ``Sequence`` of
+    :class:`SnarlData`.
+
+    ``start_pos``, ``end_pos``, ``net_handle``, ``snarl_id0``,
+    ``snarl_id1``, ``depth`` and ``n_paths`` are int64 arrays, one entry a
+    snarl; the snarls' PATHS and TYPE fields are bytes in two shared blobs
+    with row offsets.  The per-chunk consumers (the path tokenizer, the
+    writer's row prefixes, the eQTL pairing, the permutation table) read
+    the columns.  Indexing builds a :class:`SnarlData` on demand, counted
+    as ``snarl_file.objects``; a slice is a table over the same blobs.  A
+    table made from objects (:meth:`of`) returns those objects."""
+
+    __slots__ = ("_ints", "_paths", "_paths_off", "_types", "_types_off",
+                 "_items")
+
+    def __init__(self, ints: np.ndarray, paths: Optional[bytes],
+                 paths_off: np.ndarray, types: bytes, types_off: np.ndarray,
+                 items: Optional[List[SnarlData]] = None):
+        self._ints = ints              # int64 [7, S], the columns below
+        # every snarl's PATHS followed by ','; None when an object's parsed
+        # paths disagree with its path strings (the tokenizer then walks
+        # the objects' tuples)
+        self._paths = paths
+        self._paths_off = paths_off    # int64 [S + 1]
+        self._types = types            # every snarl's TYPE
+        self._types_off = types_off    # int64 [S + 1]
+        self._items = items            # the objects, for a table of them
+
+    start_pos = _column(0, "int64 [S] START_POS")
+    end_pos = _column(1, "int64 [S] END_POS")
+    net_handle = _column(2, "int64 [S] SNARL_HANDLEGRAPH")
+    snarl_id0 = _column(3, "int64 [S] SNARL's first id")
+    snarl_id1 = _column(4, "int64 [S] SNARL's second id")
+    depth = _column(5, "int64 [S] DEPTH")
+    n_paths = _column(6, "int64 [S] paths a snarl")
+
+    @classmethod
+    def of(cls, snarls: Sequence[SnarlData]) -> "SnarlTable":
+        """``snarls`` when it is a table, else a table over the objects."""
+        if isinstance(snarls, cls):
+            return snarls
+        items = list(snarls)
+        ints = np.array([(s.start_pos, s.end_pos, s.net_handle,
+                          s.snarl_ids[0], s.snarl_ids[1], s.depth, s.n_paths)
+                         for s in items], np.int64).reshape(-1, 7).T.copy()
+        paths = paths_off = None
+        if all(len(s.path_strings) == s.n_paths for s in items):
+            if all(s.raw_paths is not None for s in items):
+                fields = [s.raw_paths for s in items]
+            else:
+                fields = [",".join(s.path_strings) for s in items]
+            paths, paths_off = _blob(fields, b",")
+        types, types_off = _blob([s.type_var_str for s in items])
+        return cls(ints, paths, paths_off, types, types_off, items)
+
+    def __len__(self) -> int:
+        return self._ints.shape[1]
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            lo, hi, step = i.indices(len(self))
+            if step != 1:
+                return [self[j] for j in range(lo, hi, step)]
+            hi = max(lo, hi)
+            return SnarlTable(
+                self._ints[:, lo:hi], self._paths,
+                None if self._paths_off is None
+                else self._paths_off[lo:hi + 1],
+                self._types, self._types_off[lo:hi + 1],
+                None if self._items is None else self._items[lo:hi])
+        i = operator.index(i)
+        if i < 0:
+            i += len(self)
+        if not 0 <= i < len(self):
+            raise IndexError("snarl index out of range")
+        if self._items is not None:
+            return self._items[i]
+        trace.count("snarl_file.objects", 1)
+        start, end, handle, id0, id1, depth, _ = self._ints[:, i].tolist()
+        raw = self._paths[self._paths_off[i]:
+                          self._paths_off[i + 1] - 1].decode()
+        types = self._types[self._types_off[i]:self._types_off[i + 1]]
+        return SnarlData(net_handle=handle, snarl_ids=(id0, id1),
+                         start_pos=start, end_pos=end,
+                         type_variants=types.decode().split(","),
+                         depth=depth, path_strings=raw.split(","),
+                         raw_paths=raw)
+
+    def __iter__(self):
+        if self._items is not None:
+            return iter(self._items)
+        return (self[i] for i in range(len(self)))
+
+    def __eq__(self, other):
+        """The same snarls in the same order, by their columns and fields
+        (a table of objects out of sync with its paths: by its items)."""
+        if not isinstance(other, SnarlTable):
+            return NotImplemented
+        if self._paths is None or other._paths is None:
+            return list(self) == list(other)
+        return (np.array_equal(self._ints, other._ints)
+                and self.paths_blob() == other.paths_blob()
+                and self.row_prefixes() == other.row_prefixes())
+
+    def __add__(self, other):
+        return list(self) + list(other)
+
+    def __radd__(self, other):
+        return list(other) + list(self)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"SnarlTable({len(self)} snarls)"
+
+    def paths_blob(self) -> Optional[bytes]:
+        """The snarls' PATHS fields joined by ',' (the path resolvers'
+        input), or None when an object's parsed paths disagree with its
+        path strings."""
+        if self._paths is None:
+            return None
+        lo, hi = int(self._paths_off[0]), int(self._paths_off[-1])
+        return self._paths[lo:max(lo, hi - 1)]
+
+    def row_prefixes(self) -> bytes:
+        """Each snarl's ``START\tEND\tSNARL\tTYPES``, NUL-terminated: the
+        constant middle of its output rows (:attr:`SnarlData.row_prefix`),
+        in C++ where the native core is available."""
+        from stoat_tpu_torch import native
+        got = native.snarl_prefixes(self.start_pos, self.end_pos,
+                                    self.snarl_id0, self.snarl_id1,
+                                    self._types, self._types_off)
+        if got is not None:
+            return got
+        off = self._types_off.tolist()
+        return "".join(
+            f"{s}\t{e}\t{a}_{b}\t{self._types[lo:hi].decode()}\0"
+            for s, e, a, b, lo, hi in zip(
+                self.start_pos.tolist(), self.end_pos.tolist(),
+                self.snarl_id0.tolist(), self.snarl_id1.tolist(), off[:-1],
+                off[1:])).encode()
+
+
+def _parse_python(file_path: str):
+    """The snarl file read line by line in Python: the table of every row
+    and the blocks ``[(chrom, first row, end row)]`` that
+    :func:`parse_snarl_path` keeps."""
+    ints: List[Tuple[int, ...]] = []
+    paths: List[str] = []
+    types: List[str] = []
+    blocks = []
+    lo = 0
     save_chr = ""
 
     with open(file_path) as fh:
@@ -177,25 +341,52 @@ def parse_snarl_path(file_path: str) -> Dict[str, List[SnarlData]]:
             chrom, start_s, end_s, handle_s, snarl_id_s, paths_s, type_s, _ref, depth_s = cols[:9]
 
             if chrom != save_chr and save_chr != "":
-                chr_map[save_chr] = current
-                current = []
+                blocks.append((save_chr, lo, len(ints)))
+                lo = len(ints)
             save_chr = chrom
 
-            path_strings = paths_s.split(",")
-            current.append(SnarlData(
-                net_handle=int(handle_s),
-                snarl_ids=string_to_pair(snarl_id_s),
-                paths=None,  # parsed lazily from path_strings
-                start_pos=int(start_s),
-                end_pos=int(end_s),
-                type_variants=type_s.split(","),
-                depth=int(depth_s),
-                path_strings=path_strings,
-                raw_paths=paths_s,
-            ))
+            handle = int(handle_s)
+            snarl_ids = string_to_pair(snarl_id_s)
+            start, end = int(start_s), int(end_s)
+            ints.append((start, end, handle, *snarl_ids, int(depth_s),
+                         paths_s.count(",") + 1))
+            paths.append(paths_s)
+            types.append(type_s)
 
     if save_chr != "":
-        chr_map[save_chr] = current
+        blocks.append((save_chr, lo, len(ints)))
+    table = SnarlTable(np.array(ints, np.int64).reshape(-1, 7).T.copy(),
+                       *_blob(paths, b","), *_blob(types))
+    return table, blocks
+
+
+def parse_snarl_path(file_path: str) -> Dict[str, SnarlTable]:
+    """Load a snarl decomposition TSV into {chr: SnarlTable}.
+
+    Keeps file order within each chromosome (the reference's per-chromosome
+    vectors, snarl_data_t.cpp:49-99).  Note the reference reassigns
+    ``chr_snarl_matrix[chr]`` on every chromosome *change*, so a chromosome
+    split into non-contiguous blocks keeps only its last block — we
+    replicate that quirk for parity.
+
+    The file is read in one native pass (``native.parse_snarl_file``);
+    a file that pass does not read exactly as the line-by-line Python
+    parser does, or a host without the native core, takes the Python
+    parser, which fills the same columns and raises its errors.  The rows
+    read count as ``snarl_file.rows``.
+    """
+    from stoat_tpu_torch import native
+    got = (native.parse_snarl_file(file_path)
+           if os.path.isfile(file_path) else None)
+    if got is not None:
+        *columns, blocks = got
+        table = SnarlTable(*columns)
+    else:
+        table, blocks = _parse_python(file_path)
+    trace.count("snarl_file.rows", len(table))
+    chr_map: Dict[str, SnarlTable] = {}
+    for chrom, lo, hi in blocks:
+        chr_map[chrom] = table[lo:hi]
     return chr_map
 
 

@@ -202,8 +202,89 @@ def get_lib() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
         ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_double),
         ctypes.c_int64, ctypes.POINTER(ctypes.c_uint64)]
+    lib.stoat_snarl_parse.restype = ctypes.c_void_p
+    lib.stoat_snarl_parse.argtypes = [ctypes.c_char_p,
+                                      ctypes.POINTER(_SnarlColumns)]
+    lib.stoat_snarl_free.argtypes = [ctypes.c_void_p]
+    lib.stoat_snarl_prefixes.restype = ctypes.c_void_p
+    lib.stoat_snarl_prefixes.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint64)]
     _lib = lib
     return _lib
+
+
+class _SnarlColumns(ctypes.Structure):
+    """stoat_core.cpp's SnarlColumns: a parsed snarl file's columns."""
+
+    _fields_ = [("n_rows", ctypes.c_int64), ("n_blocks", ctypes.c_int64),
+                ("ints", ctypes.POINTER(ctypes.c_int64)),
+                ("paths", ctypes.c_void_p),
+                ("paths_off", ctypes.POINTER(ctypes.c_int64)),
+                ("types", ctypes.c_void_p),
+                ("types_off", ctypes.POINTER(ctypes.c_int64)),
+                ("names", ctypes.c_void_p), ("names_len", ctypes.c_int64),
+                ("block_rows", ctypes.POINTER(ctypes.c_int64))]
+
+
+def parse_snarl_file(path: str):
+    """A snarl file's columns from one native pass, or None when the
+    native core is unavailable or the file needs the Python parse (any
+    byte, field or row the pass does not read exactly as the Python parser
+    does; stoat_core.cpp stoat_snarl_parse).
+
+    Returns ``(ints, paths, paths_off, types, types_off, blocks)``: int64
+    [7, S] (start, end, handle, the two snarl ids, depth, path count), the
+    PATHS fields each followed by ',' and the TYPE fields as bytes with
+    their int64 [S + 1] offsets, and ``[(chrom, first row, end row)]`` for
+    each run of rows of one chromosome, in file order."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    cols = _SnarlColumns()
+    handle = lib.stoat_snarl_parse(os.fsencode(path), ctypes.byref(cols))
+    if not handle:
+        return None
+    try:
+        n, nb = cols.n_rows, cols.n_blocks
+
+        def ints(ptr, count):
+            return np.ctypeslib.as_array(ptr, shape=(count,)).copy()
+        flat = ints(cols.ints, 7 * n) if n else np.zeros(0, np.int64)
+        paths_off, types_off = ints(cols.paths_off, n + 1), \
+            ints(cols.types_off, n + 1)
+        rows = ints(cols.block_rows, nb + 1).tolist()
+        names = ctypes.string_at(cols.names, cols.names_len)
+        paths = ctypes.string_at(cols.paths, int(paths_off[-1]))
+        types = ctypes.string_at(cols.types, int(types_off[-1]))
+    finally:
+        lib.stoat_snarl_free(handle)
+    chroms = names.decode().split("\0")[:nb]
+    blocks = [(c, rows[b], rows[b + 1]) for b, c in enumerate(chroms)]
+    return flat.reshape(7, n), paths, paths_off, types, types_off, blocks
+
+
+def snarl_prefixes(start, end, id0, id1, types: bytes, types_off):
+    """Each snarl's NUL-terminated output-row prefix from the columns
+    (stoat_core.cpp stoat_snarl_prefixes), or None when the native core is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    cols = [np.ascontiguousarray(c, np.int64)
+            for c in (start, end, id0, id1, types_off)]
+    out_len = ctypes.c_uint64()
+    ptr = lib.stoat_snarl_prefixes(*(c.ctypes.data_as(i64) for c in cols[:4]),
+                                   types, cols[4].ctypes.data_as(i64),
+                                   cols[0].shape[0], ctypes.byref(out_len))
+    if not ptr:
+        return None
+    blob = ctypes.string_at(ptr, out_len.value)
+    lib.stoat_free_buf(ptr)
+    return blob
 
 
 def _dptr(a):
@@ -309,22 +390,33 @@ def format_eqtl_rows(chrom: str, prefixes: bytes, depths, allele_paths,
     return blob
 
 
-def resolve_paths_native(edges: np.ndarray, blob: str):
+def ascii_bytes(blob) -> Optional[bytes]:
+    """A path blob (str or bytes) as ASCII bytes, or None when it holds
+    any other character (the callers then take the scalar tuple walk)."""
+    if isinstance(blob, bytes):
+        return blob if blob.isascii() else None
+    try:
+        return blob.encode("ascii")
+    except UnicodeEncodeError:
+        return None
+
+
+def resolve_paths_native(edges: np.ndarray, blob):
     """Resolve a chromosome's path-string blob to edge rows in C++.
 
     ``edges`` is the [E, 4] uint64 (a_id, a_rev, b_id, b_rev) row table;
-    ``blob`` the comma-joined path strings.  Returns (rows uint32 [nnz],
-    offsets uint64 [P+1], valid uint8 [P]) or None when the native core
-    is unavailable (callers fall back to the numpy tokenizer).
+    ``blob`` the comma-joined path strings, str or bytes.  Returns (rows
+    uint32 [nnz], offsets uint64 [P+1], valid uint8 [P]) or None when the
+    native core is unavailable (callers fall back to the numpy
+    tokenizer).
     Semantics match identify_path: node-0 edges skipped, unknown edges
     invalidate the path (snarl_analyzer.cpp:326-336)."""
     lib = get_lib()
     if lib is None:
         return None
     edges = np.ascontiguousarray(edges, np.uint64).reshape(-1, 4)
-    try:
-        data = blob.encode("ascii")
-    except UnicodeEncodeError:
+    data = ascii_bytes(blob)
+    if data is None:
         return None
     rows_p = ctypes.POINTER(ctypes.c_uint32)()
     offs_p = ctypes.POINTER(ctypes.c_uint64)()
@@ -781,9 +873,8 @@ def _make_chunk_resolver(lib, owner):
     def resolve(blob: str):
         if not getattr(owner, "_cp", None):
             return None
-        try:
-            data = blob.encode("ascii")
-        except UnicodeEncodeError:
+        data = ascii_bytes(blob)
+        if data is None:
             return None
         k = ctypes.c_int64()
         idx_p = ctypes.POINTER(ctypes.c_int32)()

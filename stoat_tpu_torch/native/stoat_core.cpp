@@ -1284,8 +1284,7 @@ static inline void fmt_p(double v, std::string& out) {
 
 static inline void append_int(long long v, std::string& out) {
     char buf[24];
-    snprintf(buf, sizeof buf, "%lld", v);
-    out += buf;
+    out.append(buf, std::to_chars(buf, buf + sizeof buf, v).ptr);
 }
 
 static char* finish_blob(std::string& out, uint64_t* out_len) {
@@ -1461,6 +1460,197 @@ char* stoat_format_eqtl_rows(
     for (auto& th : threads) th.join();
     for (int64_t t = 1; t < T; ++t) parts[0] += parts[size_t(t)];
     return finish_blob(parts[0], out_len);
+}
+
+
+// ---------------------------------------------------------------------------
+// The snarl file read into columns (io/snarl_file.py parse_snarl_path).
+//
+// One pass over the file's bytes: the header checked, blank lines skipped,
+// the first nine tab-separated fields of each row taken and the rest
+// ignored.  Per row START_POS, END_POS, SNARL_HANDLEGRAPH, the two ids of
+// SNARL ("a_b"), DEPTH and the number of PATHS entries go to int64
+// columns; the PATHS field (each followed by ',') and the TYPE field to
+// byte blobs with row offsets; and each run of rows with one CHR, in file
+// order, to a block.  It reads only what it reads exactly as the Python
+// parser does: every byte printable ASCII, a tab or '\n'; each integer an
+// unsigned run of 1-18 digits; CHR, PATHS and TYPE not empty.  Anything
+// else (a '\r', a sign, a space in a number, a short row, another header)
+// returns nullptr, as an unreadable file does, and the caller parses the
+// file in Python, which raises the parser's own errors.
+
+struct SnarlColumns {            // ctypes mirror: native/__init__.py
+    int64_t n_rows, n_blocks;
+    const int64_t* ints;         // [7, n_rows]: start, end, handle, id0,
+                                 // id1, depth, paths
+    const char* paths;
+    const int64_t* paths_off;    // [n_rows + 1]
+    const char* types;
+    const int64_t* types_off;    // [n_rows + 1]
+    const char* names;           // the blocks' CHR, each NUL-terminated
+    int64_t names_len;
+    const int64_t* block_rows;   // [n_blocks + 1] each block's first row
+};
+
+struct SnarlFile {
+    std::vector<int64_t> ints, paths_off{0}, types_off{0}, block_rows;
+    std::string paths, types, names;
+};
+
+static bool parse_digits(const char* p, const char* e, int64_t& v) {
+    if (p == e || e - p > 18) return false;
+    int64_t x = 0;
+    for (; p < e; ++p) {
+        const unsigned d = unsigned(*p) - unsigned('0');
+        if (d > 9) return false;
+        x = x * 10 + int64_t(d);
+    }
+    v = x;
+    return true;
+}
+
+// The first c in [p, e), or nullptr.
+static const char* find_char(const char* p, const char* e, char c) {
+    return static_cast<const char*>(memchr(p, c, size_t(e - p)));
+}
+
+static bool parse_snarl_rows(const char* s, const char* end, SnarlFile& sf) {
+    for (const char* p = s; p < end; ++p) {
+        const unsigned char c = static_cast<unsigned char>(*p);
+        if (c != '\t' && c != '\n' && (c < 0x20 || c > 0x7e)) return false;
+    }
+    static const char kHeader[] =
+        "CHR\tSTART_POS\tEND_POS\tSNARL_HANDLEGRAPH\tSNARL\tPATHS\tTYPE\t"
+        "REF\tDEPTH";
+    const char* nl = find_char(s, end, '\n');
+    const char* he = nl ? nl : end;
+    if (size_t(he - s) != sizeof kHeader - 1 ||
+        memcmp(s, kHeader, sizeof kHeader - 1) != 0)
+        return false;
+    // every line but the header may be a row: the columns are laid out
+    // [7, cap] and closed up to [7, n] at the end
+    const size_t cap = size_t(std::count(s, end, '\n')) + 1;
+    sf.ints.resize(7 * cap);
+    sf.paths_off.reserve(cap + 1);
+    sf.types_off.reserve(cap + 1);
+    sf.paths.reserve(size_t(end - s));
+    sf.types.reserve(size_t(end - s));
+    std::string chrom;
+    size_t n = 0;
+    for (const char* p = nl ? nl + 1 : end; p < end;) {
+        const char* le = find_char(p, end, '\n');
+        if (!le) le = end;
+        if (le == p) { p = le + 1; continue; }
+        // f[i]: the start of field i; field i ends where field i + 1
+        // starts (less its tab), the ninth at the line's end or a tab
+        const char* f[10];
+        int tabs = 0;
+        f[0] = p;
+        for (const char* q = p; tabs < 9;) {
+            const char* t = find_char(q, le, '\t');
+            if (!t) break;
+            f[++tabs] = q = t + 1;
+        }
+        if (tabs < 8) return false;
+        auto fend = [&](int i) { return i < tabs ? f[i + 1] - 1 : le; };
+        int64_t v[7];
+        const char* id = f[4];
+        const char* us = find_char(id, fend(4), '_');
+        if (fend(0) == f[0] || fend(5) == f[5] || fend(6) == f[6] || !us ||
+            !parse_digits(f[1], fend(1), v[0]) ||
+            !parse_digits(f[2], fend(2), v[1]) ||
+            !parse_digits(f[3], fend(3), v[2]) ||
+            !parse_digits(id, us, v[3]) ||
+            !parse_digits(us + 1, fend(4), v[4]) ||
+            !parse_digits(f[8], fend(8), v[5]))
+            return false;
+        v[6] = 1 + std::count(f[5], fend(5), ',');
+        if (sf.block_rows.empty() || chrom.size() != size_t(fend(0) - f[0]) ||
+            memcmp(chrom.data(), f[0], chrom.size()) != 0) {
+            chrom.assign(f[0], fend(0));
+            sf.names.append(chrom);
+            sf.names.push_back('\0');
+            sf.block_rows.push_back(int64_t(n));
+        }
+        for (size_t k = 0; k < 7; ++k) sf.ints[k * cap + n] = v[k];
+        sf.paths.append(f[5], fend(5));
+        sf.paths.push_back(',');
+        sf.paths_off.push_back(int64_t(sf.paths.size()));
+        sf.types.append(f[6], fend(6));
+        sf.types_off.push_back(int64_t(sf.types.size()));
+        ++n;
+        if (le == end) break;
+        p = le + 1;
+    }
+    sf.block_rows.push_back(int64_t(n));
+    for (size_t k = 1; k < 7; ++k)
+        memmove(&sf.ints[k * n], &sf.ints[k * cap], n * sizeof(int64_t));
+    sf.ints.resize(7 * n);
+    return true;
+}
+
+// Returns a handle that owns the columns ``out`` points into (free it with
+// stoat_snarl_free), or nullptr: the file is unreadable or needs the
+// Python parse.
+void* stoat_snarl_parse(const char* path, SnarlColumns* out) {
+    FILE* fh = fopen(path, "rb");
+    if (!fh) return nullptr;
+    std::string buf;
+    long size = -1;
+    if (fseek(fh, 0, SEEK_END) == 0) size = ftell(fh);
+    bool failed = size < 0 || fseek(fh, 0, SEEK_SET) != 0;
+    if (!failed) {
+        buf.resize(size_t(size));
+        failed = fread(&buf[0], 1, buf.size(), fh) != buf.size() ||
+                 fgetc(fh) != EOF;
+    }
+    fclose(fh);
+    SnarlFile* sf = new SnarlFile;
+    if (failed ||
+        !parse_snarl_rows(buf.data(), buf.data() + buf.size(), *sf)) {
+        delete sf;
+        return nullptr;
+    }
+    out->n_rows = int64_t(sf->paths_off.size()) - 1;
+    out->n_blocks = int64_t(sf->block_rows.size()) - 1;
+    out->ints = sf->ints.data();
+    out->paths = sf->paths.data();
+    out->paths_off = sf->paths_off.data();
+    out->types = sf->types.data();
+    out->types_off = sf->types_off.data();
+    out->names = sf->names.data();
+    out->names_len = int64_t(sf->names.size());
+    out->block_rows = sf->block_rows.data();
+    return sf;
+}
+
+void stoat_snarl_free(void* h) {
+    delete static_cast<SnarlFile*>(h);
+}
+
+// Each snarl's output-row prefix "START\tEND\tID0_ID1\tTYPE", NUL-terminated
+// (SnarlData.row_prefix), from the columns: TYPE of snarl s is
+// types[types_off[s], types_off[s + 1]).  Caller frees via stoat_free_buf.
+char* stoat_snarl_prefixes(const int64_t* start, const int64_t* end,
+                           const int64_t* id0, const int64_t* id1,
+                           const char* types, const int64_t* types_off,
+                           int64_t S, uint64_t* out_len) {
+    std::string out;
+    out.reserve(size_t(S > 0 ? S : 0) * 40);
+    for (int64_t s = 0; s < S; ++s) {
+        append_int(start[s], out);
+        out += '\t';
+        append_int(end[s], out);
+        out += '\t';
+        append_int(id0[s], out);
+        out += '_';
+        append_int(id1[s], out);
+        out += '\t';
+        out.append(types + types_off[s],
+                   size_t(types_off[s + 1] - types_off[s]));
+        out += '\0';
+    }
+    return finish_blob(out, out_len);
 }
 
 }  // extern "C"

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from stoat_tpu_torch.device import resolve_device
-from stoat_tpu_torch.io.snarl_file import SnarlData
+from stoat_tpu_torch.io.snarl_file import SnarlData, SnarlTable
 from stoat_tpu_torch.tables import (PackedChromosome, ResolvedPaths,
                                     _pack_from_resolved, next_pow2,
                                     repad_for_coo_collision,
@@ -112,7 +112,7 @@ class ShardedChromosome:
     path_valid: np.ndarray        # [D, P]
     snarl_path_idx: np.ndarray    # [D, S_local, Pmax]
     n_snarls: int                 # real total snarls
-    snarls: List[SnarlData]
+    snarls: SnarlTable
     shard_sizes: List[int]        # real snarls per shard
     _dense: Optional[np.ndarray] = None
 
@@ -138,7 +138,7 @@ def shard_packed_chromosome(snarls: Sequence[SnarlData], edge_matrix,
     """Split a chromosome's snarls into contiguous per-device chunks and
     pack each with identical padded shapes (stoat_tpu's, :85-161; the
     paths resolve once for all shards, each shard slices them)."""
-    snarls = list(snarls)
+    snarls = SnarlTable.of(snarls)
     resolved = resolve_chromosome(snarls, edge_matrix) if snarls else None
     return _shard_resolved(resolved, snarls, 0, len(snarls), edge_matrix,
                            _matrix_words(edge_matrix), n_shards)
@@ -153,7 +153,7 @@ def shard_chromosome_chunks(snarls: Sequence[SnarlData], edge_matrix,
     resolve once for the chromosome (``quad_cache``: its
     ``tokenize_chromosome`` result, if made already) and the words are
     taken once: every chunk carries the same ``words`` array."""
-    snarls = list(snarls)
+    snarls = SnarlTable.of(snarls)
     if not snarls:
         return
     resolved = resolve_chromosome(snarls, edge_matrix, cache=quad_cache)
@@ -179,7 +179,7 @@ def _matrix_words(edge_matrix) -> np.ndarray:
 
 
 def _shard_resolved(resolved: Optional[ResolvedPaths],
-                    chrom_snarls: List[SnarlData], s_lo: int, s_hi: int,
+                    chrom_snarls: SnarlTable, s_lo: int, s_hi: int,
                     edge_matrix, words: np.ndarray,
                     n_shards: int) -> ShardedChromosome:
     """Split snarls [s_lo, s_hi) of a resolved chromosome over

@@ -60,6 +60,7 @@ from stoat_tpu_torch.convert import (DeviceChunk, chunk_words,
                                      to_device_chunk, to_perm_inputs, upload,
                                      upload_words)
 from stoat_tpu_torch.device import kernels_enabled, resolve_device
+from stoat_tpu_torch.io.snarl_file import SnarlTable
 from stoat_tpu_torch.kernels import F64, I64, VOIDP, check_tensor, launch
 from stoat_tpu_torch.pipeline.binary import binary_tables_plain
 from stoat_tpu_torch.pipeline.packed import (_popcount32,
@@ -553,7 +554,9 @@ def accumulate_chunk(state: Dict, chrom: str, snarls, p: torch.Tensor,
     ``live`` (:func:`_chunk_pvalues`), p holds those columns of the chunk
     only; every other snarl has p +inf in every row: observed +inf, all K
     permutations at or below it, and no part in the minima.  The snarls
-    with a finite observed p count as ``perm.snarls_tested``."""
+    with a finite observed p count as ``perm.snarls_tested``.  The chunk's
+    rows go to ``state["rows"]`` as its table of snarls
+    (:class:`SnarlTable`) with their observed p and counts, [S] each."""
     S = len(snarls)
     obs, perm = p[0], p[1:]
     if live is None:
@@ -573,8 +576,9 @@ def accumulate_chunk(state: Dict, chrom: str, snarls, p: torch.Tensor,
         obs_all[live], exc_all[live] = obs, exc
         obs, exc = obs_all, exc_all
     trace.count("perm.snarls_tested", np.isfinite(obs).sum())
-    state["rows"].extend((chrom, sn, float(obs[i]), int(exc[i]))
-                         for i, sn in enumerate(snarls))
+    # a copy: on the CPU, obs views the chunk's whole [1 + K, S] p
+    state["rows"].append((chrom, SnarlTable.of(snarls),
+                          np.array(obs, np.float64), exc))
 
 
 @trace.spanned("perm.write")
@@ -584,18 +588,22 @@ def _write_permutation_tsv(out_path: str, state: Dict, n_perms: int) -> int:
     null_sorted = np.sort(state["null_min"])
     with open(out_path, "w", newline="") as fh:
         fh.write("#CHR\tSTART_POS\tEND_POS\tSNARL\tP_ASY\tP_EMP\tP_FWER\n")
-        for chrom, sn, obs_p, exc in state["rows"]:
-            if not np.isfinite(obs_p):
-                fh.write(f"{chrom}\t{sn.start_pos}\t{sn.end_pos}\t"
-                         f"{sn.snarl_id_str}\tNA\tNA\tNA\n")
-                continue
-            n_tested += 1
-            p_emp = (1 + exc) / (n_perms + 1)
-            fw = int(np.searchsorted(null_sorted, obs_p, side="right"))
-            p_fwer = (1 + fw) / (n_perms + 1)
-            fh.write(f"{chrom}\t{sn.start_pos}\t{sn.end_pos}\t"
-                     f"{sn.snarl_id_str}\t{W.format_p(obs_p)}\t"
-                     f"{W.format_p(p_emp)}\t{W.format_p(p_fwer)}\n")
+        for chrom, snarls, obs, exc in state["rows"]:
+            for start, end, id0, id1, obs_p, n_exc in zip(
+                    snarls.start_pos.tolist(), snarls.end_pos.tolist(),
+                    snarls.snarl_id0.tolist(), snarls.snarl_id1.tolist(),
+                    obs.tolist(), exc.tolist()):
+                if not np.isfinite(obs_p):
+                    fh.write(f"{chrom}\t{start}\t{end}\t{id0}_{id1}\t"
+                             "NA\tNA\tNA\n")
+                    continue
+                n_tested += 1
+                p_emp = (1 + n_exc) / (n_perms + 1)
+                fw = int(np.searchsorted(null_sorted, obs_p, side="right"))
+                p_fwer = (1 + fw) / (n_perms + 1)
+                fh.write(f"{chrom}\t{start}\t{end}\t{id0}_{id1}\t"
+                         f"{W.format_p(obs_p)}\t{W.format_p(p_emp)}\t"
+                         f"{W.format_p(p_fwer)}\n")
     return n_tested
 
 

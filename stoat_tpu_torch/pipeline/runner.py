@@ -673,9 +673,8 @@ def _eqtl_chromosome(outf, chrom, matrix, snarls, tokenizer,
             live = np.flatnonzero(~filtered_arr.astype(bool))
             filtered += len(packed.snarls) - live.size
             pair_snarl, pair_gene = windows.pairs(
-                live,
-                [packed.snarls[s].start_pos for s in live],
-                [packed.snarls[s].end_pos for s in live], run.window)
+                live, packed.snarls.start_pos[live],
+                packed.snarls.end_pos[live], run.window)
             if pair_snarl.size and run.mesh is None:
                 pairs = to_eqtl_pairs(pair_snarl, pair_gene,
                                       int(design["X"].shape[0]), device)

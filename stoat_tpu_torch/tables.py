@@ -25,7 +25,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from stoat_tpu_torch.io.snarl_file import SnarlData, path_to_edges
+from stoat_tpu_torch.io.snarl_file import (SnarlData, SnarlTable,
+                                          path_to_edges)
 from stoat_tpu_torch.matrix import EdgeHaplotypeMatrix
 
 __all__ = ["PackedChromosome", "pack_chromosome", "pack_chromosome_chunks",
@@ -78,7 +79,7 @@ class PackedChromosome:
     snarl_mask: np.ndarray      # [S] bool — False for padded snarl slots
     n_paths: int                # real flat path count (pre-padding)
     n_snarls: int               # real snarl count
-    snarls: List[SnarlData]     # host-side metadata, real snarls only
+    snarls: SnarlTable          # host-side metadata, real snarls only
     words: Optional[np.ndarray] = None  # [E+1, W] uint32 (see above)
     n_haps: int = -1            # set when matrix is None
     # pack-ready [P, K] int32 path→edge-row indices from the fused native
@@ -127,26 +128,20 @@ class PackedChromosome:
 def tokenize_chromosome(snarls: Sequence[SnarlData]):
     """Prepare a chromosome's snarl paths for resolution (cacheable).
 
-    Returns ``(blob, n_per, offsets)``: all path strings comma-joined
-    (the native resolver's input — and the numpy tokenizer's), per-snarl
-    path counts, and their cumulative offsets.  Cheap and pure-host —
-    safe to run on a background thread overlapped with VCF ingestion.
-    Returns None when a snarl's cached path strings are out of sync with
-    its parsed tuples (callers fall back to the per-chunk tuple walk).
+    Returns ``(blob, n_per, offsets)``: all path strings comma-joined as
+    bytes (the native resolver's input — and the numpy tokenizer's), read
+    from the snarls' table (:class:`SnarlTable`), per-snarl path counts,
+    and their cumulative offsets.  Cheap and pure-host — safe to run on a
+    background thread overlapped with VCF ingestion.  Returns None when a
+    snarl's path strings are out of sync with its parsed tuples (callers
+    fall back to the per-chunk tuple walk).
     """
-    n_per = np.fromiter((len(s.path_strings) for s in snarls),
-                        np.int64, len(snarls))
-    n_tup = np.fromiter((s.n_paths for s in snarls),
-                        np.int64, len(snarls))
-    if not np.array_equal(n_per, n_tup):
+    table = SnarlTable.of(snarls)
+    blob = table.paths_blob()
+    if blob is None:
         return None
-    try:
-        # file-loaded snarls carry the raw PATHS column: one join per
-        # snarl instead of one per path
-        blob = ",".join(s.raw_paths for s in snarls)
-    except TypeError:
-        blob = ",".join(p for s in snarls for p in s.path_strings)
-    offsets = np.zeros(len(snarls) + 1, np.int64)
+    n_per = table.n_paths
+    offsets = np.zeros(len(table) + 1, np.int64)
     np.cumsum(n_per, out=offsets[1:])
     return blob, n_per, offsets
 
@@ -261,8 +256,9 @@ def pack_chromosome_chunks(snarls: Sequence[SnarlData], edge_matrix,
     computed on a background thread while the VCF streamed in) feeds the
     resolver.
     """
+    snarls = SnarlTable.of(snarls)
     resolved = resolve_chromosome(snarls, edge_matrix, cache=quad_cache)
-    chunks = [list(snarls[lo:lo + chunk_size])
+    chunks = [snarls[lo:lo + chunk_size]
               for lo in range(0, len(snarls), chunk_size)]
     if not chunks:
         return []
@@ -322,10 +318,11 @@ def _quads_from_blob(blob: str, n_per: np.ndarray):
     characters the scalar parser treats specially (callers then use the
     tuple walk)."""
     flat_index = int(np.sum(n_per))
-    try:
-        b = np.frombuffer(blob.encode("ascii"), np.uint8)
-    except UnicodeEncodeError:
+    from stoat_tpu_torch.native import ascii_bytes
+    data = ascii_bytes(blob)
+    if data is None:
         return None
+    b = np.frombuffer(data, np.uint8)
     empty = (np.zeros((0, 4), np.uint64), np.zeros(0, np.int64),
              flat_index, n_per)
     if b.size == 0:
@@ -413,12 +410,13 @@ def pack_chromosome(snarls: Sequence[SnarlData],
     Resolution runs once for the whole chromosome (natively where
     possible — ``resolve_chromosome``); ``cache`` optionally supplies a
     precomputed ``tokenize_chromosome`` result."""
+    snarls = SnarlTable.of(snarls)
     resolved = resolve_chromosome(snarls, edge_matrix, cache=cache)
-    return _pack_from_resolved(resolved, list(snarls), edge_matrix,
+    return _pack_from_resolved(resolved, snarls, edge_matrix,
                                0, len(snarls), pad_snarls=pad_snarls)
 
 
-def _pack_from_resolved(resolved: ResolvedPaths, snarls: List[SnarlData],
+def _pack_from_resolved(resolved: ResolvedPaths, snarls: SnarlTable,
                         edge_matrix, s_lo: int, s_hi: int,
                         pad_snarls: bool = True) -> PackedChromosome:
     """Pad one snarl range of a resolved chromosome into device tensors."""
@@ -503,7 +501,7 @@ def _pack_from_resolved(resolved: ResolvedPaths, snarls: List[SnarlData],
         snarl_mask=mask,
         n_paths=flat_index,
         n_snarls=S_real,
-        snarls=list(snarls),
+        snarls=snarls,
         words=words,
         n_haps=n_haps,
         path_idx=path_idx,

@@ -36,7 +36,8 @@ any thread that adopted one of its spans, carries that id.  The spans
 and counters of the program (span names as recorded; ``stoat.`` in the
 profiler):
 
-  job, cli.parse, cli.release         cli.py
+  job, cli.parse, cli.snarls,
+  cli.release                         cli.py
   runner, runner.wait_ingest, runner.wait_tokens, runner.pack,
   runner.dispatch, runner.wait_writer pipeline/runner.py
   runner.eqtl_pairs, runner.eqtl_wait_card,
@@ -49,7 +50,9 @@ profiler):
   counters: h2d_bytes (convert.upload), perm.snarls_computed,
   perm.snarls_tested (pipeline/permutation.py), eqtl.calls,
   eqtl.snarls, eqtl.pairs, eqtl.genes, eqtl.samples, eqtl.columns
-  (pipeline/runner.py, each eQTL OLS call), spans (records a job)
+  (pipeline/runner.py, each eQTL OLS call), snarl_file.rows (the
+  snarl file's rows read into columns), snarl_file.objects (SnarlData
+  built from those columns) (io/snarl_file.py), spans (records a job)
 """
 
 from __future__ import annotations

@@ -13,13 +13,12 @@ stoat_core.cpp) or row by row in Python; the permutation tables reuse
 
 from __future__ import annotations
 
-import threading
 from typing import List, Sequence
 
 import numpy as np
 
 from stoat_tpu_torch.formatting import set_precision
-from stoat_tpu_torch.io.snarl_file import SnarlData
+from stoat_tpu_torch.io.snarl_file import SnarlData, SnarlTable
 
 __all__ = [
     "format_p",
@@ -122,44 +121,11 @@ def write_significant_table(path: str, table: np.ndarray,
             fh.write("\n")
 
 
-def _prefix_blob(snarls) -> bytes:
-    return ("\0".join(s.row_prefix for s in snarls) + "\0").encode()
-
-
-# Per-chunk formatting metadata (prefix blob, depth and path-count
-# arrays) is pure snarl-file data: cached for the chunks formatted last,
-# keyed by the chunk list's identity (a secondary table, the dual run's
-# quantitative one, re-formats the chunk list its primary table just
-# formatted).  The cache holds a strong reference to each list, so it is
-# kept to a few chunks: a process that runs job after job (a benchmark, a
-# service) would otherwise keep every job's snarls alive, and each full
-# garbage collection would walk all of them.
-_META_CACHE: dict = {}
-_META_CACHE_CHUNKS = 4
-_META_LOCK = threading.Lock()
-
-
 def _chunk_meta(snarls):
-    # cache hit requires the SAME LIST OBJECT (the dual-run secondary
-    # re-formats the identical chunk list); a (first-element, length) key
-    # could alias a reordered/subset list sharing its head and silently
-    # pair stale coordinates with fresh p-values
-    key = id(snarls)
-    with _META_LOCK:
-        got = _META_CACHE.get(key)
-    if got is not None and got[0] is snarls:
-        return got[1]
-    meta = (_prefix_blob(snarls),
-            np.fromiter((s.depth for s in snarls), np.int64, len(snarls)),
-            np.fromiter((s.n_paths for s in snarls), np.int64,
-                        len(snarls)))
-    with _META_LOCK:
-        while len(_META_CACHE) >= _META_CACHE_CHUNKS:
-            del _META_CACHE[next(iter(_META_CACHE))]     # the oldest
-        # the cached strong reference to the list keeps its id from being
-        # recycled, making the identity check sound
-        _META_CACHE[key] = (snarls, meta)
-    return meta
+    """A chunk's row prefixes (NUL-terminated), depths and path counts,
+    read from its snarls' columns (:class:`SnarlTable`)."""
+    table = SnarlTable.of(snarls)
+    return table.row_prefixes(), table.depth, table.n_paths
 
 
 def _write_blob(fh, blob: bytes) -> None:

@@ -582,7 +582,8 @@ def test_compacted_pass_matches_uncompacted(compact_data, tmp_path,
     def spy_write(out_path, state, n_perms):
         states[out_path] = (
             [(c, sn.snarl_id_str, np.float64(p).tobytes(), e)
-             for c, sn, p, e in state["rows"]],
+             for c, table, obs, exc in state["rows"]
+             for sn, p, e in zip(table, obs.tolist(), exc.tolist())],
             state["null_min"].tobytes())
         return write(out_path, state, n_perms)
 

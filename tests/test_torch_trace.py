@@ -2,7 +2,9 @@
 recorded without a profiler; under a CPU ``torch.profiler`` a whole
 ``vcf -q -c`` and ``vcf -b -c`` job with ``--permutations`` records every
 stage span of its path, nested in its job, and counters that agree with
-what the job uploaded and printed; and the job's tables do not change."""
+what the job uploaded and printed; and the job's tables do not change.
+These jobs and a ``vcf -e -G -c`` job read the snarl file into columns
+and build no ``SnarlData`` from them."""
 
 import os
 
@@ -13,16 +15,34 @@ from torch.profiler import ProfilerActivity, profile
 
 from fixtures import make_fixture
 from stoat_tpu_torch import cli, convert, trace
+from stoat_tpu_torch.io import snarl_file
 from stoat_tpu_torch.pipeline import permutation
 
 MODES = {"q": ("-q", "quantitative", "quantitative_permutation_vcf.tsv"),
          "b": ("-b", "binary", "binary_permutation_vcf.tsv")}
 # every span the single-device path of a vcf job with permutations crosses
-PATH_SPANS = {"job", "cli.parse", "cli.release", "runner",
+PATH_SPANS = {"job", "cli.parse", "cli.snarls", "cli.release", "runner",
               "runner.wait_ingest", "runner.wait_tokens", "runner.pack",
               "runner.dispatch", "runner.wait_writer", "perm", "perm.ingest",
               "perm.pack", "perm.rows", "perm.dispatch", "perm.wait_card",
               "perm.write", "ingest", "upload"}
+
+
+def _snarl_rows(path):
+    """The data rows of a snarl file."""
+    with open(path) as fh:
+        return sum(1 for line in list(fh)[1:] if line.strip())
+
+
+class _CountedSnarlData(snarl_file.SnarlData):
+    """``SnarlData`` that counts its instances on every thread."""
+
+    __slots__ = ()
+    made = []
+
+    def __init__(self, *args, **kwargs):
+        _CountedSnarlData.made.append(1)
+        super().__init__(*args, **kwargs)
 
 
 def _tables(out):
@@ -59,14 +79,18 @@ def runs(tmp_path_factory):
             uploaded.append(np.ascontiguousarray(arr).nbytes)
             return real(arr, device)
         on = str(base / f"on_{mode}")
+        _CountedSnarlData.made.clear()
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(convert, "upload", spy)
             mp.setattr(permutation, "upload", spy)
+            mp.setattr(snarl_file, "SnarlData", _CountedSnarlData)
             with profile(activities=[ProfilerActivity.CPU]):
                 assert cli.main(argv + [on]) == 0
         got[mode] = dict(off=_tables(off), on=_tables(on),
                          recorded_off=recorded_off, records=trace.records(),
-                         counters=trace.counters(), uploaded=uploaded)
+                         counters=trace.counters(), uploaded=uploaded,
+                         objects=len(_CountedSnarlData.made),
+                         rows=_snarl_rows(paths["snarl"]))
     trace.clear()
     return got
 
@@ -108,6 +132,9 @@ def test_spans_nest_in_their_job(runs, mode):
             parent = by_id[r.parent]
             assert parent.start_ns <= r.start_ns
             assert parent.end_ns >= r.end_ns
+    # the snarl file is read inside the parse of the job's inputs
+    (snarls,) = [r for r in records if r.name == "cli.snarls"]
+    assert by_id[snarls.parent].name == "cli.parse"
     # the main table's ingest runs on its prefetch thread, under the
     # runner's span; the pass's runs in line under perm.ingest
     ingest = [r for r in records if r.name == "ingest"]
@@ -133,6 +160,40 @@ def test_snarls_tested_counts_the_printed_p(runs, mode):
     printed = sum(1 for line in lines[1:] if line.split("\t")[col] != "NA")
     assert 0 < counters["perm.snarls_tested"] == printed
     assert counters["perm.snarls_computed"] >= len(lines) - 1
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_the_snarl_file_is_read_into_columns_only(runs, mode):
+    """``snarl_file.rows`` counts the file's rows, ``snarl_file.objects``
+    reads 0, and no thread of the job built a ``SnarlData``."""
+    (counters,) = runs[mode]["counters"].values()
+    assert counters["snarl_file.rows"] == runs[mode]["rows"] == 60
+    assert counters.get("snarl_file.objects", 0) == 0
+    assert runs[mode]["objects"] == 0
+
+
+def test_an_eqtl_job_reads_the_snarl_file_into_columns_only(tmp_path,
+                                                            monkeypatch):
+    paths = make_fixture(str(tmp_path / "data"), n_samples=40, n_snarls=60,
+                         seed=3, n_chroms=2)
+    trace.clear()
+    _CountedSnarlData.made.clear()
+    monkeypatch.setattr(snarl_file, "SnarlData", _CountedSnarlData)
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert cli.main(["vcf", "-s", paths["snarl"], "-v", paths["vcf"],
+                         "-e", paths["qtl"], "-G", paths["gene_position"],
+                         "-c", paths["covariate"], "-C", "AGE,SEX",
+                         "--device", "cpu", "-o", str(tmp_path / "out")]) == 0
+    (counters,) = trace.counters().values()
+    records = trace.records()
+    trace.clear()
+    assert counters["snarl_file.rows"] == _snarl_rows(paths["snarl"]) == 60
+    assert counters.get("snarl_file.objects", 0) == 0
+    assert not _CountedSnarlData.made
+    assert counters["eqtl.pairs"] > 0
+    by_id = {r.id: r for r in records}
+    (snarls,) = [r for r in records if r.name == "cli.snarls"]
+    assert by_id[snarls.parent].name == "cli.parse"
 
 
 @pytest.fixture(scope="module")
