@@ -101,19 +101,19 @@ bare ``--device cuda`` held to it where several are visible):
   6. the snarl mesh (parallel/): ``vcf -b``, ``-q``, ``-q -c``, ``-b
      -c``, the dual, ``--lmm``, eQTL and ``-q -c -T 0.01`` at full size,
      and ``--permutations 1000`` for ``-b``, ``-q`` and ``-b -c``, through
-     the CLI with run_vcf_analysis and run_permutation_test on a mesh of
-     four shards on the first card (and on a mesh of every card where
-     several are visible): every output byte-identical to phase 4's
-     one-device run, every kernel launched shards x chunks times
-     (permutation blocks of 8,192 snarls a shard: shards x blocks), the
-     words uploaded once a chromosome and a device, the mesh ``vcf -b``'s
-     peak memory within half a chromosome's words of a one-device run's
-     (a second copy of the words fails it); the sub-cohort's runs on a
-     mesh of the card and one of the CPU, each byte-identical to the same
-     device's one-device run of phase 4 (the binary tables also across
-     the two meshes); one ``vcf -b`` chunk on one device and on the mesh:
-     bitwise equal, ms by events, device ms, and the bound of its
-     kernels' work on each.
+     the CLI with run_vcf_analysis and run_permutation_test on a mesh
+     naming the first card four times (and on a mesh of every card where
+     several are visible), the chunks dealt over it: every output
+     byte-identical to phase 4's one-device run, every kernel launched
+     once a chunk as on one device, each chromosome's words uploaded once
+     a distinct device, the mesh ``vcf -b``'s peak memory within half a
+     chromosome's words of a one-device run's (a second copy of the words
+     fails it); the sub-cohort's runs on a mesh of the card and one of the
+     CPU, each byte-identical to the same device's one-device run of
+     phase 4 (the binary tables also across the two meshes); one ``vcf
+     -b`` step of four chunks on the mesh and the same chunks on one
+     device: bitwise equal, ms by events, device ms, and the bound of the
+     kernels' work.
 
 The last two lines of standard output are a JSON object of the kernels and
 the contract line {"ok": true, "device": {...}}, whose ``count`` is the
@@ -3002,9 +3002,9 @@ def compare_perm_full(torch, chunk, q, lg, bad, fin, phenos_q, err):
 
 class PermCapture:
     """Records what run_permutation_test computes, by wrapping its
-    accumulate_chunk (each chunk's p-values on the device, [1 + K, S] or
-    [1 + K, S'] over the ``live`` snarls the kernels computed; every other
-    snarl's column is +inf, as the pass's accounting takes it) and timing
+    accumulate_chunk (each chunk's p-values on the device, [1 + K, S']
+    over the ``live`` snarls the kernels computed; every other snarl's
+    column is +inf, as the pass's accounting takes it) and timing
     the whole pass: per job of the pass (the binary and the quantitative
     table of a dual run, in that order) and chunk, the observed row and
     each permutation's minimum, and the full [1 + K, S] matrices of the
@@ -3032,8 +3032,11 @@ class PermCapture:
             import numpy as np
             S = len(snarls)
             chunks = self.jobs.setdefault(id(state), [])
-            cols = np.arange(S) if live is None else to_np(live)
-            q = p[:, :S] if live is None else p
+            # the pass's accounting: p's columns at live, the padding's
+            # columns (last) dropped
+            cols = (np.arange(p.shape[1]) if live is None
+                    else to_np(live))[:S]
+            q = p[:, :len(cols)]
             obs = np.full(S, np.inf)
             obs[cols] = to_np(q[0])
             low = (to_np(q[1:].amin(1)) if q.shape[1]
@@ -4310,7 +4313,7 @@ def phase_case3(graph, work):
 
 # ---------------------------------------------------------------- the mesh
 
-MESH_SHARDS = 4
+MESH_DEVICES = 4
 BT, QT = "binary_table_vcf.tsv", "quantitative_table_vcf.tsv"
 LT, ET = "lmm_table_vcf.tsv", "eqtl_table_vcf.tsv"
 BPT, QPT = "binary_permutation_vcf.tsv", "quantitative_permutation_vcf.tsv"
@@ -4319,49 +4322,49 @@ BPT, QPT = "binary_permutation_vcf.tsv", "quantitative_permutation_vcf.tsv"
 def mesh_runs(paths):
     """The mesh phase's full-size runs: title -> (CLI argv of (out,
     device), phase 4's one-device output directory under ``work``, the
-    tables compared, kernels a shard a chunk, kernels a chunk (unsharded:
-    eQTL's design), kernels a shard a permutation block, the chunk, -T's
+    tables compared, kernels a chunk of the main table, kernels a chunk of
+    the permutation pass (8,192 snarls), the main table's chunk, -T's
     regression/ compared)."""
     def ones(names):
         return dict.fromkeys(names, 1)
     capped = capped_chunk(paths)
     return {
         "vcf -b": (partial(cli_args, paths), "out_cuda", (BT,),
-                   ones(BINARY_KERNELS), {}, {}, 8192, False),
+                   ones(BINARY_KERNELS), {}, 8192, False),
         "vcf -q": (partial(regression_cli_args, paths, mode="q"),
-                   "out_cuda_q", (QT,), ones(QUANT_KERNELS), {}, {}, capped,
+                   "out_cuda_q", (QT,), ones(QUANT_KERNELS), {}, capped,
                    False),
         "vcf -q -c -C AGE,SEX": (
             partial(regression_cli_args, paths, mode="q_c"), "out_cuda_q_c",
-            (QT,), ones(QUANT_KERNELS), {}, {}, capped, False),
+            (QT,), ones(QUANT_KERNELS), {}, capped, False),
         "vcf -b -c -C AGE,SEX": (
             partial(regression_cli_args, paths, mode="b_c"), "out_cuda_b_c",
-            (BT,), ones(BC_KERNELS), {}, {}, capped, False),
+            (BT,), ones(BC_KERNELS), {}, capped, False),
         "vcf -b -q": (partial(dual_cli_args, paths), "out_cuda_dual",
-                      (BT, QT), ones(DUAL_KERNELS), {}, {}, 8192, False),
+                      (BT, QT), ones(DUAL_KERNELS), {}, 8192, False),
         "vcf -q -k --lmm -c -C AGE,SEX": (
             partial(lmm_cli_args, paths), "out_cuda_lmm", (LT,),
-            ones(LMM_KERNELS), {}, {}, capped, False),
+            ones(LMM_KERNELS), {}, capped, False),
         "vcf -e -G -c -C AGE,SEX": (
             partial(eqtl_cli_args, paths), "out_cuda_eqtl", (ET,),
-            ones(("eqtl_ols", "student_t")), ones(("quant_design",)), {},
-            capped, False),
+            ones(("quant_design", "eqtl_ols", "student_t")), {}, capped,
+            False),
         f"vcf -q -c -C AGE,SEX -T {T_FULL}": (
             lambda o, d: table_cli_args(paths, o, d, "q_c", T_FULL),
-            "tables_cuda_q_c", (QT,), ones(QUANT_KERNELS), {}, {}, capped,
+            "tables_cuda_q_c", (QT,), ones(QUANT_KERNELS), {}, capped,
             True),
         f"vcf -b --permutations {PERM_FULL}": (
             lambda o, d: perm_cli_args(paths, o, d, "b", PERM_FULL),
-            "perm_cuda_b", (BT, BPT), ones(BINARY_KERNELS), {},
+            "perm_cuda_b", (BT, BPT), ones(BINARY_KERNELS),
             ones(("chi2_tail", "perm_membership", "perm_binary")), 8192,
             False),
         f"vcf -q --permutations {PERM_FULL}": (
             lambda o, d: perm_cli_args(paths, o, d, "q", PERM_FULL),
-            "perm_cuda_q", (QT, QPT), ones(QUANT_KERNELS), {},
+            "perm_cuda_q", (QT, QPT), ones(QUANT_KERNELS),
             ones(("quant_design", "perm_ols", "student_t")), capped, False),
         f"vcf -b -c -C AGE,SEX --permutations {PERM_FULL}": (
             lambda o, d: perm_cli_args(paths, o, d, "b_c", PERM_FULL),
-            "perm_cuda_b_c", (BT, BPT), ones(BC_KERNELS), {},
+            "perm_cuda_b_c", (BT, BPT), ones(BC_KERNELS),
             ones(("quant_design", "score_precompute", "score_perm",
                   "chi2_tail")), capped, False),
     }
@@ -4397,24 +4400,26 @@ def mesh_sub_runs(sub):
 
 class OneCard:
     """While entered, the CLI's bare ``--device cuda`` runs on one card
-    even where several are visible (where the runner's rule would shard
-    over them): phases 4 and 5 are one-device runs; phase 6 hands in its
-    meshes.  With one card visible it changes nothing."""
+    even where several are visible (where the runner's and the pass's
+    rule would deal the chunks over them): phases 4 and 5 are one-device
+    runs; phase 6 hands in its meshes.  With one card visible it changes
+    nothing."""
 
     def __enter__(self):
         from stoat_tpu_torch.parallel import mesh
-        from stoat_tpu_torch.pipeline import runner
-        self.mods = (mesh, runner)
+        from stoat_tpu_torch.pipeline import permutation, runner
+        self.mods = (mesh, runner, permutation)
         self.real = mesh.resolve_mesh
 
         def one_card(device, mesh=None):
             return mesh
-        mesh.resolve_mesh = runner.resolve_mesh = one_card
+        for mod in self.mods:
+            mod.resolve_mesh = one_card
         return self
 
     def __exit__(self, *exc):
-        mesh, runner = self.mods
-        mesh.resolve_mesh = runner.resolve_mesh = self.real
+        for mod in self.mods:
+            mod.resolve_mesh = self.real
         return False
 
 
@@ -4422,47 +4427,42 @@ class OnMesh:
     """While entered, the CLI runs its GWAS and its permutation pass on
     ``mesh``: pipeline/runner.py run_vcf_analysis and
     pipeline/permutation.py run_permutation_test, the entry points it
-    calls, get ``mesh=mesh``.  ``replicated`` lists the
-    parallel/sharded.py Replicated of each run, whose ``uploads`` count
-    the copies of the replicated inputs; ``words_bytes`` is the largest
-    chromosome's words."""
+    calls, get ``mesh=mesh``.  ``uploads`` counts each module's uploads of
+    a chromosome's words (its ``upload_words``), and ``words_bytes`` is
+    the largest chromosome's words."""
 
     def __init__(self, mesh):
         self.mesh = mesh
-        self.replicated = []
+        self.uploads = {"runner": 0, "permutation": 0}
         self.words_bytes = 0
 
     def __enter__(self):
-        from stoat_tpu_torch.parallel import sharded
         from stoat_tpu_torch.pipeline import permutation, runner
-        self.mods = (runner, permutation, sharded)
+        self.mods = (runner, permutation)
         self.real = (runner.run_vcf_analysis,
-                     permutation.run_permutation_test, sharded.Replicated)
+                     permutation.run_permutation_test, runner.upload_words,
+                     permutation.upload_words)
         runner.run_vcf_analysis = partial(self.real[0], mesh=self.mesh)
         permutation.run_permutation_test = partial(self.real[1],
                                                    mesh=self.mesh)
         on = self
 
-        class Seen(self.real[2]):
-            def __init__(self, *a, **k):
-                super().__init__(*a, **k)
-                on.replicated.append(self)
-
-            def get(self, name, source, make):
-                got = super().get(name, source, make)
-                if name == "words":
-                    on.words_bytes = max(on.words_bytes, got[0].numel()
-                                         * got[0].element_size())
+        def counted(module, real):
+            def upload_words(words, device):
+                got = real(words, device)
+                on.uploads[module] += 1
+                on.words_bytes = max(on.words_bytes,
+                                     got.numel() * got.element_size())
                 return got
-        runner.Replicated = Seen
-        sharded.Replicated = Seen
+            return upload_words
+        runner.upload_words = counted("runner", self.real[2])
+        permutation.upload_words = counted("permutation", self.real[3])
         return self
 
     def __exit__(self, *exc):
-        runner, permutation, sharded = self.mods
-        runner.run_vcf_analysis, permutation.run_permutation_test = \
-            self.real[:2]
-        runner.Replicated = sharded.Replicated = self.real[2]
+        runner, permutation = self.mods
+        (runner.run_vcf_analysis, permutation.run_permutation_test,
+         runner.upload_words, permutation.upload_words) = self.real
         return False
 
 
@@ -4478,27 +4478,26 @@ def same_regression(a, b, what):
     return len(files)
 
 
-def mesh_chunk(torch, paths, mesh, device):
-    """One vcf -b chunk on one device and split over ``mesh``: the
-    runner's chunk calls (binary_analyze_chromosome; binary_analyze_sharded)
-    bitwise equal, their ms by events (host waits for the results inside),
-    device ms of every kernel and copy and of the two kernels alone
-    (torch.profiler), and the bound: the sum of binary_from_words' and
-    chi2_tail's bounds over the shards' inputs (one shard: the chunk)."""
+def mesh_step(torch, paths, mesh, device):
+    """One vcf -b step of the runner's loop: the first chromosome's first
+    ``len(mesh)`` chunks dealt over ``mesh`` by parallel.mesh.steps, each
+    through the runner's chunk call (runner._words, runner._analyze) on
+    its device, every chunk queued before any result is read; and the same
+    chunks on one device, a step each.  Their p_chi2 bitwise equal, ms by
+    events (the host waits for the results inside; the words and masks
+    uploaded before), device ms of every kernel and copy and of the two
+    kernels alone (torch.profiler), and the bound: the sum of
+    binary_from_words' and chi2_tail's bounds over the chunks."""
     import numpy as np
-    from stoat_tpu_torch.convert import (chunk_words, pheno_masks, upload,
-                                         upload_words)
+    from stoat_tpu_torch.convert import pheno_masks, upload
     from stoat_tpu_torch.io.phenotype import parse_binary_pheno
     from stoat_tpu_torch.io.snarl_file import parse_snarl_path
     from stoat_tpu_torch.io.vcf import VcfReader
-    from stoat_tpu_torch.parallel import (binary_analyze_sharded,
-                                          shard_packed_chromosome)
-    from stoat_tpu_torch.parallel.sharded import Replicated
-    from stoat_tpu_torch.pipeline.binary import (binary_analyze_chromosome,
-                                                 binary_tables)
+    from stoat_tpu_torch.parallel import steps
+    from stoat_tpu_torch.pipeline import runner
+    from stoat_tpu_torch.pipeline.binary import binary_tables
     from stoat_tpu_torch.pipeline.packed import (membership_counts,
                                                  tail_mask_words)
-    from stoat_tpu_torch.pipeline.runner import iter_chromosome_matrices
     from stoat_tpu_torch.tables import pack_chromosome_chunks
 
     reader = VcfReader(paths["vcf"])
@@ -4506,28 +4505,32 @@ def mesh_chunk(torch, paths, mesh, device):
     reader.close()
     pheno, _ = parse_binary_pheno(paths["binary"], samples)
     snarls_chr = parse_snarl_path(paths["snarl"])
-    gen = iter_chromosome_matrices(paths["vcf"], 2 * len(samples),
-                                   snarls_chr)
+    gen = runner.iter_chromosome_matrices(paths["vcf"], 2 * len(samples),
+                                          snarls_chr)
     chrom, matrix = next(gen)
-    packed = pack_chromosome_chunks(snarls_chr[chrom], matrix, 8192)[0]
+    chunks = pack_chromosome_chunks(snarls_chr[chrom], matrix,
+                                    8192)[:len(mesh)]
     gen.close()
-    H = packed.n_haplotypes
-    host_words = chunk_words(packed)
-    W = int(host_words.shape[1])
-    words = upload_words(host_words, device)
-    masks = pheno_masks(pheno, H, W, device)
-    sharded = shard_packed_chromosome(packed.snarls, matrix, len(mesh))
-    rep = Replicated(mesh)
-    S = packed.n_snarls
+    H = chunks[0].n_haplotypes
 
-    def single():
-        return binary_analyze_chromosome(packed, pheno, *THRESHOLDS, device,
-                                         words=words, pheno=masks)["p_chi2"]
+    def chunk_calls(devices):
+        run = runner._Run("binary", pheno, None, tuple(devices), THRESHOLDS,
+                          8192, 0)
+        held = {}
+        for dev, packed in zip(devices, chunks):
+            runner._inputs(run, "primary", "binary", pheno, packed,
+                           runner._words(held, packed, dev))
 
-    def meshed():
-        return binary_analyze_sharded(sharded, pheno, mesh, *THRESHOLDS,
-                                      replicated=rep)["p_chi2"]
-    check(same_bits(single()[:S], meshed()), "one vcf -b chunk: the mesh's "
+        def fn():
+            queued = [(packed, runner._analyze(
+                run, "primary", "binary", pheno, packed,
+                runner._words(held, packed, dev))[0])
+                for step in steps(chunks, devices) for dev, packed in step]
+            return np.concatenate([res["p_chi2"][:packed.n_snarls]
+                                   for packed, res in queued])
+        return fn
+    single, meshed = chunk_calls([device]), chunk_calls(mesh.devices)
+    check(same_bits(single(), meshed()), "one vcf -b step: the mesh's "
           "p_chi2 differs from one device's")
     two = re.compile(r"(?<![A-Za-z0-9_])(binary_from_words|chi2_tail|"
                      r"chi2_tail_warp)_kernel\b")
@@ -4537,46 +4540,44 @@ def mesh_chunk(torch, paths, mesh, device):
         out[what] = (cuda_ms(fn, 20), per_call_ms(records),
                      per_call_ms(records, pattern=two))
 
-    def bound(tables):
-        total = 0.0
-        for pidx, valid, sidx in tables:
-            pidx, valid, sidx = (upload(np.ascontiguousarray(a), device)
-                                 for a in (pidx, valid, sidx))
-            tail = upload(tail_mask_words(H, W).view(np.int32), device)
-            t = binary_tables(*membership_counts(words, pidx, valid, tail,
-                                                 masks[0]),
-                              sidx, *THRESHOLDS)
-            total += bound_of("binary_from_words", {
-                "words": words, "path_idx": pidx, "path_valid": valid,
-                "sidx": sidx, "abcd": tuple(t[k] for k in "abcd"),
-                "k": t["k"]})[0]
-            total += bound_of("chi2_tail", {"stat": t["chi2_stat"],
-                                            "df": t["chi2_df"]})[0]
-        return total
-    out["bound one device"] = bound([(packed.path_edge_idx(),
-                                      packed.path_valid,
-                                      packed.snarl_path_idx)])
-    out["bound mesh"] = bound(zip(sharded.path_idx, sharded.path_valid,
-                                  sharded.snarl_path_idx))
-    return chrom, S, out
+    words = runner._words({}, chunks[0], device)
+    masks = pheno_masks(pheno, H, int(words.shape[1]), device)
+    tail = upload(tail_mask_words(H, int(words.shape[1])).view(np.int32),
+                  device)
+    bound = 0.0
+    for packed in chunks:
+        pidx, valid, sidx = (upload(np.ascontiguousarray(a), device)
+                             for a in (packed.path_edge_idx(),
+                                       packed.path_valid,
+                                       packed.snarl_path_idx))
+        t = binary_tables(*membership_counts(words, pidx, valid, tail,
+                                             masks[0]), sidx, *THRESHOLDS)
+        bound += bound_of("binary_from_words", {
+            "words": words, "path_idx": pidx, "path_valid": valid,
+            "sidx": sidx, "abcd": tuple(t[k] for k in "abcd"),
+            "k": t["k"]})[0]
+        bound += bound_of("chi2_tail", {"stat": t["chi2_stat"],
+                                        "df": t["chi2_df"]})[0]
+    out["bound"] = bound
+    return chrom, [packed.n_snarls for packed in chunks], out
 
 
 def phase_mesh(torch, device, paths, sub, work, n_chroms):
     """The snarl mesh (parallel/) on the card: the full-size runs of
     ``mesh_runs`` through the CLI with run_vcf_analysis and
-    run_permutation_test on a mesh of MESH_SHARDS shards on the first card
-    (and, with several visible, on every card), each output byte-identical
-    to phase 4's one-device run, every kernel launched shards x chunks
-    times (permutation blocks: shards x blocks), the replicated words
-    uploaded once a chromosome; ``vcf -b`` again on one device beside its
-    mesh run (walls, peak memory); the sub-cohort's runs on a mesh of the
-    card and of the CPU, each equal to the same device's one-device run;
-    one chunk's time.  Returns (launches over the full-size mesh runs,
-    lines, the distinct cards the meshes ran on)."""
+    run_permutation_test on a mesh naming the first card MESH_DEVICES
+    times (and, with several visible, on every card), each output
+    byte-identical to phase 4's one-device run, every kernel launched as
+    on one device (once a chunk), each chromosome's words uploaded once a
+    distinct device by the runner and by the pass; ``vcf -b`` again on one
+    device beside its mesh run (walls, peak memory); the sub-cohort's runs
+    on a mesh of the card and of the CPU, each equal to the same device's
+    one-device run; one step's time.  Returns (launches over the
+    full-size mesh runs, lines, the distinct cards the meshes ran on)."""
     from stoat_tpu_torch import cli, kernels
     from stoat_tpu_torch.parallel import make_snarl_mesh
 
-    meshes = [make_snarl_mesh([device] * MESH_SHARDS)]
+    meshes = [make_snarl_mesh([device] * MESH_DEVICES)]
     if torch.cuda.device_count() > 1:
         meshes.append(make_snarl_mesh())
     launches, lines = {}, []
@@ -4595,14 +4596,15 @@ def phase_mesh(torch, device, paths, sub, work, n_chroms):
                "vcf -b again")
 
     for mesh in meshes:
-        shards = len(mesh)
         names = ",".join(str(d) for d in mesh.devices)
+        distinct = len(set(mesh.devices))
         walls = []
-        for title, (argv, single_dir, tables, per_shard, per_chunk,
-                    per_block, chunk, regression) in mesh_runs(paths).items():
+        for title, (argv, single_dir, tables, per_chunk, per_perm_chunk,
+                    chunk, regression) in mesh_runs(paths).items():
             n_chunks = n_chunks_of(paths, n_chroms, chunk)
-            n_blocks = n_chunks_of(paths, n_chroms, 8192 * shards)
-            out = os.path.join(work, f"mesh{shards}_{len(lines)}")
+            n_perm_chunks = n_chunks_of(paths, n_chroms) if per_perm_chunk \
+                else 0
+            out = os.path.join(work, f"mesh{len(mesh)}_{len(lines)}")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
@@ -4618,19 +4620,18 @@ def phase_mesh(torch, device, paths, sub, work, n_chroms):
             check(lib.calls == 0, f"mesh {title}: the plain chi-squared tail "
                   f"called {lib.calls} times")
             for name, n in got.items():
-                want = (per_shard.get(name, 0) * shards * n_chunks
-                        + per_chunk.get(name, 0) * n_chunks
-                        + per_block.get(name, 0) * shards * n_blocks)
+                want = (per_chunk.get(name, 0) * n_chunks
+                        + per_perm_chunk.get(name, 0) * n_perm_chunks)
                 check(n == want, f"mesh {title}: kernel {name} launched {n} "
-                      f"times, expected {want} ({shards} shards, {n_chunks} "
-                      f"chunks, {n_blocks} permutation blocks)")
+                      f"times, expected {want} ({n_chunks} chunks, "
+                      f"{n_perm_chunks} permutation chunks)")
                 launches[name] = launches.get(name, 0) + n
-            # eQTL's design runs unsharded, on the mesh's first device
-            words = [r.uploads.get("words", 0) for r in on.replicated]
-            check(per_chunk or words and all(
-                n == n_chroms * len(mesh.distinct) for n in words),
-                  f"mesh {title}: the words uploaded {words} times a run, "
-                  f"expected once a chromosome a device")
+            want = {"runner": n_chroms * distinct,
+                    "permutation": n_chroms * distinct if n_perm_chunks
+                    else 0}
+            check(on.uploads == want, f"mesh {title}: the words uploaded "
+                  f"{on.uploads}, expected once a chromosome and a device "
+                  f"{want}")
             for table in tables:
                 same_files(os.path.join(out, table),
                            os.path.join(work, single_dir, table),
@@ -4641,30 +4642,28 @@ def phase_mesh(torch, device, paths, sub, work, n_chroms):
             walls.append(f"{title} {wall:.2f}s"
                          + (f" ({n_tables} -T tables)" if n_tables else ""))
             if title == "vcf -b":
-                line = (f"phase 6 mesh of {shards} shards ({names}): vcf -b "
-                        f"LAUNCHES binary_from_words "
+                line = (f"phase 6 mesh of {len(mesh)} devices ({names}): "
+                        f"vcf -b LAUNCHES binary_from_words "
                         f"{got['binary_from_words']}, chi2_tail "
-                        f"{got['chi2_tail']} = {shards} shards x "
-                        f"{n_chunks} chunks; cuda wall {wall:.2f}s against "
-                        f"{single_wall:.2f}s on one device; "
-                        f"max_memory_allocated {peak / 1e6:.1f} MB against "
-                        f"{single_peak / 1e6:.1f} MB, the words "
+                        f"{got['chi2_tail']} = {n_chunks} chunks; cuda wall "
+                        f"{wall:.2f}s against {single_wall:.2f}s on one "
+                        f"device; max_memory_allocated {peak / 1e6:.1f} MB "
+                        f"against {single_peak / 1e6:.1f} MB, the words "
                         f"({on.words_bytes / 1e6:.1f} MB a chromosome) held "
-                        f"once a device ({words[0]} uploads, {n_chroms} "
-                        f"chromosomes)")
+                        f"once a device ({on.uploads['runner']} uploads, "
+                        f"{n_chroms} chromosomes)")
                 # the words held once: a second copy of a chromosome's
                 # words (one left from the chromosome before, or one a
-                # shard) adds a whole words' bytes
+                # mesh entry) adds a whole words' bytes
                 check(peak < single_peak + on.words_bytes // 2,
                       f"mesh vcf -b: peak {peak} bytes against {single_peak} "
                       f"on one device, more than half a chromosome's words "
                       f"({on.words_bytes} bytes) over it")
                 lines.append(line)
             shutil.rmtree(out, ignore_errors=True)
-        lines.append(f"phase 6 mesh of {shards} shards ({names}): every "
+        lines.append(f"phase 6 mesh of {len(mesh)} devices ({names}): every "
                      f"output byte-identical to phase 4's one-device run, "
-                     f"every kernel launched shards x chunks (permutation "
-                     f"blocks of {8192 * shards} snarls: shards x blocks), "
+                     f"every kernel launched once a chunk as on one device, "
                      f"the plain chi-squared tail never; cuda walls: "
                      + ", ".join(walls))
 
@@ -4675,7 +4674,7 @@ def phase_mesh(torch, device, paths, sub, work, n_chroms):
         outs = {}
         for dev in ("cuda", "cpu"):
             mesh = make_snarl_mesh([dev if dev == "cpu" else device]
-                                   * MESH_SHARDS)
+                                   * MESH_DEVICES)
             outs[dev] = os.path.join(work, f"mesh_sub_{dev}_{len(parts)}")
             t0 = time.perf_counter()
             with OnMesh(mesh):
@@ -4697,27 +4696,29 @@ def phase_mesh(torch, device, paths, sub, work, n_chroms):
         parts.append(f"{title} cuda {outs['cuda'][1]:.2f}s, cpu "
                      f"{outs['cpu'][1]:.2f}s")
     lines.append(f"phase 6 mesh on the sub-cohort ({sub['n_samples']} x "
-                 f"{sub['n_snarls']} snarls, {MESH_SHARDS} shards on the "
-                 f"card and on the CPU): each output byte-identical to the "
-                 f"same device's one-device run of phase 4, so the CPU mesh "
-                 f"holds to the card's mesh as phase 4's CPU runs to the "
-                 f"card's (binary tables byte for byte: checked directly); "
-                 + "; ".join(parts))
+                 f"{sub['n_snarls']} snarls, a mesh of {MESH_DEVICES} on "
+                 f"the card and on the CPU): each output byte-identical to "
+                 f"the same device's one-device run of phase 4, so the CPU "
+                 f"mesh holds to the card's mesh as phase 4's CPU runs to "
+                 f"the card's (binary tables byte for byte: checked "
+                 f"directly); " + "; ".join(parts))
 
-    chrom, S, t = mesh_chunk(torch, paths, meshes[0], device)
+    chrom, sizes, t = mesh_step(torch, paths, meshes[0], device)
 
     def ms(v):
         return "not measured" if v is None else f"{v:.4f} ms"
     a, b = t["one device"], t["mesh"]
     lines.append(
-        f"phase 6 mesh: one vcf -b chunk ({chrom}, {S} snarls), the "
-        f"runner's chunk call with its uploads and host copies, p_chi2 "
-        f"bitwise equal: one device {a[0]:.4f} ms by events, device "
-        f"{ms(a[1])} (binary_from_words + chi2_tail {ms(a[2])}), bound "
-        f"{t['bound one device']:.4f} ms; {MESH_SHARDS} shards on {device}: "
-        f"{b[0]:.4f} ms by events, device {ms(b[1])} (kernels {ms(b[2])}), "
-        f"bound {t['bound mesh']:.4f} ms (the sum of the shards' "
-        f"binary_from_words and chi2_tail bounds)")
+        f"phase 6 mesh: one vcf -b step ({chrom}, {len(sizes)} chunks of "
+        f"{'/'.join(map(str, sizes))} snarls), the runner's chunk calls "
+        f"with their path tables' uploads and host copies, p_chi2 bitwise "
+        f"equal: on {MESH_DEVICES} x {device} {b[0]:.4f} ms by events "
+        f"({b[0] / len(sizes):.4f} ms a chunk), device {ms(b[1])} "
+        f"(binary_from_words + chi2_tail {ms(b[2])}); the same chunks on "
+        f"one device {a[0]:.4f} ms by events ({a[0] / len(sizes):.4f} ms a "
+        f"chunk), device {ms(a[1])} (kernels {ms(a[2])}); bound "
+        f"{t['bound']:.4f} ms (the sum of the chunks' binary_from_words and "
+        f"chi2_tail bounds)")
     cards = {d for mesh in meshes for d in mesh.devices}
     return launches, lines, cards
 
@@ -6725,7 +6726,7 @@ def run(args):
             for label in times if label.startswith(entry["name"] + " ")
             and label.endswith("[K, S]")]
     # the cards the run used: phases 1-5, the kernels line and the mesh of
-    # MESH_SHARDS shards on cuda:0; phase 6's mesh of every card, where
+    # MESH_DEVICES x cuda:0; phase 6's mesh of every card, where
     # several are visible, on the others
     used = sorted({device} | cards, key=str)
     count = torch.cuda.device_count()
@@ -6734,7 +6735,7 @@ def run(args):
     others = [str(d) for d in used if d != device]
     say(f"chip_smoke total {time.perf_counter() - t_start:.1f}s on "
         f"{len(used)} card(s): phases 1-5, the kernels line and the mesh of "
-        f"{MESH_SHARDS} shards on {device}" + (
+        f"{MESH_DEVICES} x {device}" + (
             f"; phase 6's mesh of every card also on {', '.join(others)}"
             if others else ""))
     say(smi)

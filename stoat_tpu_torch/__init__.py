@@ -37,8 +37,8 @@ Every command of stoat_tpu runs here: ``vcf`` in each of its modes
 ``BHcorrect``, ``simulate``, ``truth`` and ``plot``: ``python -m
 stoat_tpu_torch <command> ...`` writes the same files as ``python -m
 stoat_tpu <command> ...`` (``plot``: the same file names).  ``vcf`` runs
-on one device, or with its snarls split over several (``parallel``: the
-snarl mesh, each shard on the kernels above on its own device; ``vcf
+on one device, or with its chunks dealt over several (``parallel``: the
+snarl mesh, each chunk on the kernels above on its own device; ``vcf
 --device cuda`` takes every visible card when there are several).
 ROADMAP.md lists what is still to port: the benchmark.
 """

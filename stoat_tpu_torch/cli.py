@@ -21,8 +21,8 @@ stops (case 3).  ``graph`` follows main_graph (:383-411): walk-set
 partitions of the graph's haplotype paths, tested against a binary
 phenotype.  ``--device`` picks the device of the GWAS (default cuda); a
 CUDA device that is not there is an error, never a quiet run on the CPU.
-``vcf --device cuda`` with more than one visible card splits the snarls
-over every card (the mesh, parallel/), as stoat_tpu does over every
+``vcf --device cuda`` with more than one visible card deals the chunks
+over every card (the mesh, parallel/), as stoat_tpu shards over every
 device; ``cuda:N`` (or ``CUDA_VISIBLE_DEVICES``) pins one card.
 ``vcf -g`` (with ``-b`` and a graph ``-p``) writes the GAF files of the
 binary table after the GWAS (:mod:`stoat_tpu_torch.gaf`).

@@ -32,8 +32,8 @@ __all__ = ["DeviceChunk", "upload", "upload_words", "chunk_words",
            "pheno_masks", "to_device_chunk", "to_covariates",
            "to_quant_inputs",
            "to_binary_pheno", "PermInputs", "to_perm_inputs",
-           "to_graph_counts", "to_lmm_inputs", "eqtl_expr_rows",
-           "to_eqtl_expr", "to_eqtl_pairs"]
+           "to_graph_counts", "to_lmm_inputs", "to_eqtl_expr",
+           "to_eqtl_pairs"]
 
 
 @dataclass
@@ -156,18 +156,13 @@ def to_lmm_inputs(lmm_ctx, covar: Optional[np.ndarray], n_samples: int,
             *to_quant_inputs(lmm_ctx.y_rot, covar, n_samples, device))
 
 
-def eqtl_expr_rows(gene_list: Sequence) -> np.ndarray:
-    """float64 [G, N] expression of a chromosome's genes (the
-    ``io.phenotype.QtlData`` list, in its order); pairs index its rows."""
-    return np.stack([np.asarray(g.sample_expression, np.float64)
-                     for g in gene_list])
-
-
 def to_eqtl_expr(gene_list: Sequence, device: torch.device
                  ) -> torch.Tensor:
-    """:func:`eqtl_expr_rows` on ``device``, uploaded once per
-    chromosome."""
-    return upload(eqtl_expr_rows(gene_list), device)
+    """float64 [G, N] expression of a chromosome's genes (the
+    ``io.phenotype.QtlData`` list, in its order) on ``device``, uploaded
+    once per chromosome; pairs index its rows."""
+    return upload(np.stack([np.asarray(g.sample_expression, np.float64)
+                            for g in gene_list]), device)
 
 
 def to_eqtl_pairs(pair_snarl: List[int], pair_gene: List[int],

@@ -38,12 +38,11 @@ Each kernel's plain PyTorch version stands beside its wrapper: a CUDA
 tensor launches the kernel or raises, a CPU tensor runs the plain version.
 The plain versions take the permutations one row at a time.
 
-On a mesh of several devices (``mesh``; parallel/) the pass
-takes blocks of ``snarl_chunk_size`` snarls a device, one shard a device,
-each block's invariants computed once per shard for every job, the
-observed phenotype as row 0 (stoat_tpu's :493-557); the p-values come back
-in snarl order and go through the same accounting, so the tables are
-byte-identical to one device's.
+On a mesh of several devices (``mesh``; parallel/) the same loop deals
+the chunks over the devices (``parallel.mesh.steps``): a step queues each
+of its chunks on its device before the accounting reads any of them, so
+that several cards overlap; the accounting takes them in chunk order, so
+the tables are byte-identical to one device's.
 """
 
 from __future__ import annotations
@@ -62,6 +61,7 @@ from stoat_tpu_torch.convert import (DeviceChunk, chunk_words,
 from stoat_tpu_torch.device import kernels_enabled, resolve_device
 from stoat_tpu_torch.io.snarl_file import SnarlTable
 from stoat_tpu_torch.kernels import F64, I64, VOIDP, check_tensor, launch
+from stoat_tpu_torch.parallel.mesh import resolve_mesh, steps
 from stoat_tpu_torch.pipeline.binary import binary_tables_plain
 from stoat_tpu_torch.pipeline.packed import (_popcount32,
                                              membership_words_plain,
@@ -503,31 +503,31 @@ def score_perm_pvalues(T: torch.Tensor, df: torch.Tensor,
 
 @trace.spanned("perm.dispatch")
 def _chunk_pvalues(kind: str, chunk: DeviceChunk, inputs, covar, th,
-                   n_haplotypes: int
-                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                   n_haplotypes: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(p, live): the sanitised p-values of one chunk for one job, row 0
-    the observed phenotype, then the permutations.  ``live`` None: p is
-    [1 + K, S] over the chunk's S snarls, padding included.  Otherwise p
-    is [1 + K, S'] over the S' snarls that the design's filter keeps, at
-    the chunk's columns ``live`` (int64 [S'], on the device); every other
-    snarl, padding among them, is filtered or degenerate, which
-    :func:`sanitize_p` makes +inf in every row, so the kernels skip it.
-    The snarls the kernels compute count as ``perm.snarls_computed``."""
+    the observed phenotype, then the permutations.  p is [1 + K, S'] over
+    the S' snarls that the kernels compute, at the chunk's columns
+    ``live`` (int64 [S'], ascending).  ``-b`` computes every column,
+    padding included.  The design kinds compute the snarls that the
+    design's filter keeps: every other snarl, padding among them, is
+    filtered or degenerate, which :func:`sanitize_p` makes +inf in every
+    row, so the kernels skip it.  The snarls the kernels compute count as
+    ``perm.snarls_computed``."""
     if kind == "binary":
         # each permuted mask filters the snarls anew: every one is computed
-        trace.count("perm.snarls_computed", chunk.snarl_path_idx.shape[0])
+        S = chunk.snarl_path_idx.shape[0]
+        trace.count("perm.snarls_computed", S)
         mem, g_all = perm_membership(chunk.words, chunk.path_idx,
                                      chunk.path_valid, chunk.tail)
         return binary_perm_pvalues(*perm_binary_stats(
-            mem, g_all, inputs.masks, chunk.snarl_path_idx, *th)), None
+            mem, g_all, inputs.masks, chunk.snarl_path_idx, *th)), \
+            torch.arange(S)
     d = quant_design(chunk, covar, *th, n_haplotypes)
     bad = d["filtered"] | d["degenerate"]
     X, used, ncols = d.pop("X"), d["used"], d["ncols"]
     live = (~bad).nonzero().squeeze(1)      # waits for the design
     trace.count("perm.snarls_computed", live.shape[0])
-    if live.shape[0] == X.shape[0]:
-        live = None
-    else:
+    if live.shape[0] < X.shape[0]:
         # rebinding X frees the full design before the kernels run
         X, used, ncols, bad = (t.index_select(0, live)
                                for t in (X, used, ncols, bad))
@@ -550,35 +550,33 @@ def accumulate_chunk(state: Dict, chrom: str, snarls, p: torch.Tensor,
     """The Westfall–Young accounting of one chunk (:476-486): per snarl the
     observed p (row 0) and the number of permutations at or below it, and
     the running minimum of each permutation over all snarls.  The counts
-    and minima are taken on the device; [S] and [K] come back.  With
-    ``live`` (:func:`_chunk_pvalues`), p holds those columns of the chunk
-    only; every other snarl has p +inf in every row: observed +inf, all K
-    permutations at or below it, and no part in the minima.  The snarls
-    with a finite observed p count as ``perm.snarls_tested``.  The chunk's
-    rows go to ``state["rows"]`` as its table of snarls
-    (:class:`SnarlTable`) with their observed p and counts, [S] each."""
+    and minima are taken on the device; [S] and [K] come back.  p's
+    columns are the chunk's at ``live`` (:func:`_chunk_pvalues`; None:
+    every column in order); columns past the chunk's S snarls are its
+    padding, and are dropped.  Every snarl without a column has p +inf in
+    every row: observed +inf, all K permutations at or below it, and no
+    part in the minima.  The snarls with a finite observed p count as
+    ``perm.snarls_tested``.  The chunk's rows go to ``state["rows"]`` as
+    its table of snarls (:class:`SnarlTable`) with their observed p and
+    counts, [S] each."""
     S = len(snarls)
-    obs, perm = p[0], p[1:]
-    if live is None:
-        obs, perm = obs[:S], perm[:, :S]
+    # ascending: the padding's columns come last
+    live = (torch.arange(p.shape[1]) if live is None else live)[:S]
+    n = live.shape[0]
+    obs, perm = p[0, :n], p[1:, :n]
     exc = (perm <= obs[None, :]).sum(dim=0)
     with trace.span("perm.wait_card"):
-        if perm.shape[1]:
+        if n:
             state["null_min"] = np.minimum(
                 state["null_min"], perm.amin(dim=1).cpu().numpy())
         obs = obs.cpu().numpy()
         exc = exc.cpu().numpy()
-        if live is not None:
-            live = live.cpu().numpy()
-    if live is not None:
-        obs_all = np.full(S, np.inf)
-        exc_all = np.full(S, perm.shape[0], exc.dtype)
-        obs_all[live], exc_all[live] = obs, exc
-        obs, exc = obs_all, exc_all
-    trace.count("perm.snarls_tested", np.isfinite(obs).sum())
-    # a copy: on the CPU, obs views the chunk's whole [1 + K, S] p
-    state["rows"].append((chrom, SnarlTable.of(snarls),
-                          np.array(obs, np.float64), exc))
+        live = live.cpu().numpy()
+    obs_all = np.full(S, np.inf)
+    exc_all = np.full(S, perm.shape[0], exc.dtype)
+    obs_all[live], exc_all[live] = obs, exc
+    trace.count("perm.snarls_tested", np.isfinite(obs_all).sum())
+    state["rows"].append((chrom, SnarlTable.of(snarls), obs_all, exc_all))
 
 
 @trace.spanned("perm.write")
@@ -632,18 +630,15 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
     with ``covariate`` the binary pass runs the covariate-adjusted score
     test and the quantitative pass Freedman–Lane.  Returns the number of
     tested (non-filtered) snarls across all outputs."""
-    from stoat_tpu_torch.parallel.mesh import resolve_mesh
-    from stoat_tpu_torch.parallel.sharded import Replicated
     from stoat_tpu_torch.pipeline.runner import iter_chromosome_matrices
     from stoat_tpu_torch.tables import pack_chromosome_chunks
 
     device = "cuda" if device is None else device
     mesh = resolve_mesh(device, mesh)
-    if mesh is not None:
-        logger.info("Permutations: sharding snarls over %d devices: %s",
-                    len(mesh), ", ".join(str(d) for d in mesh.devices))
-        device = mesh.devices[0]
-    device = resolve_device(device)
+    devices = (resolve_device(device),) if mesh is None else mesh.devices
+    if len(devices) > 1:
+        logger.info("Permutations: dealing chunks over %d devices: %s",
+                    len(devices), ", ".join(str(d) for d in devices))
     jobs = []   # (kind, output path, phenotype)
     if pheno_bin is not None:
         if output_tsv is None:
@@ -666,45 +661,60 @@ def run_permutation_test(vcf_path: str, snarls_chr: Dict[str, List],
     with trace.span("perm.rows"):
         perm_idx = permutation_indices(n_samples, n_perms, seed)
     th = (min_individuals, min_haplotypes, maf_threshold)
-    covar_q = upload(np.zeros((n_samples, 0)) if covariate is None
-                     else np.asarray(covariate, np.float64), device)
-    no_covar = torch.zeros((n_samples, 0), dtype=torch.float64,
-                           device=device)
-    inputs = {}     # per job: PermInputs of the observed row + K rows
+    rows = {}       # per job: its observed row and K rows on the host
+    consts = {}     # (name, device): the run's inputs on each device
+    # the quantitative job's covariates; [N, 0] for the binary kinds
+    covars = {kind: np.zeros((n_samples, 0)) if covariate is None
+              or kind != "quantitative" else np.asarray(covariate, np.float64)
+              for kind, _o, _p in jobs}
     state = {kind: {"rows": [], "null_min": np.full(n_perms, np.inf)}
              for kind, _o, _p in jobs}
-    replicated = None if mesh is None else Replicated(mesh)
+
+    def on(name, device, make):
+        """``make()``, made once a run for each device."""
+        if (name, device) not in consts:
+            consts[name, device] = make()
+        return consts[name, device]
+
+    def job_inputs(kind, pheno, device, n_words):
+        with trace.span("perm.rows"):
+            if kind not in rows:
+                rows[kind] = _job_rows(kind, pheno, covariate, perm_idx,
+                                       n_perms, seed, n_words)
+            return to_perm_inputs(device, **rows[kind])
 
     for chrom, matrix in trace.each("perm.ingest", iter_chromosome_matrices(
             vcf_path, n_hap, snarls_chr)):
         if chrom not in snarls_chr:
             continue
-        if mesh is not None:
-            _mesh_blocks(jobs, state, inputs, chrom, matrix,
-                         snarls_chr[chrom], mesh, replicated,
-                         snarl_chunk_size, covariate, perm_idx, n_perms,
-                         seed, th)
-            continue
-        words = tail = None
-        for packed in trace.each("perm.pack", pack_chromosome_chunks(
-                snarls_chr[chrom], matrix, snarl_chunk_size)):
-            if words is None:
-                # one upload per chromosome: every chunk shares its words
-                words = upload_words(chunk_words(packed), device)
-                tail = upload(tail_mask_words(
-                    n_hap, int(words.shape[1])).view(np.int32), device)
-            chunk = to_device_chunk(packed, None, device, words=words)
-            chunk.tail = tail
+        held = {}   # the chromosome's words on each device
+        for step in steps(trace.each("perm.pack", pack_chromosome_chunks(
+                snarls_chr[chrom], matrix, snarl_chunk_size)), devices):
+            chunks = []
+            for device, packed in step:
+                if device not in held:
+                    # one upload per chromosome and device: every chunk
+                    # shares its words
+                    held[device] = upload_words(chunk_words(packed), device)
+                chunk = to_device_chunk(packed, None, device,
+                                        words=held[device])
+                n_words = int(chunk.words.shape[1])
+                chunk.tail = on("tail", device, lambda: upload(
+                    tail_mask_words(n_hap, n_words).view(np.int32), device))
+                chunks.append((device, packed, chunk, n_words))
             for kind, _out, pheno in jobs:
-                if kind not in inputs:
-                    with trace.span("perm.rows"):
-                        inputs[kind] = to_perm_inputs(device, **_job_rows(
-                            kind, pheno, covariate, perm_idx, n_perms, seed,
-                            int(words.shape[1])))
-                covar = covar_q if kind == "quantitative" else no_covar
-                p, live = _chunk_pvalues(kind, chunk, inputs[kind], covar,
-                                         th, packed.n_haplotypes)
-                accumulate_chunk(state[kind], chrom, packed.snarls, p, live)
+                # every chunk of the step is queued before any is read
+                got = [(packed, _chunk_pvalues(
+                    kind, chunk,
+                    on(kind, device, lambda: job_inputs(kind, pheno, device,
+                                                        n_words)),
+                    on(kind + " covariates", device,
+                       lambda: upload(covars[kind], device)),
+                    th, packed.n_haplotypes))
+                    for device, packed, chunk, n_words in chunks]
+                for packed, (p, live) in got:
+                    accumulate_chunk(state[kind], chrom, packed.snarls, p,
+                                     live)
 
     n_tested = 0
     for kind, out_path, _pheno in jobs:
@@ -729,45 +739,3 @@ def _job_rows(kind: str, pheno: np.ndarray, covariate, perm_idx,
     ph = np.asarray(pheno, np.float64)
     return {"phenos": np.concatenate(
         [ph[None, :], freedman_lane_phenos(ph, covariate, perm_idx)])}
-
-
-def _mesh_blocks(jobs, state, rows, chrom, matrix, snarls, mesh, replicated,
-                 snarl_chunk_size, covariate, perm_idx, n_perms, seed,
-                 th) -> None:
-    """One chromosome of the pass on the mesh (stoat_tpu, :493-557):
-    blocks of ``snarl_chunk_size`` snarls a device, one
-    ``ShardedPermState`` a block serving every job; ``rows`` keeps each
-    job's host rows (:func:`_job_rows`) for the run."""
-    from stoat_tpu_torch.parallel.mesh import shard_chromosome_chunks
-    from stoat_tpu_torch.parallel.sharded import (
-        ShardedPermState, binary_perm_pvalues_sharded,
-        logistic_score_perm_sharded, quant_perm_pvalues_sharded)
-
-    for sharded in trace.each("perm.pack", shard_chromosome_chunks(
-            snarls, matrix, snarl_chunk_size * len(mesh), len(mesh))):
-        pstate = ShardedPermState(sharded, mesh, replicated)
-        n_shards, s_local = sharded.snarl_path_idx.shape[:2]
-        for kind, _out, pheno in jobs:
-            if kind not in rows:
-                with trace.span("perm.rows"):
-                    rows[kind] = _job_rows(kind, pheno, covariate, perm_idx,
-                                           n_perms, seed,
-                                           int(sharded.words.shape[1]))
-            r = rows[kind]
-            # the sharded calls return host p-values: the card's time is
-            # inside the dispatch span
-            trace.count("perm.snarls_computed", n_shards * s_local)
-            with trace.span("perm.dispatch"):
-                if kind == "binary":
-                    p = binary_perm_pvalues_sharded(
-                        sharded, r["masks"], mesh, *th, state=pstate)
-                elif kind == "binary_score":
-                    p = logistic_score_perm_sharded(
-                        sharded, r["Z"], r["w"], r["e"], mesh, *th,
-                        state=pstate)
-                else:
-                    p = quant_perm_pvalues_sharded(
-                        sharded, r["phenos"], covariate, mesh, *th,
-                        state=pstate)
-            accumulate_chunk(state[kind], chrom, sharded.snarls,
-                             torch.from_numpy(p))

@@ -72,10 +72,10 @@ from stoat_tpu_torch.stats.logreg import logistic_regression
 
 __all__ = ["DESIGN_KEYS", "TABLE_KEYS", "design_from_membership_plain",
            "quant_design", "quant_design_plain",
-           "quantitative_analyze_chromosome", "quantitative_analyze_chunk",
-           "binary_covar_analyze_chromosome", "binary_covar_analyze_chunk",
+           "quantitative_analyze_chromosome",
+           "binary_covar_analyze_chromosome",
            "dual_analyze_chromosome", "dual_chunk_tables",
-           "PrefixView", "lmm_analyze_chromosome", "lmm_analyze_chunk",
+           "PrefixView", "lmm_analyze_chromosome",
            "eqtl_design_for_chromosome", "pair_snarls", "eqtl_ols_stats",
            "eqtl_ols_stats_plain", "eqtl_regress_pairs"]
 
@@ -290,20 +290,9 @@ def quantitative_analyze_chromosome(packed, pheno: torch.Tensor,
     chromosome's uploaded words across chunks.  Returns a
     ``fetch.HostResult`` with filtered, allele_paths, p, beta, se, r2, and
     with ``tables`` the design's -T table view (``HostResult.tables``)."""
-    return quantitative_analyze_chunk(
-        to_device_chunk(packed, None, device, words=words), pheno, covar,
-        min_individuals, min_haplotypes, maf_threshold, packed.n_haplotypes,
-        tables=tables)
-
-
-def quantitative_analyze_chunk(chunk: DeviceChunk, pheno: torch.Tensor,
-                               covar: torch.Tensor, min_individuals,
-                               min_haplotypes, maf_threshold,
-                               n_haplotypes: int,
-                               tables: bool = False) -> HostResult:
-    """:func:`quantitative_analyze_chromosome` on a device chunk."""
+    chunk = to_device_chunk(packed, None, device, words=words)
     d = quant_design(chunk, covar, min_individuals, min_haplotypes,
-                     maf_threshold, n_haplotypes, tables=tables)
+                     maf_threshold, packed.n_haplotypes, tables=tables)
     t1, df_res, beta, se, r2 = linear_regression_row_stats(
         d.pop("X"), pheno, d["used"], d["ncols"])
     # X ([S, N, PT] float64, the chunk's largest buffer) is released here;
@@ -328,21 +317,11 @@ def binary_covar_analyze_chromosome(packed, pheno: torch.Tensor,
     (convert.to_binary_pheno).  Returns a ``fetch.HostResult`` with
     filtered, allele_paths, p, beta, se (and the table view with
     ``tables``)."""
-    return binary_covar_analyze_chunk(
-        to_device_chunk(packed, None, device, words=words), pheno,
-        min_individuals, min_haplotypes, maf_threshold, packed.n_haplotypes,
-        tables=tables)
-
-
-def binary_covar_analyze_chunk(chunk: DeviceChunk, pheno: torch.Tensor,
-                               min_individuals, min_haplotypes,
-                               maf_threshold, n_haplotypes: int,
-                               tables: bool = False) -> HostResult:
-    """:func:`binary_covar_analyze_chromosome` on a device chunk."""
+    chunk = to_device_chunk(packed, None, device, words=words)
     no_covar = torch.zeros((pheno.shape[0], 0), dtype=torch.float64,
                            device=pheno.device)
     d = quant_design(chunk, no_covar, min_individuals, min_haplotypes,
-                     maf_threshold, n_haplotypes, tables=tables)
+                     maf_threshold, packed.n_haplotypes, tables=tables)
     used = d["used"]
     # X, alive through every Newton step, is released once K11 is queued:
     # the allocator reuses it only behind that launch, as after the OLS
@@ -433,19 +412,9 @@ def lmm_analyze_chromosome(packed, rot: torch.Tensor, y_rot: torch.Tensor,
     ``device`` (convert.to_lmm_inputs).  Returns a ``fetch.HostResult``
     with filtered, allele_paths, p, beta, se, r2 (and the table view with
     ``tables``)."""
-    return lmm_analyze_chunk(
-        to_device_chunk(packed, None, device, words=words), rot, y_rot,
-        covar, min_individuals, min_haplotypes, maf_threshold,
-        packed.n_haplotypes, tables=tables)
-
-
-def lmm_analyze_chunk(chunk: DeviceChunk, rot: torch.Tensor,
-                      y_rot: torch.Tensor, covar: torch.Tensor,
-                      min_individuals, min_haplotypes, maf_threshold,
-                      n_haplotypes: int, tables: bool = False) -> HostResult:
-    """:func:`lmm_analyze_chromosome` on a device chunk."""
+    chunk = to_device_chunk(packed, None, device, words=words)
     d = quant_design(chunk, covar, min_individuals, min_haplotypes,
-                     maf_threshold, n_haplotypes, all_rows=True,
+                     maf_threshold, packed.n_haplotypes, all_rows=True,
                      tables=tables)
     t1, df_res, beta, se, r2 = lmm_regression_batch(d.pop("X"), rot, y_rot,
                                                     d["ncols"])

@@ -15,15 +15,13 @@ chunk's filter flags on the host.  A ``secondary`` phenotype (:440-481)
 runs a second analysis on the same chunks into a second table; binary
 with a quantitative secondary shares one K1 pass (pipeline/quantitative.py
 dual_analyze_chromosome), unless -T asks for tables (:690-694).  On a
-mesh of several devices (``mesh``; parallel/) each chunk's
-snarls are split over the devices and every shard runs the single-device
-kernels on its own device (:449-482, :657-682, :824-861); eQTL builds
-each chunk's design on the mesh's first device and splits its (snarl,
-gene) pairs (:1092-1095).  Every output is byte-identical to the same
-run on one device.  With -T (``table_threshold``), the regression modes
-also write, for each snarl whose printed P passes the threshold, its
-sample x path table into ``regression_dir`` (:1019-1064); binary and eQTL
-runs write none.  ``--resume`` checkpoints every completed chromosome in a
+mesh of several devices (``mesh``; parallel/) the same chunk loop deals
+whole chunks over the devices (``parallel.mesh.steps``), each chunk on
+the single-device pipeline of its device, so every output is
+byte-identical to the same run on one device.  With -T
+(``table_threshold``), the regression modes also write, for each snarl
+whose printed P passes the threshold, its sample x path table into
+``regression_dir`` (:1019-1064); binary and eQTL runs write none.  ``--resume`` checkpoints every completed chromosome in a
 ``<output>.progress`` sidecar per output.
 
 The helpers below are copies of stoat_tpu/pipeline/runner.py:42-190,
@@ -42,15 +40,15 @@ import threading
 import time
 from dataclasses import dataclass, field
 from functools import partial
-from typing import Dict, List, Optional
+from itertools import chain
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from stoat_tpu_torch import trace
 from stoat_tpu_torch import writer as W
-from stoat_tpu_torch.convert import (chunk_words, eqtl_expr_rows,
-                                     pheno_masks, to_binary_pheno,
+from stoat_tpu_torch.convert import (chunk_words, pheno_masks, to_binary_pheno,
                                      to_covariates, to_eqtl_expr,
                                      to_eqtl_pairs, to_lmm_inputs,
                                      to_quant_inputs, upload_words)
@@ -60,12 +58,7 @@ from stoat_tpu_torch.io.phenotype import QtlData
 from stoat_tpu_torch.io.snarl_file import SnarlData
 from stoat_tpu_torch.io.vcf import VcfReader
 from stoat_tpu_torch.matrix import EdgeHaplotypeMatrix
-from stoat_tpu_torch.parallel.mesh import (SnarlMesh, resolve_mesh,
-                                           shard_chromosome_chunks)
-from stoat_tpu_torch.parallel.sharded import (
-    Replicated, binary_analyze_sharded, binary_covar_analyze_sharded,
-    dual_analyze_sharded, eqtl_regress_pairs_sharded, lmm_analyze_sharded,
-    quantitative_analyze_sharded)
+from stoat_tpu_torch.parallel.mesh import SnarlMesh, resolve_mesh, steps
 from stoat_tpu_torch.pipeline.binary import binary_analyze_chromosome
 from stoat_tpu_torch.pipeline.fetch import fetch_async
 from stoat_tpu_torch.pipeline.quantitative import (
@@ -358,14 +351,14 @@ def _validate_secondary(secondary: Dict) -> None:
 
 @dataclass
 class _Run:
-    """One run's settings and its per-run device inputs (``consts``,
-    uploaded on the first chunk that needs them; on a mesh, ``replicated``
-    holds them on each of its devices)."""
+    """One run's settings, its devices (the mesh's, or the one device)
+    and its per-run device inputs (``consts``, by name and device,
+    uploaded on the first chunk of each device that needs them)."""
 
     mode: str
     phenotype: object
     covariate: Optional[np.ndarray]
-    device: torch.device
+    devices: Tuple[torch.device, ...]
     thresholds: tuple
     chunk_size: int
     window: int
@@ -374,9 +367,8 @@ class _Run:
     samples: List[str] = field(default_factory=list)
     secondary: Optional[Dict] = None
     sec_fh: object = None
-    consts: Dict[str, object] = field(default_factory=dict)
-    mesh: Optional[SnarlMesh] = None
-    replicated: Optional[Replicated] = None
+    consts: Dict[Tuple[str, torch.device], object] = field(
+        default_factory=dict)
 
     @property
     def dual(self) -> bool:
@@ -391,30 +383,32 @@ def _inputs(run: _Run, key: str, mode: str, phenotype, packed, words):
     """The device inputs of ``mode`` (binary: the packed masks;
     binary_covar: the case indicator; quantitative: phenotype and
     covariates; lmm: rotation, rotated phenotype and covariates; eqtl: the
-    covariates), uploaded once per run under ``key``."""
-    got = run.consts.get(key)
+    covariates), uploaded once per run and device under ``key``, on the
+    device of ``words``."""
+    device = words.device
+    got = run.consts.get((key, device))
     if got is None:
         n = packed.n_haplotypes // 2
         if mode == "eqtl":
-            got = to_covariates(run.covariate, n, run.device)
+            got = to_covariates(run.covariate, n, device)
         elif mode == "binary":
             got = pheno_masks(phenotype, packed.n_haplotypes,
-                              int(words.shape[1]), run.device)
+                              int(words.shape[1]), device)
         elif mode == "binary_covar":
-            got = to_binary_pheno(phenotype, run.device)
+            got = to_binary_pheno(phenotype, device)
         elif mode == "quantitative":
-            got = to_quant_inputs(phenotype, run.covariate, n, run.device)
+            got = to_quant_inputs(phenotype, run.covariate, n, device)
         else:
-            got = to_lmm_inputs(phenotype, run.covariate, n, run.device)
-        run.consts[key] = got
+            got = to_lmm_inputs(phenotype, run.covariate, n, device)
+        run.consts[key, device] = got
     return got
 
 
 def _analyze(run: _Run, key: str, mode: str, phenotype, packed, words):
-    """Queue one chunk of ``mode`` on the device; returns its
+    """Queue one chunk of ``mode`` on the device of ``words``; returns its
     ``fetch.HostResult`` and the writer function of its table."""
     c = _inputs(run, key, mode, phenotype, packed, words)
-    th, device = run.thresholds, run.device
+    th, device = run.thresholds, words.device
     write = _writer_of(run, mode)
     if mode == "binary":
         return (binary_analyze_chromosome(packed, phenotype, *th, device,
@@ -443,56 +437,6 @@ def _writer_of(run: _Run, mode: str):
                        regression_dir=run.regression_dir,
                        samples=run.samples, has_r2=has_r2)
     return partial(W.write_quant_rows_batch, has_r2=has_r2)
-
-
-def _analyze_sharded(run: _Run, sharded):
-    """Queue one chunk of the run's mode on the mesh, its snarls split
-    over the devices (stoat_tpu's _analyze_sharded, :824-861); returns
-    its ``parallel.sharded.ShardedResult``."""
-    th = run.thresholds
-    kw = {"replicated": run.replicated}
-    if run.mode == "binary":
-        return binary_analyze_sharded(sharded, run.phenotype, run.mesh, *th,
-                                      **kw)
-    kw["return_tables"] = run.table_threshold != -1
-    if run.mode == "binary_covar":
-        return binary_covar_analyze_sharded(sharded, run.phenotype, run.mesh,
-                                            *th, **kw)
-    if run.mode == "quantitative":
-        return quantitative_analyze_sharded(sharded, run.phenotype,
-                                            run.covariate, run.mesh, *th,
-                                            **kw)
-    return lmm_analyze_sharded(sharded, run.phenotype, run.covariate,
-                               run.mesh, *th, **kw)
-
-
-def _dispatch_sharded(outf, chrom, matrix, snarls, writer, run: _Run,
-                      quad_cache) -> None:
-    """Queue one chromosome's chunks on the mesh and their writes on the
-    writer thread (stoat_tpu, :657-682): each chunk of ``chunk_size``
-    snarls is split into one shard per device, the paths resolved once
-    for the chromosome from the tokenizer's ``quad_cache``; the dual run
-    (binary with a quantitative secondary, no -T) writes both tables from
-    one sharded pass."""
-    sec = run.secondary
-    for sharded in trace.each("runner.pack", shard_chromosome_chunks(
-            snarls, matrix, run.chunk_size, len(run.mesh), quad_cache)):
-        if run.dual:
-            with trace.span("runner.dispatch"):
-                res = dual_analyze_sharded(
-                    sharded, run.phenotype, sec["quantitative_phenotype"],
-                    run.mesh, *run.thresholds, covariate=run.covariate,
-                    replicated=run.replicated)
-            writer.submit(partial(W.write_binary_rows_batch, outf, chrom,
-                                  sharded.snarls, res))
-            writer.submit(partial(W.write_quant_rows_batch, run.sec_fh, chrom,
-                                  sharded.snarls, PrefixView(res)),
-                          tag="secondary")
-            continue
-        with trace.span("runner.dispatch"):
-            res = _analyze_sharded(run, sharded)
-        writer.submit(partial(_writer_of(run, run.mode), outf, chrom,
-                              sharded.snarls, res))
 
 
 def _write_quant_family(outf, chrom, snarls, res, threshold: float,
@@ -545,8 +489,9 @@ def _log_degenerate(chrom: str, matrix, n_snarls: int) -> None:
 
 def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
                          tokenizer, run: _Run) -> int:
-    """Queue one chromosome's chunks on the device and their writes on
-    the writer thread, then its checkpoints (the secondary output's first,
+    """Queue one chromosome's chunks on the run's devices (dealt by
+    ``parallel.mesh.steps``) and their writes, in chunk order, on the
+    writer thread, then its checkpoints (the secondary output's first,
     so that a crash between the two reruns the chromosome).  eQTL runs
     inline instead (:func:`_eqtl_chromosome`) and returns its filtered
     count; the other modes return 0 (the writer counts)."""
@@ -562,18 +507,12 @@ def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
     chr_state: Dict[str, int] = {}
     writer.submit(lambda: chr_state.__setitem__("start", writer.count()))
     sec = run.secondary
-    words = None
-    if run.mesh is not None:
-        _dispatch_sharded(outf, chrom, matrix, snarls, writer, run,
-                          tokenizer.get(chrom))
-        chunks = ()
-    else:
-        chunks = trace.each("runner.pack", pack_chromosome_chunks(
-            snarls, matrix, run.chunk_size, quad_cache=tokenizer.get(chrom)))
-    for packed in chunks:
-        if words is None:
-            # one upload per chromosome: every chunk shares its words
-            words = upload_words(chunk_words(packed), run.device)
+    held: Dict[torch.device, torch.Tensor] = {}
+    chunks = trace.each("runner.pack", pack_chromosome_chunks(
+        snarls, matrix, run.chunk_size, quad_cache=tokenizer.get(chrom)))
+    # every chunk is queued without a wait: a step needs no barrier here
+    for device, packed in chain.from_iterable(steps(chunks, run.devices)):
+        words = _words(held, packed, device)
         if run.dual:
             with trace.span("runner.dispatch"):
                 masks = _inputs(run, "primary", "binary", run.phenotype,
@@ -582,7 +521,7 @@ def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
                                         sec["quantitative_phenotype"], packed,
                                         words)
                 res = dual_analyze_chromosome(packed, masks, qpheno, covar,
-                                              *run.thresholds, run.device,
+                                              *run.thresholds, device,
                                               words=words)
             writer.submit(partial(W.write_binary_rows_batch, outf, chrom,
                                   packed.snarls, res))
@@ -618,6 +557,17 @@ def _dispatch_chromosome(outf, output_tsv, chrom, matrix, snarls, writer,
     return 0
 
 
+def _words(held: Dict[torch.device, torch.Tensor], packed, device
+           ) -> torch.Tensor:
+    """The chromosome's words on ``device``: uploaded on the first chunk
+    of each device (``held``, one chromosome's), every later chunk shares
+    them."""
+    words = held.get(device)
+    if words is None:
+        words = held[device] = upload_words(chunk_words(packed), device)
+    return words
+
+
 def _log_chromosome(chrom: str, n: int, filtered: int, t0: float) -> None:
     if filtered == n and n:
         logger.warning(
@@ -636,11 +586,12 @@ def _eqtl_chromosome(outf, chrom, matrix, snarls, tokenizer,
     flags and allele counts on the host, the (snarl, gene) pairs of the
     unfiltered snarls in (snarl, gene) order (genes within the window,
     :class:`GeneWindows`), their OLS on the device
-    (quantitative.eqtl_regress_pairs; on a mesh, the design on its first
-    device and the pairs split over its devices,
-    parallel.sharded.eqtl_regress_pairs_sharded) and one row per pair,
-    formatted in one batch.  Filtered snarls write no row; returns their
-    number.
+    (quantitative.eqtl_regress_pairs) and one row per pair, formatted in
+    one batch.  A step of the mesh (``parallel.mesh.steps``) queues its
+    chunks' designs first, then each chunk's pairs and OLS on the chunk's
+    device, then writes each chunk's rows, so that several cards overlap;
+    one device takes one chunk a step.  Filtered snarls write no row;
+    returns their number.
 
     Spans: ``runner.dispatch`` (the design, then K13 and its tail,
     queued), ``runner.eqtl_wait_card`` (the host waits for the flags and
@@ -653,60 +604,65 @@ def _eqtl_chromosome(outf, chrom, matrix, snarls, tokenizer,
     gene_list = run.phenotype.get(chrom, [])
     windows = GeneWindows(gene_list)
     gene_names = [g.gene_name for g in gene_list]
-    th, device = run.thresholds, run.device
-    words = expr = None
+    th = run.thresholds
+    held: Dict[torch.device, torch.Tensor] = {}
+    expr: Dict[torch.device, torch.Tensor] = {}
     filtered = 0
-    for packed in trace.each("runner.pack", pack_chromosome_chunks(
-            snarls, matrix, run.chunk_size, quad_cache=tokenizer.get(chrom))):
-        if words is None:
-            words = upload_words(chunk_words(packed), device)
-        with trace.span("runner.dispatch"):
-            covar = _inputs(run, "primary", "eqtl", None, packed, words)
-            design = eqtl_design_for_chromosome(packed, covar, *th, device,
-                                                words=words)
-            flags = fetch_async({"filtered": design["filtered"],
-                                 "allele_paths": design["allele_paths"]})
-        with trace.span("runner.eqtl_wait_card"):
-            filtered_arr = np.asarray(flags["filtered"])[:len(packed.snarls)]
-            allele_arr = flags["allele_paths"]
-        with trace.span("runner.eqtl_pairs"):
-            live = np.flatnonzero(~filtered_arr.astype(bool))
-            filtered += len(packed.snarls) - live.size
-            pair_snarl, pair_gene = windows.pairs(
-                live, packed.snarls.start_pos[live],
-                packed.snarls.end_pos[live], run.window)
-            if pair_snarl.size and run.mesh is None:
-                pairs = to_eqtl_pairs(pair_snarl, pair_gene,
-                                      int(design["X"].shape[0]), device)
-        if not pair_snarl.size:
-            continue
-        _, n_samples, n_columns = design["X"].shape
-        for name, n in (("calls", 1),
-                        # the pairs are in snarl order
-                        ("snarls", 1 + np.count_nonzero(np.diff(pair_snarl))),
-                        ("pairs", pair_snarl.size), ("genes", len(gene_list)),
-                        ("samples", n_samples), ("columns", n_columns)):
-            trace.count("eqtl." + name, n)
-        with trace.span("runner.dispatch"):
-            if run.mesh is not None:
-                if expr is None:
-                    # the chromosome's expression, uploaded once to each
-                    # device
-                    expr = eqtl_expr_rows(gene_list)
-                res = eqtl_regress_pairs_sharded(design, pair_snarl,
-                                                 pair_gene, expr, run.mesh,
-                                                 replicated=run.replicated)
-            else:
-                if expr is None:
-                    # the chromosome's expression, uploaded once
-                    expr = to_eqtl_expr(gene_list, device)
-                res = eqtl_regress_pairs(design, *pairs, expr)
-        del design
-        with trace.span("runner.eqtl_wait_card"):
-            stats = {k: res[k] for k in ("p", "r2", "beta", "se")}
-        with trace.span("runner.eqtl_write"):
-            W.write_eqtl_rows_batch(outf, chrom, packed.snarls, gene_names,
-                                    pair_snarl, pair_gene, stats, allele_arr)
+    for step in steps(trace.each("runner.pack", pack_chromosome_chunks(
+            snarls, matrix, run.chunk_size, quad_cache=tokenizer.get(chrom))),
+            run.devices):
+        queued = []
+        for device, packed in step:
+            words = _words(held, packed, device)
+            with trace.span("runner.dispatch"):
+                covar = _inputs(run, "primary", "eqtl", None, packed, words)
+                design = eqtl_design_for_chromosome(packed, covar, *th,
+                                                    device, words=words)
+                flags = fetch_async({"filtered": design["filtered"],
+                                     "allele_paths": design["allele_paths"]})
+            queued.append((device, packed, design, flags))
+        regressed = []
+        for device, packed, design, flags in queued:
+            with trace.span("runner.eqtl_wait_card"):
+                filtered_arr = np.asarray(flags["filtered"])[
+                    :len(packed.snarls)]
+                allele_arr = flags["allele_paths"]
+            with trace.span("runner.eqtl_pairs"):
+                live = np.flatnonzero(~filtered_arr.astype(bool))
+                filtered += len(packed.snarls) - live.size
+                pair_snarl, pair_gene = windows.pairs(
+                    live, packed.snarls.start_pos[live],
+                    packed.snarls.end_pos[live], run.window)
+                if pair_snarl.size:
+                    pairs = to_eqtl_pairs(pair_snarl, pair_gene,
+                                          int(design["X"].shape[0]), device)
+            if not pair_snarl.size:
+                continue
+            _, n_samples, n_columns = design["X"].shape
+            for name, n in (("calls", 1),
+                            # the pairs are in snarl order
+                            ("snarls",
+                             1 + np.count_nonzero(np.diff(pair_snarl))),
+                            ("pairs", pair_snarl.size),
+                            ("genes", len(gene_list)),
+                            ("samples", n_samples), ("columns", n_columns)):
+                trace.count("eqtl." + name, n)
+            with trace.span("runner.dispatch"):
+                if device not in expr:
+                    # the chromosome's expression, uploaded once a device
+                    expr[device] = to_eqtl_expr(gene_list, device)
+                res = eqtl_regress_pairs(design, *pairs, expr[device])
+            regressed.append((packed, pair_snarl, pair_gene, allele_arr,
+                              res))
+        # the designs go before the host waits for the statistics
+        del queued, design
+        for packed, pair_snarl, pair_gene, allele_arr, res in regressed:
+            with trace.span("runner.eqtl_wait_card"):
+                stats = {k: res[k] for k in ("p", "r2", "beta", "se")}
+            with trace.span("runner.eqtl_write"):
+                W.write_eqtl_rows_batch(outf, chrom, packed.snarls,
+                                        gene_names, pair_snarl, pair_gene,
+                                        stats, allele_arr)
     return filtered
 
 
@@ -755,8 +711,8 @@ def run_vcf_analysis(
     by ``sample_names``.  Each output is byte-identical to stoat_tpu's
     run_vcf_analysis with the same arguments.
 
-    ``mesh`` (a ``parallel.mesh.SnarlMesh``) splits each chunk's snarls
-    over several devices, each shard on the single-device kernels of its
+    ``mesh`` (a ``parallel.mesh.SnarlMesh``) deals the chunks over
+    several devices, each chunk on the single-device pipeline of its
     device; without one, a bare ``cuda`` ``device`` does so over every
     visible card when there are several (``cuda:N``: that card alone).
     The outputs are byte-identical to one device's.  Of the secondary runs
@@ -785,11 +741,11 @@ def run_vcf_analysis(
                     "path")
         run_mesh = None
     if run_mesh is not None:
-        logger.info("Sharding snarls over %d devices: %s", len(run_mesh),
+        logger.info("Dealing chunks over %d devices: %s", len(run_mesh),
                     ", ".join(str(d) for d in run_mesh.devices))
-        device = run_mesh.devices[0]
+        devices = run_mesh.devices
     else:
-        device = resolve_device(device)
+        devices = (resolve_device(device),)
     header_reader = VcfReader(vcf_path)
     samples = sample_names or header_reader.samples
     header_reader.close()
@@ -840,11 +796,10 @@ def run_vcf_analysis(
             W.write_quantitative_header(fh)
         return fh
 
-    run = _Run(mode, phenotype, covariate, device,
+    run = _Run(mode, phenotype, covariate, devices,
                (min_individuals, min_haplotypes, maf_threshold),
                snarl_chunk_size, windows_gene_threshold, table_threshold,
-               regression_dir, samples, secondary, mesh=run_mesh,
-               replicated=None if run_mesh is None else Replicated(run_mesh))
+               regression_dir, samples, secondary)
     total_analyzed = total_filtered = 0
     with _open_output(output_tsv, mode, prim_prog) as outf:
         if secondary is not None:

@@ -44,15 +44,13 @@ def repad_for_coo_collision(P: int, nnz: int, packs) -> int:
     """Grow the common path dimension if COO padding would collide.
 
     COO padding entries target slot ``P - 1``, which must be an INVALID
-    path slot on every chunk/shard: if any pack's real path count fills
+    path slot on every chunk: if any pack's real path count fills
     the common ``P`` exactly (its own pow2 padding added no scratch)
     while the common ``nnz`` adds padding entries, those pads would be
     attributed to a real path and AND edge row 0 into its membership —
     silently wrong p-values (regression-pinned in
-    tests/test_edge_cases.py).  ``packs`` may contain ``None`` entries
-    (empty shards)."""
-    if any(p is not None and p.n_paths >= P
-           and nnz > p.coo_path.shape[0] for p in packs):
+    tests/test_edge_cases.py)."""
+    if any(p.n_paths >= P and nnz > p.coo_path.shape[0] for p in packs):
         return next_pow2(P + 1)
     return P
 
@@ -403,7 +401,6 @@ def _quads_from_tuples(snarls: Sequence[SnarlData]):
 
 def pack_chromosome(snarls: Sequence[SnarlData],
                     edge_matrix: EdgeHaplotypeMatrix,
-                    pad_snarls: bool = True,
                     cache=None) -> PackedChromosome:
     """Resolve snarl paths against the chromosome edge matrix and pack.
 
@@ -413,12 +410,12 @@ def pack_chromosome(snarls: Sequence[SnarlData],
     snarls = SnarlTable.of(snarls)
     resolved = resolve_chromosome(snarls, edge_matrix, cache=cache)
     return _pack_from_resolved(resolved, snarls, edge_matrix,
-                               0, len(snarls), pad_snarls=pad_snarls)
+                               0, len(snarls))
 
 
 def _pack_from_resolved(resolved: ResolvedPaths, snarls: SnarlTable,
-                        edge_matrix, s_lo: int, s_hi: int,
-                        pad_snarls: bool = True) -> PackedChromosome:
+                        edge_matrix, s_lo: int, s_hi: int
+                        ) -> PackedChromosome:
     """Pad one snarl range of a resolved chromosome into device tensors."""
     p_lo = int(resolved.offsets[s_lo])
     p_hi = int(resolved.offsets[s_hi])
@@ -434,7 +431,7 @@ def _pack_from_resolved(resolved: ResolvedPaths, snarls: SnarlTable,
     P = next_pow2(max(flat_index, 1))
     Pmax = next_pow2(max_paths)
     S_real = len(snarls)
-    S = next_pow2(max(S_real, 1)) if pad_snarls else max(S_real, 1)
+    S = next_pow2(max(S_real, 1))
 
     n_edges_arr = np.zeros(P, np.int32)
     n_edges_arr[:flat_index] = n_edges

@@ -230,7 +230,7 @@ def test_port_never_imports_stoat_tpu():
     files += sorted(glob.glob(os.path.join(REPO, "tools", "*.py")))
     assert len(files) > 30
     assert {os.path.join(REPO, "stoat_tpu_torch", "parallel", f"{name}.py")
-            for name in ("__init__", "mesh", "sharded")} <= set(files)
+            for name in ("__init__", "mesh")} <= set(files)
     assert os.path.join(REPO, "stoat_tpu_torch", "native",
                         "baseline.py") in files
     found = []

@@ -1,17 +1,17 @@
-"""Two processes, each running only its own shards (the counterpart of
-tests/test_multihost.py for the port).
+"""Two processes, each running only the chunks dealt to its own devices
+(the counterpart of tests/test_multihost.py for the port).
 
 Two processes started with ``torch.multiprocessing`` (spawn), joined by
 ``torch.distributed`` over the gloo backend on a free local port, each
-pack the four-shard split of one chromosome with shard_packed_chromosome
-and run only their own two shards (``binary_analyze_sharded`` on a mesh of
-two CPU devices); rank 0 gathers the two halves with ``gather_object``.
-The gathered arrays equal the single-process one-device result bitwise,
-and stoat_tpu's p strings.  This adds no feature: it shows, as the JAX
-worker does, that a shard runs alone.
+deal the chunks of one chromosome over four devices with
+``parallel.mesh.steps`` and run the chunks of their own two devices
+(``binary_analyze_chromosome``, the runner's chunk call); rank 0 gathers
+them with ``gather_object`` and puts them in chunk order.  The gathered
+arrays equal the single-process one-device result bitwise, and stoat_tpu's
+p strings (tests/test_multihost.py holds stoat_tpu's two-process run to
+those).  This adds no feature: it shows that a chunk runs alone.
 """
 
-import dataclasses
 import socket
 import time
 
@@ -21,8 +21,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 TH = (3, 5, 0.05)
-SHARDS = 4
+DEVICES = 4
 WORLD = 2
+CHUNK = 3
 KEYS = ("filtered", "keep", "g0", "g1", "p_fisher", "p_chi2")
 
 
@@ -49,40 +50,39 @@ def _load(paths):
     return parse_snarl_path(paths["snarl"])["ref"], matrix, pheno
 
 
-def _own_shards(sharded, lo, hi):
-    """The shards [lo, hi) of a split, as a split of their own."""
-    stacked = {f: getattr(sharded, f)[lo:hi] for f in (
-        "path_idx", "coo_path", "coo_row", "n_edges_per_path", "path_valid",
-        "snarl_path_idx")}
-    first = sum(sharded.shard_sizes[:lo])
-    sizes = sharded.shard_sizes[lo:hi]
-    return dataclasses.replace(
-        sharded, **stacked, shard_sizes=sizes, n_snarls=sum(sizes),
-        snarls=sharded.snarls[first:first + sum(sizes)])
-
-
 def _worker(rank, port, paths, out_path):
-    """One process: its two shards of the four, gathered on rank 0."""
+    """One process: the chunks dealt to its two devices of the four,
+    gathered on rank 0 in chunk order."""
     import torch.distributed as dist
-    from stoat_tpu_torch.parallel import (binary_analyze_sharded,
-                                          make_snarl_mesh,
-                                          shard_packed_chromosome)
+    from stoat_tpu_torch.parallel import steps
+    from stoat_tpu_torch.pipeline.binary import binary_analyze_chromosome
+    from stoat_tpu_torch.tables import pack_chromosome_chunks
 
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=WORLD, rank=rank)
     try:
         snarls, matrix, pheno = _load(paths)
-        per = SHARDS // WORLD
-        mine = _own_shards(shard_packed_chromosome(snarls, matrix, SHARDS),
-                           rank * per, (rank + 1) * per)
-        res = binary_analyze_sharded(mine, pheno,
-                                     make_snarl_mesh(["cpu"] * per), *TH)
-        local = {key: np.asarray(res[key]) for key in KEYS}
+        per = DEVICES // WORLD
+        mine = range(rank * per, (rank + 1) * per)
+        devices = [torch.device("cpu", d) for d in range(DEVICES)]
+        local = []
+        for s, step in enumerate(steps(pack_chromosome_chunks(
+                snarls, matrix, CHUNK), devices)):
+            for device, packed in step:
+                if device.index in mine:
+                    res = binary_analyze_chromosome(packed, pheno, *TH,
+                                                    torch.device("cpu"))
+                    local.append((s * DEVICES + device.index, {
+                        key: np.asarray(res[key])[:packed.n_snarls]
+                        for key in KEYS}))
         parts = [None] * WORLD if rank == 0 else None
         dist.gather_object(local, parts, dst=0)
         if rank == 0:
+            chunks = sorted((c for part in parts for c in part),
+                            key=lambda c: c[0])
+            assert [i for i, _r in chunks] == list(range(len(chunks)))
             np.savez(out_path, **{key: np.concatenate(
-                [part[key] for part in parts]) for key in KEYS})
+                [r[key] for _i, r in chunks]) for key in KEYS})
     finally:
         dist.destroy_process_group()
 

@@ -1,21 +1,19 @@
-"""Parity of the port's snarl mesh (stoat_tpu_torch/parallel) with the JAX
-package's, on the CPU.
+"""The port's snarl mesh (stoat_tpu_torch/parallel) on the CPU.
 
-The port's sharded functions run on meshes of CPU devices named several
-times (``[cpu] * n``, the counterpart of conftest.py's virtual devices);
-stoat_tpu's run on conftest.py's 8 virtual CPU devices (a mesh of
-min(n, 8)), on the fixtures and seeds of tests/test_sharding.py and
-tests/test_sharding_quant.py.  Tolerances: against the port's own
-single-device pipeline every array is bitwise (each snarl is computed by
-the same code whatever the split); against stoat_tpu, the shard layout,
-flags and counts exact, Fisher and chi-squared p within 1e-12 relative
-(XLA's CPU build differs in the last bit of some Fisher values, as
-tests/test_torch_fisher_scan.py states) and the regressions at
-tests/test_sharding_quant.py's tolerances (1e-10 OLS, 1e-9 mixed model and
-logistic), with equal ``format_p`` strings.
+A mesh is a list of devices, here the CPU named several times (``[cpu] *
+n``, the counterpart of conftest.py's virtual devices), and
+``parallel.mesh.steps`` deals a chromosome's chunks over it.  The rule's
+cases run on tests/test_sharding.py's fixture; every mode's tables come
+from the port's entry point, ``run_vcf_analysis`` with ``mesh=``, at
+chunks of ceil(S / n) snarls (a chunk a device, as many devices as
+snarls at n = 40, and more), on the fixtures and draws of
+tests/test_sharding.py and tests/test_sharding_quant.py.  They are held
+byte for byte to stoat_tpu's runner on conftest.py's 8 virtual devices
+(its sharded run), -T tables included.
 """
 
-import weakref
+import filecmp
+import os
 
 import numpy as np
 import pytest
@@ -23,200 +21,61 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from fixtures import make_fixture
-from stoat_tpu import parallel as jpar
 from stoat_tpu.io.snarl_file import parse_snarl_path as j_snarls
-from stoat_tpu.io.vcf import VcfReader as JReader
-from stoat_tpu.matrix import EdgeHaplotypeMatrix as JMatrix
-from stoat_tpu.writer import format_p
+from stoat_tpu.pipeline.runner import run_vcf_analysis as j_run
+from stoat_tpu.stats.lmm import fit_null_reml as j_fit
 from stoat_tpu_torch import parallel as tpar
-from stoat_tpu_torch.convert import (pheno_masks, to_binary_pheno,
-                                     to_lmm_inputs, to_quant_inputs)
 from stoat_tpu_torch.io.phenotype import (parse_binary_pheno,
                                           parse_quantitative_pheno)
 from stoat_tpu_torch.io.snarl_file import parse_snarl_path
 from stoat_tpu_torch.io.vcf import VcfReader
 from stoat_tpu_torch.matrix import EdgeHaplotypeMatrix
-from stoat_tpu_torch.parallel.sharded import Replicated
-from stoat_tpu_torch.pipeline.binary import binary_analyze_chromosome
-from stoat_tpu_torch.pipeline.quantitative import (
-    binary_covar_analyze_chromosome, dual_analyze_chromosome,
-    lmm_analyze_chromosome, quantitative_analyze_chromosome)
+from stoat_tpu_torch.pipeline import permutation as tperm
+from stoat_tpu_torch.pipeline import runner as trunner
 from stoat_tpu_torch.stats.lmm import fit_null_reml
-from stoat_tpu_torch.tables import pack_chromosome
+from stoat_tpu_torch.tables import pack_chromosome_chunks
 
-TH = (3, 5, 0.05)
 CPU = torch.device("cpu")
-# 40 shards of the 24- and 30-snarl fixtures leave shards empty
+# 40 devices for the 24- and 30-snarl fixtures leave devices idle
 SIZES = [1, 2, 3, 4, 8, 40]
 
 
-def _load(tmp_path_factory, name, n_samples, n_snarls, seed):
-    """(port's snarls, port's matrix, stoat_tpu's snarls, its matrix,
-    paths) of a one-chromosome fixture."""
+def _workload(tmp_path_factory, name, n_samples, n_snarls, seed):
     paths = make_fixture(str(tmp_path_factory.mktemp(name)),
                          n_samples=n_samples, n_snarls=n_snarls, seed=seed)
-    out = []
-    for reader_cls, matrix_cls, parse in ((VcfReader, EdgeHaplotypeMatrix,
-                                           parse_snarl_path),
-                                          (JReader, JMatrix, j_snarls)):
-        reader = reader_cls(paths["vcf"])
-        _, records = next(iter(reader.chromosome_chunks()))
-        matrix = matrix_cls(2 * n_samples)
-        for rec in records:
-            matrix.add_record(rec)
-        reader.close()
-        out += [parse(paths["snarl"])["ref"], matrix]
-    return (*out, paths)
+    pheno_b, samples = parse_binary_pheno(paths["binary"],
+                                          list(paths["samples"]))
+    return {"paths": paths, "samples": samples, "b": pheno_b,
+            "q": parse_quantitative_pheno(paths["quantitative"], samples),
+            "n_snarls": n_snarls, "tmp": tmp_path_factory.mktemp(name + "j"),
+            "jax": {}}
 
 
 @pytest.fixture(scope="module")
 def binary_workload(tmp_path_factory):
     """tests/test_sharding.py's workload."""
-    snarls, matrix, jsnarls, jmatrix, paths = _load(
-        tmp_path_factory, "tshard", 50, 30, 3)
-    pheno, _ = parse_binary_pheno(paths["binary"], list(paths["samples"]))
-    return snarls, matrix, jsnarls, jmatrix, pheno
+    return _workload(tmp_path_factory, "tshard", 50, 30, 3)
 
 
 @pytest.fixture(scope="module")
 def quant_workload(tmp_path_factory):
     """tests/test_sharding_quant.py's workload."""
-    snarls, matrix, jsnarls, jmatrix, paths = _load(
-        tmp_path_factory, "tshardq", 40, 24, 13)
-    pheno = parse_quantitative_pheno(paths["quantitative"],
-                                     list(paths["samples"]))
-    return snarls, matrix, jsnarls, jmatrix, pheno
+    return _workload(tmp_path_factory, "tshardq", 40, 24, 13)
 
 
 def _mesh(n):
     return tpar.make_snarl_mesh([CPU] * n)
 
 
-def _bitwise(got, want, S, keys):
-    for key in keys:
-        np.testing.assert_array_equal(np.asarray(got[key]),
-                                      np.asarray(want[key])[:S], key)
+def _same(a, b):
+    assert filecmp.cmp(a, b, shallow=False), (a, b)
 
 
-def test_make_snarl_mesh():
-    """A mesh names its devices in order, any of them several times;
-    without a card the default mesh raises rather than becoming the CPU
-    (decided here, at run time)."""
-    mesh = tpar.make_snarl_mesh(["cpu"] * 3)
-    assert mesh.devices == (CPU,) * 3 and len(mesh) == 3
-    assert mesh.axis_name == "snarls" and mesh.distinct == (CPU,)
-    with pytest.raises(ValueError):
-        tpar.make_snarl_mesh([])
-    if torch.cuda.is_available():
-        assert len(tpar.make_snarl_mesh()) == torch.cuda.device_count()
-    else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            tpar.make_snarl_mesh()
-
-
-@pytest.mark.parametrize("n", SIZES)
-def test_shard_layout_matches_jax(binary_workload, n):
-    """shard_packed_chromosome: every stacked array, the shard sizes and
-    the words equal stoat_tpu's."""
-    snarls, matrix, jsnarls, jmatrix, _ = binary_workload
-    got = tpar.shard_packed_chromosome(snarls, matrix, n)
-    want = jpar.shard_packed_chromosome(jsnarls, jmatrix, n)
-    for key in ("words", "path_idx", "coo_path", "coo_row",
-                "n_edges_per_path", "path_valid", "snarl_path_idx"):
-        np.testing.assert_array_equal(getattr(got, key), getattr(want, key),
-                                      key)
-    assert got.shard_sizes == want.shard_sizes
-    assert got.n_snarls == want.n_snarls == len(snarls)
-    assert got.n_shards == n and got.n_haps == want.n_haps
-    np.testing.assert_array_equal(got.matrix, want.matrix)
-    if n > len(snarls):
-        assert 0 in got.shard_sizes
-
-
-@pytest.mark.parametrize("chunk,n", [(7, 1), (7, 3), (8, 4), (16, 8),
-                                     (30, 2), (64, 40)])
-def test_chunks_match_shard_of_chunk(binary_workload, chunk, n):
-    """shard_chromosome_chunks (the runner's and the permutation pass's:
-    the paths resolved once a chromosome): each chunk equals
-    shard_packed_chromosome of the chunk's snarls alone, and every chunk
-    carries the one words array."""
-    snarls, matrix = binary_workload[:2]
-    got = list(tpar.shard_chromosome_chunks(snarls, matrix, chunk, n))
-    assert len(got) == -(-len(snarls) // chunk)
-    for i, sharded in enumerate(got):
-        want = tpar.shard_packed_chromosome(
-            snarls[i * chunk:(i + 1) * chunk], matrix, n)
-        for key in ("words", "path_idx", "coo_path", "coo_row",
-                    "n_edges_per_path", "path_valid", "snarl_path_idx"):
-            np.testing.assert_array_equal(getattr(sharded, key),
-                                          getattr(want, key), key)
-        assert sharded.shard_sizes == want.shard_sizes
-        assert sharded.snarls == want.snarls
-        assert sharded.words is got[0].words
-    assert list(tpar.shard_chromosome_chunks([], matrix, chunk, n)) == []
-
-
-@pytest.mark.parametrize("n", SIZES)
-def test_binary_mesh_parity(binary_workload, n):
-    """binary_analyze_sharded: bitwise the port's one-device pipeline, and
-    stoat_tpu's binary_analyze_sharded as the module docstring states."""
-    snarls, matrix, jsnarls, jmatrix, pheno = binary_workload
-    packed = pack_chromosome(snarls, matrix)
-    S = packed.n_snarls
-    base = binary_analyze_chromosome(packed, pheno, *TH, CPU)
-    out = tpar.binary_analyze_sharded(
-        tpar.shard_packed_chromosome(snarls, matrix, n), pheno, _mesh(n),
-        *TH)
-    assert out["p_chi2"].shape[0] == S
-    _bitwise(out, base, S, ("filtered", "keep", "g0", "g1", "p_fisher",
-                            "p_chi2"))
-    jn = min(n, 8)
-    want = jpar.binary_analyze_sharded(
-        jpar.shard_packed_chromosome(jsnarls, jmatrix, jn), pheno,
-        jpar.make_snarl_mesh(n_devices=jn), *TH)
-    for key in ("filtered", "keep", "g0", "g1"):
-        np.testing.assert_array_equal(out[key], np.asarray(want[key]), key)
-    for key in ("p_fisher", "p_chi2"):
-        np.testing.assert_allclose(out[key], want[key], rtol=1e-12, atol=0,
-                                   equal_nan=True, err_msg=key)
-        assert [format_p(v) for v in out[key]] == \
-            [format_p(v) for v in want[key]], key
-
-
-def _regression(mode, snarls, matrix, pheno, n, ctx, tables=False):
-    """(port sharded, port one-device) results of ``mode``."""
-    mesh = _mesh(n)
-    sharded = tpar.shard_packed_chromosome(snarls, matrix, n)
-    packed = pack_chromosome(snarls, matrix)
-    if mode == "quantitative":
-        out = tpar.quantitative_analyze_sharded(sharded, pheno, None, mesh,
-                                                *TH, return_tables=tables)
-        base = quantitative_analyze_chromosome(
-            packed, *to_quant_inputs(pheno, None, len(pheno), CPU), *TH, CPU,
-            tables=tables)
-    elif mode == "lmm":
-        out = tpar.lmm_analyze_sharded(sharded, ctx, None, mesh, *TH,
-                                       return_tables=tables)
-        base = lmm_analyze_chromosome(
-            packed, *to_lmm_inputs(ctx, None, len(pheno), CPU), *TH, CPU,
-            tables=tables)
-    else:
-        out = tpar.binary_covar_analyze_sharded(sharded, pheno, mesh, *TH,
-                                                return_tables=tables)
-        base = binary_covar_analyze_chromosome(
-            packed, to_binary_pheno(pheno, CPU), *TH, CPU, tables=tables)
-    return out, base, packed.n_snarls
-
-
-def _regression_inputs(mode, matrix, pheno):
-    """The phenotype of ``mode`` and the mixed model's null fit
-    (tests/test_sharding_quant.py's draws)."""
-    n = matrix.n_haplotypes // 2
-    if mode == "logistic":
-        return np.random.default_rng(0).integers(0, 2, n).astype(bool), None
-    if mode == "lmm":
-        return pheno, fit_null_reml(pheno, _kinship(n))
-    return pheno, None
+def _tables_equal(dir_a, dir_b):
+    names = sorted(os.listdir(dir_a))
+    assert names == sorted(os.listdir(dir_b)) and names, "no tables"
+    for name in names:
+        _same(os.path.join(dir_a, name), os.path.join(dir_b, name))
 
 
 def _kinship(n):
@@ -227,125 +86,240 @@ def _kinship(n):
     return K / np.outer(d, d)
 
 
-# tests/test_sharding_quant.py's meshes and tolerances, and an uneven split
-# and empty shards of each
-REGRESSION_CASES = [("quantitative", n, 1e-10) for n in (2, 3, 8, 40)] + \
-    [("lmm", n, 1e-9) for n in (2, 3, 8, 40)] + \
-    [("logistic", n, 1e-9) for n in (3, 4, 40)]
+def _logistic_pheno(w):
+    """tests/test_sharding_quant.py's case-control draw."""
+    return np.random.default_rng(0).integers(0, 2, len(w["samples"])
+                                             ).astype(bool)
 
 
-@pytest.mark.parametrize("mode,n,rel", REGRESSION_CASES)
-def test_regression_mesh_parity(quant_workload, mode, n, rel):
-    """quantitative_analyze_sharded, lmm_analyze_sharded and
-    binary_covar_analyze_sharded: bitwise the port's one-device pipeline,
-    and stoat_tpu's sharded functions within ``rel`` with equal
-    strings."""
-    snarls, matrix, jsnarls, jmatrix, pheno_q = quant_workload
-    pheno, ctx = _regression_inputs(mode, matrix, pheno_q)
-    out, base, S = _regression(mode, snarls, matrix, pheno, n, ctx)
-    keys = ("p", "beta", "se") + (("r2",) if mode != "logistic" else ())
-    _bitwise(out, base, S, ("filtered", "allele_paths") + keys)
-    jn = min(n, 8)
-    jsharded = jpar.shard_packed_chromosome(jsnarls, jmatrix, jn)
-    jmesh = jpar.make_snarl_mesh(n_devices=jn)
-    if mode == "quantitative":
-        want = jpar.quantitative_analyze_sharded(jsharded, pheno, None, jmesh,
-                                                 *TH)
-    elif mode == "lmm":
-        want = jpar.lmm_analyze_sharded(jsharded, _jax_ctx(matrix, pheno),
-                                        None, jmesh, *TH)
+def _port(w, mode, n, out_dir, tables=False, **kw):
+    """The port's ``mode`` on a mesh of ``n`` CPU devices at chunks of
+    ceil(S / n) snarls; returns the table's path (and -T's directory)."""
+    out = os.path.join(out_dir, "port.tsv")
+    if mode == "lmm":
+        kw["phenotype"] = fit_null_reml(w["q"], _kinship(len(w["q"])))
+    elif mode == "binary_covar":
+        kw["phenotype"] = _logistic_pheno(w)
+    elif mode == "quantitative":
+        kw["phenotype"] = w["q"]
     else:
-        want = jpar.binary_covar_analyze_sharded(jsharded, pheno, jmesh, *TH)
-    np.testing.assert_array_equal(out["filtered"], want["filtered"])
-    for key in keys:
-        np.testing.assert_allclose(out[key], want[key], rtol=rel, atol=0,
-                                   equal_nan=True, err_msg=key)
-        for i in range(S):
-            if not want["filtered"][i]:
-                assert format_p(out[key][i]) == format_p(want[key][i]), \
-                    (key, i)
+        kw["phenotype"] = w["b"]
+    rdir = None
+    if tables:
+        rdir = os.path.join(out_dir, "regression")
+        os.makedirs(rdir)
+        kw.update(table_threshold=1.0, regression_dir=rdir)
+    trunner.run_vcf_analysis(
+        w["paths"]["vcf"], parse_snarl_path(w["paths"]["snarl"]), out,
+        device=CPU, mode=mode, sample_names=w["samples"],
+        snarl_chunk_size=-(-w["n_snarls"] // n), mesh=_mesh(n), **kw)
+    return out, rdir
 
 
-def _jax_ctx(matrix, pheno):
-    """stoat_tpu's null fit on the same kinship."""
-    from stoat_tpu.stats.lmm import fit_null_reml as j_fit
-    return j_fit(pheno, _kinship(matrix.n_haplotypes // 2))
+def _jax(w, mode, tables=False):
+    """stoat_tpu's runner on its 8-device mesh, run once a mode; returns
+    the table's path (and -T's directory)."""
+    key = (mode, tables)
+    if key not in w["jax"]:
+        base = w["tmp"] / f"{mode}_{int(tables)}"
+        base.mkdir()
+        out, kw = str(base / "jax.tsv"), {}
+        if mode == "lmm":
+            kw["lmm_ctx"] = j_fit(w["q"], _kinship(len(w["q"])))
+        rdir = None
+        if tables:
+            rdir = str(base / "regression")
+            os.makedirs(rdir)
+            kw.update(table_threshold=1.0, regression_dir=rdir)
+        j_run(w["paths"]["vcf"], j_snarls(w["paths"]["snarl"]), out, mode,
+              binary_phenotype=(_logistic_pheno(w) if mode == "binary_covar"
+                                else w["b"]),
+              quantitative_phenotype=w["q"], sample_names=w["samples"],
+              **kw)
+        w["jax"][key] = (out, rdir)
+    return w["jax"][key]
 
 
-@pytest.mark.parametrize("mode", ["quantitative", "lmm", "logistic"])
+def test_make_snarl_mesh():
+    """A mesh names its devices in order, any of them several times;
+    without a card the default mesh raises rather than becoming the CPU
+    (decided here, at run time)."""
+    mesh = tpar.make_snarl_mesh(["cpu"] * 3)
+    assert mesh.devices == (CPU,) * 3 and len(mesh) == 3
+    with pytest.raises(ValueError):
+        tpar.make_snarl_mesh([])
+    if torch.cuda.is_available():
+        assert len(tpar.make_snarl_mesh()) == torch.cuda.device_count()
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tpar.make_snarl_mesh()
+
+
+# the (chunk, devices) pairs of the JAX layout's cases: a shard of ceil(30 /
+# n) snarls a device, and the chunked splits
+STEP_CASES = [(-(-30 // n), n) for n in SIZES] + [
+    (7, 1), (7, 3), (8, 4), (16, 8), (30, 2), (64, 40)]
+
+
+@pytest.mark.parametrize("chunk,n", STEP_CASES)
+def test_steps_deal_whole_chunks(binary_workload, monkeypatch, tmp_path,
+                                 chunk, n):
+    """``steps`` deals the runner's chunks whole: each snarl in exactly one
+    chunk, in file order; a step is the next n chunks, chunk d of it on
+    device d.  The runner on a mesh naming the CPU n times queues each
+    chunk once, in order, and uploads the words and the phenotype masks
+    once."""
+    w = binary_workload
+    snarls = parse_snarl_path(w["paths"]["snarl"])["ref"]
+    reader = VcfReader(w["paths"]["vcf"])
+    _, records = next(iter(reader.chromosome_chunks()))
+    matrix = EdgeHaplotypeMatrix(2 * len(w["samples"]))
+    for rec in records:
+        matrix.add_record(rec)
+    reader.close()
+    chunks = pack_chromosome_chunks(snarls, matrix, chunk)
+    devices = [torch.device("cpu", d) for d in range(n)]
+    got = list(tpar.steps(chunks, devices))
+    assert [len(step) for step in got] == [
+        min(n, len(chunks) - i) for i in range(0, len(chunks), n)]
+    for step in got:
+        assert [d for d, _c in step] == devices[:len(step)]
+    dealt = [c for step in got for _d, c in step]
+    assert len(dealt) == len(chunks)
+    assert all(a is b for a, b in zip(dealt, chunks))
+    ids = [s.snarl_id_str for s in snarls]
+    assert [s.snarl_id_str for c in dealt for s in c.snarls] == ids
+    assert list(tpar.steps([], devices)) == []
+
+    counts = {"words": 0, "masks": 0}
+    queued = []
+
+    def counted(name, real):
+        def wrapper(*args, **kwargs):
+            counts[name] += 1
+            return real(*args, **kwargs)
+        return wrapper
+
+    def spy(packed, *args, **kwargs):
+        queued.append((args[-1], [s.snarl_id_str for s in packed.snarls]))
+        return analyze(packed, *args, **kwargs)
+
+    analyze = trunner.binary_analyze_chromosome
+    monkeypatch.setattr(trunner, "upload_words",
+                        counted("words", trunner.upload_words))
+    monkeypatch.setattr(trunner, "pheno_masks",
+                        counted("masks", trunner.pheno_masks))
+    monkeypatch.setattr(trunner, "binary_analyze_chromosome", spy)
+    trunner.run_vcf_analysis(
+        w["paths"]["vcf"], parse_snarl_path(w["paths"]["snarl"]),
+        str(tmp_path / "out.tsv"), w["b"], CPU, sample_names=w["samples"],
+        snarl_chunk_size=chunk, mesh=_mesh(n))
+    assert counts == {"words": 1, "masks": 1}
+    assert [d for d, _s in queued] == [CPU] * len(chunks)
+    assert [s for _d, ids_ in queued for s in ids_] == ids
+
+
+def test_inputs_uploaded_once_per_device(binary_workload, monkeypatch,
+                                         tmp_path):
+    """The permutation pass on a mesh naming the CPU four times, two
+    chromosomes, both phenotypes: each chromosome's words uploaded once,
+    each job's rows and covariates and the tail once a run, and its tables
+    those of one device."""
+    paths = make_fixture(str(tmp_path / "data"), n_samples=30, n_snarls=24,
+                         seed=5, n_chroms=2)
+    pheno_b, samples = parse_binary_pheno(paths["binary"],
+                                          list(paths["samples"]))
+    pheno_q = parse_quantitative_pheno(paths["quantitative"], samples)
+    calls = {"words": 0, "rows": 0, "upload": 0}
+
+    def counted(name, real):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return real(*args, **kwargs)
+        return wrapper
+
+    outs = {}
+    for label, mesh in (("single", None), ("mesh", _mesh(4))):
+        for name, attr in (("words", "upload_words"),
+                           ("rows", "to_perm_inputs"), ("upload", "upload")):
+            monkeypatch.setattr(tperm, attr, counted(name, getattr(tperm,
+                                                                   attr)))
+        calls.update(dict.fromkeys(calls, 0))
+        b, q = str(tmp_path / f"{label}_b"), str(tmp_path / f"{label}_q")
+        tperm.run_permutation_test(
+            paths["vcf"], parse_snarl_path(paths["snarl"]), b,
+            pheno_bin=pheno_b, quantitative_phenotype=pheno_q,
+            output_tsv_quant=q, n_perms=20, seed=3, snarl_chunk_size=4,
+            device="cpu", mesh=mesh)
+        monkeypatch.undo()
+        outs[label] = (b, q, dict(calls))
+    # two chromosomes; two jobs, each with its covariates ([N, 0]), and one
+    # tail (the path tables go through convert.py)
+    assert outs["mesh"][2] == outs["single"][2] == {
+        "words": 2, "rows": 2, "upload": 3}
+    for single, meshed in zip(outs["single"][:2], outs["mesh"][:2]):
+        _same(single, meshed)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_binary_mesh_parity(binary_workload, tmp_path, n):
+    """vcf -b on a mesh of n: stoat_tpu's sharded run, byte for byte."""
+    got, _ = _port(binary_workload, "binary", n, str(tmp_path))
+    _same(got, _jax(binary_workload, "binary")[0])
+
+
+# tests/test_sharding_quant.py's meshes, an uneven split and idle devices
+# of each
+REGRESSION_CASES = [("quantitative", n) for n in (2, 3, 8, 40)] + \
+    [("lmm", n) for n in (2, 3, 8, 40)] + \
+    [("binary_covar", n) for n in (3, 4, 40)]
+
+
+@pytest.mark.parametrize("mode,n", REGRESSION_CASES)
+def test_regression_mesh_parity(quant_workload, tmp_path, mode, n):
+    """vcf -q, the mixed model and vcf -b -c on a mesh of n: stoat_tpu's
+    sharded run, byte for byte."""
+    got, _ = _port(quant_workload, mode, n, str(tmp_path))
+    _same(got, _jax(quant_workload, mode)[0])
+
+
+@pytest.mark.parametrize("mode", ["quantitative", "lmm", "binary_covar"])
 @pytest.mark.parametrize("n", [3, 40])
-def test_table_view_gathers_across_shards(quant_workload, mode, n):
-    """With ``return_tables`` the -T table view stays on the shards; its
-    rows, asked for by global snarl index in any order, equal the
-    one-device view's."""
-    snarls, matrix, _js, _jm, pheno_q = quant_workload
-    pheno, ctx = _regression_inputs(mode, matrix, pheno_q)
-    out, base, S = _regression(mode, snarls, matrix, pheno, n, ctx,
-                               tables=True)
-    rows = [S - 1, 0, S // 2, 1, S - 1]
-    for got, want in zip(out.tables.rows(rows), base.tables.rows(rows)):
-        np.testing.assert_array_equal(got, want)
+def test_table_view_gathers_across_shards(quant_workload, tmp_path, mode,
+                                          n):
+    """-T on a mesh of n: the table and every snarl's table file
+    stoat_tpu's sharded run's, byte for byte (each chunk's table view
+    stays on its device until its writer asks for rows)."""
+    got, rdir = _port(quant_workload, mode, n, str(tmp_path), tables=True)
+    want, jdir = _jax(quant_workload, mode, tables=True)
+    _same(got, want)
+    _tables_equal(rdir, jdir)
 
 
 @pytest.mark.parametrize("n", [1, 3, 8, 40])
 @pytest.mark.parametrize("with_covar", [False, True])
-def test_dual_mesh_parity(binary_workload, n, with_covar):
-    """dual_analyze_sharded: both tables bitwise the port's one-device
-    dual, and stoat_tpu's dual_analyze_sharded (counts and flags exact;
-    Fisher and chi-squared p within 1e-12; the OLS within 1e-10; equal
-    strings)."""
-    snarls, matrix, jsnarls, jmatrix, pheno = binary_workload
-    N = matrix.n_haplotypes // 2
+def test_dual_mesh_parity(binary_workload, tmp_path, n, with_covar):
+    """The dual ``vcf -b -q`` on a mesh of n: both tables stoat_tpu's
+    sharded dual's, byte for byte."""
+    w = binary_workload
+    N = len(w["samples"])
     rng = np.random.default_rng(11)
     qpheno = rng.standard_normal(N)
     covar = rng.standard_normal((N, 2)) if with_covar else None
-    packed = pack_chromosome(snarls, matrix)
-    S = packed.n_snarls
-    words_w = int(packed.packed_words().shape[1])
-    base = dual_analyze_chromosome(
-        packed, pheno_masks(pheno, 2 * N, words_w, CPU),
-        *to_quant_inputs(qpheno, covar, N, CPU), *TH, CPU)
-    out = tpar.dual_analyze_sharded(
-        tpar.shard_packed_chromosome(snarls, matrix, n), pheno, qpheno,
-        _mesh(n), *TH, covariate=covar)
-    assert sorted(out) == sorted(base)
-    _bitwise(out, base, S, list(base))
-    jn = min(n, 8)
-    want = jpar.dual_analyze_sharded(
-        jpar.shard_packed_chromosome(jsnarls, jmatrix, jn), pheno, qpheno,
-        jpar.make_snarl_mesh(n_devices=jn), *TH, covariate=covar)
-    for key in ("filtered", "g0", "g1", "q_filtered"):
-        np.testing.assert_array_equal(out[key], np.asarray(want[key]), key)
-    for key, rel in (("p_fisher", 1e-12), ("p_chi2", 1e-12), ("q_p", 1e-10),
-                     ("q_beta", 1e-10), ("q_se", 1e-10), ("q_r2", 1e-10)):
-        np.testing.assert_allclose(out[key], want[key], rtol=rel,
-                                   equal_nan=True, err_msg=key)
-        assert [format_p(v) for v in out[key]] == \
-            [format_p(v) for v in want[key]], key
-
-
-def test_replicated_inputs_held_once_per_device(binary_workload):
-    """A mesh that names the CPU four times uploads the words and masks
-    once; a call with the same host objects reuses them, other words
-    replace them, the old copies freed first."""
-    snarls, matrix, _js, _jm, pheno = binary_workload
-    mesh = _mesh(4)
-    rep = Replicated(mesh)
-    sharded = tpar.shard_packed_chromosome(snarls, matrix, 4)
-    first = tpar.binary_analyze_sharded(sharded, pheno, mesh, *TH,
-                                        replicated=rep)
-    words = rep.get("words", sharded.words, None)
-    assert len(words) == 4 and all(w is words[0] for w in words)
-    assert rep.uploads == {"words": 1, "case mask": 1, "tail": 1}
-    again = tpar.binary_analyze_sharded(sharded, pheno, mesh, *TH,
-                                        replicated=rep)
-    assert rep.uploads == {"words": 1, "case mask": 1, "tail": 1}
-    np.testing.assert_array_equal(again["p_chi2"], first["p_chi2"])
-    # other words replace the copies, which are freed before the new
-    # upload (one chromosome's words on the device at a time)
-    held = weakref.ref(words[0])
-    del words
-    freed = []
-    rep.get("words", sharded.words.copy(),
-            lambda w: freed.append(held() is None) or w)
-    assert freed == [True] and rep.uploads["words"] == 2
+    q = str(tmp_path / "port_q.tsv")
+    got, _ = _port(w, "binary", n, str(tmp_path), covariate=covar,
+                   secondary={"mode": "quantitative", "output_tsv": q,
+                              "quantitative_phenotype": qpheno})
+    key = ("dual", with_covar)
+    if key not in w["jax"]:
+        base = w["tmp"] / f"dual_{int(with_covar)}"
+        base.mkdir()
+        jb, jq = str(base / "b.tsv"), str(base / "q.tsv")
+        j_run(w["paths"]["vcf"], j_snarls(w["paths"]["snarl"]), jb,
+              "binary", binary_phenotype=w["b"], covariate=covar,
+              sample_names=w["samples"],
+              secondary={"mode": "quantitative", "output_tsv": jq,
+                         "quantitative_phenotype": qpheno})
+        w["jax"][key] = (jb, jq)
+    for mine, want in zip((got, q), w["jax"][key]):
+        _same(mine, want)
